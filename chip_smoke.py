@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tsp_mpi_reduction_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own line; any failure exits non-zero:
+
+1. device and build: the card's name and power limit (nvidia-smi), then
+   the CUDA kernels built from ``kernels/csrc`` for sm_90a;
+2. kernel parity: each hand kernel against its plain PyTorch version,
+   exactly (``torch.equal``), f32 and f64, with inf entries and ties; plus
+   a check that ``argmin``/``argmax`` pick the first index on CUDA;
+3. oracle parity: the CLI's ``10 6 500 500`` cost, and the goldens'
+   block solutions, fold costs and final tour in float64 under the
+   ``fused`` and ``pallas`` impls; ``--ranks=4`` equal under fused/compact;
+4. full size: n = 16 cities per block (the reference's cap), 1024 blocks,
+   1000x1000, float32, impl ``auto`` — phase times, the final line, fused
+   against plain compact on one distance tensor (exact), per-kernel times
+   from CUDA events with the kernels' bounds, and each impl's wall time.
+
+The main path runs with the kernels' launch counts reset just before and
+read just after; a kernel of the path that never launched fails the run.
+The last two lines are the per-kernel JSON and ``{"ok": true, ...}``.
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+GOLDENS = ROOT / "goldens"
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and the
+# non-tensor-core float32 / float64 rates
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+
+N_FULL, B_FULL, GRID_FULL = 16, 1024, 1000
+KERNEL_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/held_karp_relax.cu"
+REPLACES = {
+    "relax_minplus": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:74",
+    "relax_dense": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:173",
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over entries finite in both; inf where a and b
+    disagree on which entries are infinite."""
+    import torch
+
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
+        return math.inf
+    if not fa.any():
+        return 0.0
+    return float((a[fa].double() - b[fb].double()).abs().max())
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def wall_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bound_ms(nbytes: float, ops: float, dtype_name: str):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from tsp_mpi_reduction_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all(verbose=True)
+    _build.library()
+    print(f"phase 1 build: {len(libs)} library built in {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(p.name for p in libs)})")
+    return smi
+
+
+def phase_kernel_parity(errs):
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+
+    checked = 0
+    for m in (4, 9, 15, 17):
+        for dt in (torch.float32, torch.float64):
+            rng = np.random.default_rng(m)
+            g = np.round(rng.uniform(0, 100, (3, 130, m)))  # rounded: many ties
+            g[rng.uniform(size=g.shape) < 0.2] = np.inf
+            g[:, 3] = np.inf  # an all-inf row: inf with parent 0
+            d_t = np.round(rng.uniform(0, 50, (3, m, m)))
+            gt = torch.tensor(g, dtype=dt, device="cuda")
+            dtt = torch.tensor(d_t, dtype=dt, device="cuda")
+            c_k, p_k = hkk.relax_minplus(gt, dtt)
+            c_p, p_p = hkk.relax_minplus_reference(gt, dtt)
+            torch.cuda.synchronize()
+            require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
+                    f"relax_minplus != plain at M={m} {dt}")
+            errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
+            checked += 1
+    for n in (6, 16, 18):
+        m = n - 1
+        for dt in (torch.float32, torch.float64):
+            rng = np.random.default_rng(n)
+            bsz = 4 if n < 18 else 2
+            d_sub = torch.tensor(np.round(rng.uniform(0, 50, (bsz, m, m))), dtype=dt, device="cuda")
+            tab = torch.full((bsz, m, 1 << m), math.inf, dtype=dt, device="cuda")
+            tab[:, :, 0] = torch.tensor(np.round(rng.uniform(0, 50, (bsz, m))), dtype=dt)
+            for c in range(1, m):
+                ref = hkk.relax_dense_reference(tab, d_sub, c)
+                got = hkk.relax_dense(tab.clone(), d_sub, c)
+                torch.cuda.synchronize()
+                require(torch.equal(ref, got), f"relax_dense != plain at n={n} c={c} {dt}")
+                errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(got, ref))
+                tab = ref
+                checked += 1
+
+    # first-index ties of argmin / argmax on CUDA (merge and backtrack rely on it)
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 5, size=(16385 * 17,)).astype(np.float32)
+    xt = torch.tensor(x, device="cuda")
+    require(int(xt.argmin()) == int(np.argmin(x)), "flat argmin is not first-index on CUDA")
+    rows = rng.integers(0, 3, size=(4096, 15)).astype(np.float64)
+    require(torch.equal(torch.tensor(rows, device="cuda").argmin(dim=1).cpu(),
+                        torch.tensor(np.argmin(rows, axis=1))), "row argmin not first-index")
+    flags = rng.uniform(size=20000) < 0.01
+    require(int(torch.tensor(flags, device="cuda").to(torch.int32).argmax()) == int(np.argmax(flags)),
+            "argmax over int32 flags is not first-index on CUDA")
+    print(f"phase 2 kernel parity: {checked} exact comparisons, argmin/argmax first-index on ties")
+
+
+def phase_oracle():
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models.distributed import run_pipeline_ranks
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+    from tsp_mpi_reduction_tpu_torch.ops.generator import generate_instance
+    from tsp_mpi_reduction_tpu_torch.ops.merge import PaddedTour, make_padded, merge_tours
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices
+    from tsp_mpi_reduction_tpu_torch.utils import cli
+    from tsp_mpi_reduction_tpu_torch.utils.state import instance_from_numpy
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["10", "6", "500", "500", "--dtype=float64"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    require(rc == 0 and line.endswith(" ms for 60 cities and the trip cost 3720.557435"),
+            f"CLI 10 6 500 500: rc={rc} {line!r}")
+    print(f"phase 3 cli: {line}")
+
+    dev = torch.device("cuda")
+    for name in ("full_16x200_1000x1000.json", "full_10x100_1000x1000.json"):
+        g = json.loads((GOLDENS / name).read_text())
+        cfg = g["config"]
+        n, nb = cfg["ncpb"], cfg["nblocks"]
+        _, xy = generate_instance(n, nb, cfg["gx"], cfg["gy"])
+        _, dist = instance_from_numpy(xy, torch.float64, dev)
+        block_d = block_distance_slices(dist, nb, n)
+        for impl in ("fused", "pallas"):
+            with held_karp.use_impl(impl):
+                costs, tours = held_karp.solve_blocks_from_dists(block_d, torch.float64)
+            gtours = tours + (torch.arange(nb, device=dev, dtype=torch.int32) * n)[:, None]
+            want_c = torch.tensor([s["cost"] for s in g["block_solutions"]], dtype=torch.float64)
+            want_t = torch.tensor([s["ids"] for s in g["block_solutions"]], dtype=torch.int32)
+            require(torch.equal(costs.cpu(), want_c), f"{name} {impl}: block costs differ")
+            require(torch.equal(gtours.cpu(), want_t), f"{name} {impl}: block tours differ")
+            cap = nb * n + 1
+            acc = make_padded(gtours[0], n + 1, costs[0], cap)
+            length = torch.tensor(n + 1, dtype=torch.int32, device=dev)
+            fold_costs = []
+            for b in range(1, nb):
+                acc = merge_tours(acc, PaddedTour(gtours[b], length, costs[b]), dist)
+                fold_costs.append(acc.cost)
+            require(torch.equal(torch.stack(fold_costs).cpu(),
+                                torch.tensor(g["fold_costs"], dtype=torch.float64)),
+                    f"{name} {impl}: fold costs differ")
+            final_len = int(acc.length)
+            require(float(acc.cost) == g["final"]["cost"]
+                    and acc.ids[:final_len].cpu().tolist() == g["final"]["ids"],
+                    f"{name} {impl}: final tour differs")
+        print(f"phase 3 golden {name}: block costs+tours, {nb - 1} fold costs, final tour "
+              f"and cost {g['final']['cost']!r} exact under fused and pallas (float64)")
+
+    got = {}
+    for impl in ("fused", "compact"):
+        with held_karp.use_impl(impl):
+            got[impl] = run_pipeline_ranks(10, 100, 1000, 1000, 4, dtype=torch.float64, device=dev)
+    require(got["fused"].cost == got["compact"].cost
+            and np.array_equal(got["fused"].tour_ids, got["compact"].tour_ids),
+            "--ranks=4: fused and compact differ")
+    print(f"phase 3 ranks=4 (10x100): cost {got['fused'].cost:f} under fused == compact (float64)")
+
+
+def dense_bound(bsz: int, m: int, c: int, elt: int):
+    """Bytes and operations one dense step at cardinality c needs: read the
+    popcount c-1 states (endpoint outside), write the popcount c states,
+    read d_sub; c adds and c-1 mins per new state."""
+    new_states = math.comb(m, c) * (m - c)
+    nbytes = bsz * elt * (math.comb(m, c - 1) * (m - c + 1) + new_states + m * m)
+    ops = bsz * new_states * (2 * c - 1)
+    return nbytes, ops
+
+
+def minplus_bound(bsz: int, j: int, m: int, elt: int):
+    """Bytes and operations of one compact step: g, d_t in; cost, int32
+    parent out; M adds and M-1 compares per output."""
+    nbytes = bsz * (elt * (2 * j * m + m * m) + 4 * j * m)
+    ops = bsz * j * m * (2 * m - 1)
+    return nbytes, ops
+
+
+def phase_full(smi, errs):
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices, run_pipeline
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.utils import reporting
+
+    n, nb, m = N_FULL, B_FULL, N_FULL - 1
+    dt, dt_name, elt = torch.float32, "float32", 4
+    dev = torch.device("cuda")
+
+    # --- the main path: impl auto (relax_dense), counts reset just before
+    hkk.reset_launches()
+    t0 = time.perf_counter()
+    res = run_pipeline(n, nb, GRID_FULL, GRID_FULL, dtype=dt, device=dev)
+    elapsed_ms = int((time.perf_counter() - t0) * 1000)
+    launches_main = dict(hkk.LAUNCHES)
+    require(held_karp.effective_impl(dev) == "fused", "auto does not resolve to fused on CUDA")
+    require(launches_main["relax_dense"] == m - 1,
+            f"main path launched relax_dense {launches_main['relax_dense']} times, want {m - 1}")
+    phases = ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_seconds.items())
+    print(f"phase 4 main path (n={n}, {nb} blocks, {GRID_FULL}x{GRID_FULL}, float32, auto=fused): {phases}")
+    print(f"phase 4 {reporting.final_line(elapsed_ms, res.num_cities, res.cost)}")
+    tour = res.tour_ids
+    require(math.isfinite(res.cost) and tour[0] == tour[-1]
+            and np.array_equal(np.sort(tour[:-1]), np.arange(n * nb)),
+            "full-size tour is not a closed tour over every city")
+
+    # --- the pallas path: relax_minplus, counts reset just before
+    hkk.reset_launches()
+    with held_karp.use_impl("pallas"):
+        res_p = run_pipeline(n, nb, GRID_FULL, GRID_FULL, dtype=dt, device=dev)
+    launches_pallas = dict(hkk.LAUNCHES)
+    require(launches_pallas["relax_minplus"] == m - 1,
+            f"pallas path launched relax_minplus {launches_pallas['relax_minplus']} times")
+    require(res_p.cost == res.cost and np.array_equal(res_p.tour_ids, res.tour_ids),
+            "pallas path differs from the fused main path")
+    print(f"phase 4 pallas path: launches {launches_pallas}, result == main path")
+
+    # --- every impl on one distance tensor: exact agreement, wall time
+    block_d = block_distance_slices(res.dist, nb, n)
+    del res_p
+    results, walls = {}, {}
+    for impl in ("compact", "dense", "fused", "pallas"):
+        with held_karp.use_impl(impl):
+            held_karp.solve_blocks_from_dists(block_d, dt)  # warm-up
+            (c, t), walls[impl] = wall_s(lambda: held_karp.solve_blocks_from_dists(block_d, dt))
+        results[impl] = (c, t)
+    for impl in ("dense", "fused", "pallas"):
+        require(torch.equal(results[impl][0], results["compact"][0])
+                and torch.equal(results[impl][1], results["compact"][1]),
+                f"{impl} differs from plain compact at full size")
+    require(torch.equal(results["fused"][0].cpu(), torch.as_tensor(res.block_costs)),
+            "solve on the pipeline's distances differs from the pipeline's block costs")
+    # each block cost is its tour's length, summed in another order
+    costs, tours = results["fused"]
+    bidx = torch.arange(nb, device=dev)[:, None]
+    tour_len = block_d[bidx, tours[:, :-1].long(), tours[:, 1:].long()].double().sum(dim=1)
+    rel = float(((tour_len - costs.double()).abs() / tour_len).max())
+    require(rel < 1e-5, f"block cost vs tour length: rel err {rel} >= 1e-5 (float32)")
+    print("phase 4 impl wall times (s): " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
+          + f"; fused == dense == pallas == compact exactly; block cost vs tour length rel err {rel:.2e}")
+    del results
+
+    # --- per-kernel timing at the main path's shapes
+    d_sub = block_d[:, 1:, 1:].contiguous()
+    tab = torch.full((nb, m, 1 << m), math.inf, dtype=dt, device=dev)
+    tab[:, :, 0] = block_d[:, 0, 1:]
+    plain_dense_ms = []
+    for c in range(1, m):
+        ref_ms_start, ref_ms_stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ref_ms_start.record()
+        ref = hkk.relax_dense_reference(tab, d_sub, c)
+        ref_ms_stop.record()
+        hkk.relax_dense(tab, d_sub, c)
+        torch.cuda.synchronize()
+        plain_dense_ms.append(ref_ms_start.elapsed_time(ref_ms_stop))
+        require(torch.equal(tab, ref), f"relax_dense != plain at full size, c={c}")
+        errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(tab, ref))
+        del ref
+    reps = 5
+
+    def dense_all():
+        for c in range(1, m):
+            hkk.relax_dense(tab, d_sub, c)  # idempotent on the finished table
+
+    dense_ms = cuda_ms(dense_all, reps) / (m - 1)
+    dense_b = [dense_bound(nb, m, c, elt) for c in range(1, m)]
+    dense_bms = [bound_ms(b, o, dt_name) for b, o in dense_b]
+    d_bound = sum(b for b, _ in dense_bms) / len(dense_bms)
+    d_by = "bytes" if sum(b for b, _ in dense_b) / PEAK_BYTES_PER_S >= sum(
+        o for _, o in dense_b) / PEAK_OPS_PER_S[dt_name] else "operations"
+
+    # compact inputs of every step, rebuilt from the finished table
+    scatter_idx, prev_idx, member = held_karp._plan_tensors(n, str(dev))
+    j = prev_idx.shape[1]
+    inf_row = torch.full((nb, 1, m), math.inf, dtype=dt, device=dev)
+    table_c = torch.cat([tab.permute(0, 2, 1), inf_row], dim=1)  # [B, 2^m + 1, m]
+    del tab
+    cols = torch.arange(m, device=dev)
+    gs = [torch.where(member[s], table_c[:, prev_idx[s], cols],
+                      torch.tensor(math.inf, dtype=dt, device=dev)) for s in range(m - 1)]
+    del table_c
+    d_t = d_sub.transpose(1, 2).contiguous()
+    plain_minplus_ms = []
+    for g in gs:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        c_p, p_p = hkk.relax_minplus_reference(g, d_t)
+        e1.record()
+        c_k, p_k = hkk.relax_minplus(g, d_t)
+        torch.cuda.synchronize()
+        plain_minplus_ms.append(e0.elapsed_time(e1))
+        require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p), "relax_minplus != plain at full size")
+        errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
+        del c_p, p_p, c_k, p_k
+
+    def minplus_all():
+        for g in gs:
+            hkk.relax_minplus(g, d_t)
+
+    minplus_ms = cuda_ms(minplus_all, reps) / (m - 1)
+    mp_bytes, mp_ops = minplus_bound(nb, j, m, elt)
+    mp_bound, mp_by = bound_ms(mp_bytes, mp_ops, dt_name)
+    del gs
+    torch.cuda.empty_cache()
+
+    plain_d = sum(plain_dense_ms) / len(plain_dense_ms)
+    plain_mp = sum(plain_minplus_ms) / len(plain_minplus_ms)
+    print(f"phase 4 kernel relax_dense: {dense_ms:.4f} ms/launch (CUDA events, mean of {reps}x{m - 1}), "
+          f"{launches_main['relax_dense']} launches per solve, bound {d_bound:.4f} ms ({d_by}), "
+          f"plain {plain_d:.4f} ms")
+    print(f"phase 4 kernel relax_minplus: {minplus_ms:.4f} ms/launch (CUDA events, mean of {reps}x{m - 1}), "
+          f"{launches_pallas['relax_minplus']} launches per solve, bound {mp_bound:.4f} ms ({mp_by}), "
+          f"plain {plain_mp:.4f} ms")
+    print(f"phase 4 card: {smi}")
+    return [
+        {"name": "relax_minplus", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES["relax_minplus"], "launches": launches_pallas["relax_minplus"],
+         "max_abs_err": errs["relax_minplus"], "ms": minplus_ms, "plain_ms": plain_mp,
+         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None},
+        {"name": "relax_dense", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES["relax_dense"], "launches": launches_main["relax_dense"],
+         "max_abs_err": errs["relax_dense"], "ms": dense_ms, "plain_ms": plain_d,
+         "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
+    ]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    try:
+        import tsp_mpi_reduction_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is not beside this script: {e}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs = {"relax_minplus": 0.0, "relax_dense": 0.0}
+    try:
+        smi = phase_build()
+        phase_kernel_parity(errs)
+        phase_oracle()
+        kernels = phase_full(smi, errs)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    for k in kernels:
+        if k["max_abs_err"] != 0.0:
+            print(f"chip_smoke: FAILED: {k['name']} max_abs_err {k['max_abs_err']}", file=sys.stderr)
+            return 1
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
