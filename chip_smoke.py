@@ -16,12 +16,26 @@ Phases, each printing its own line; any failure exits non-zero:
 4. full size: n = 16 cities per block (the reference's cap), 1024 blocks,
    1000x1000, float32, impl ``auto`` — phase times, the final line, fused
    against plain compact on one distance tensor (exact), per-kernel times
-   from CUDA events with the kernels' bounds, and each impl's wall time.
+   from CUDA events with the kernels' bounds, and each impl's wall time;
+5. ``prim_chain`` parity: the B&B Prim kernel against its plain version
+   on the same CUDA tensors, bit for bit (``tot`` as int32 bits, ``deg``
+   exactly), n in {5, 14, 51, 100, 200}, k in {37, 1024}, with and without
+   per-lane ``lam``, integer and non-integer ``dbar``, degenerate lanes;
+6. B&B proofs through the CLI entry point (``tools/bnb_solve``, ``mst_kernel``
+   auto): burma14 3323, ulysses16 6859, berlin52 7542; and ulysses16 under
+   min-out with no ILS expands the same nodes under the kernel and under
+   the plain chain;
+7. the B&B full-size run: eil51 at k = 1024, capacity 2^18, one-tree,
+   node_ascent 2 — proves 426 from root bound 423 in 153,747 nodes, with
+   (1 + node_ascent) ``prim_chain`` launches per step; setup/ascent/ILS/
+   search seconds, nodes/s, time to proof, and the kernel's ms per launch
+   by CUDA events beside its bound and its plain version.
 
-The main path runs with the kernels' launch counts reset just before and
-read just after; a kernel of the path that never launched fails the run.
-The last two lines are the per-kernel JSON and ``{"ok": true, ...}``.
-Imports nothing of JAX or of the JAX package.
+Each main path (phase 4's Held-Karp run, phase 7's B&B run) runs with the
+kernels' launch counts reset just before and read just after; a kernel of
+the path that never launched fails the run. The last two lines are the
+per-kernel JSON and ``{"ok": true, ...}``. Imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -45,10 +59,17 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
 N_FULL, B_FULL, GRID_FULL = 16, 1024, 1000
 KERNEL_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/held_karp_relax.cu"
+PRIM_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/prim_chain.cu"
 REPLACES = {
     "relax_minplus": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:74",
     "relax_dense": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:173",
+    "prim_chain": "tsp_mpi_reduction_tpu/ops/prim_pallas.py:155",
 }
+# the B&B full-size run (BENCHMARKS.md:112): eil51 at the width users run
+BNB_FULL = ("eil51", 1024, 1 << 18)
+BNB_FULL_NODES, BNB_FULL_COST, BNB_FULL_ROOT_LB = 153_747, 426.0, 423.0
+# ulysses16, min-out, no ILS, k = 32, 3000 steps: the JAX host loop's count
+TRAJECTORY_NODES = 96_208
 
 
 class SmokeFailure(Exception):
@@ -116,7 +137,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all(verbose=True)
     _build.library()
-    print(f"phase 1 build: {len(libs)} library built in {time.perf_counter() - t0:.2f} s "
+    _build.prim_library()
+    print(f"phase 1 build: {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs)})")
     return smi
 
@@ -172,6 +194,21 @@ def phase_kernel_parity(errs):
     flags = rng.uniform(size=20000) < 0.01
     require(int(torch.tensor(flags, device="cuda").to(torch.int32).argmax()) == int(np.argmax(flags)),
             "argmax over int32 flags is not first-index on CUDA")
+    # the B&B call sites: [k*n] flat (completions), [k, n] rows (Prim chain,
+    # connection edges, 2-opt/Or-opt deltas) and int32 row argmax (start city)
+    flat = rng.integers(0, 3, size=(1024 * 51,)).astype(np.float32)
+    flat[rng.uniform(size=flat.shape) < 0.5] = np.inf
+    require(int(torch.tensor(flat, device="cuda").argmin()) == int(np.argmin(flat)),
+            "[k*n] argmin is not first-index on CUDA")
+    kn = rng.integers(0, 3, size=(1024, 51)).astype(np.float32)
+    kn[rng.uniform(size=kn.shape) < 0.3] = np.inf
+    kn[5] = np.inf  # an all-inf row: index 0
+    require(torch.equal(torch.tensor(kn, device="cuda").argmin(dim=1).cpu(),
+                        torch.tensor(np.argmin(kn, axis=1))), "[k, n] row argmin not first-index")
+    bits = (rng.uniform(size=(1024, 51)) < 0.3).astype(np.int32)
+    bits[7] = 0  # an all-zero row: index 0
+    require(torch.equal(torch.tensor(bits, device="cuda").argmax(dim=1).cpu(),
+                        torch.tensor(np.argmax(bits, axis=1))), "[k, n] int32 row argmax not first-index")
     print(f"phase 2 kernel parity: {checked} exact comparisons, argmin/argmax first-index on ties")
 
 
@@ -406,6 +443,182 @@ def phase_full(smi, errs):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Branch-and-bound: the prim_chain kernel, proofs, the eil51 full-size run
+# ---------------------------------------------------------------------------
+
+
+def prim_lanes(n: int, k: int, integral: bool, seed: int):
+    """``dbar [n, n]``, ``unvis [k, n]`` (city 0 visited) and integer
+    ``lam [k, n]`` on the card, from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if integral:
+        d = rng.integers(1, 500, size=(n, n)).astype(np.float32)
+    else:
+        d = (rng.random((n, n)) * 500).astype(np.float32)
+    d = d + d.T
+    np.fill_diagonal(d, 0.0)
+    pi = rng.integers(-20, 20, size=n).astype(np.float32)
+    unvis = rng.random((k, n)) < rng.uniform(0.2, 0.9)
+    unvis[:, 0] = False
+    lam = rng.integers(-8, 8, size=(k, n)).astype(np.float32)
+    dev = "cuda"
+    return (torch.tensor(d + pi[None, :] + pi[:, None], device=dev),
+            torch.tensor(unvis, device=dev), torch.tensor(lam, device=dev))
+
+
+def prim_compare(dbar, unvis, n, lam, what, errs):
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+
+    tot, deg = prim_kernels.prim_chain(dbar, unvis, n, lam)
+    ref_tot, ref_deg = prim_kernels.prim_chain_reference(dbar, unvis, n, lam)
+    torch.cuda.synchronize()
+    require(torch.equal(tot.view(torch.int32), ref_tot.view(torch.int32)) and torch.equal(deg, ref_deg),
+            f"prim_chain != plain at {what}")
+    errs["prim_chain"] = max(errs["prim_chain"], max_abs_err(tot, ref_tot),
+                             max_abs_err(deg.double(), ref_deg.double()))
+
+
+def phase_prim_parity(errs):
+    import torch
+
+    checked = 0
+    for n in (5, 14, 51, 100, 200):
+        for k in (37, 1024):
+            for integral in (True, False):
+                dbar, unvis, lam = prim_lanes(n, k, integral, seed=n * k + integral)
+                for use_lam in (False, True):
+                    prim_compare(dbar, unvis, n, lam if use_lam else None,
+                                 f"n={n} k={k} integral={integral} lam={use_lam}", errs)
+                    checked += 1
+    dbar, _, lam = prim_lanes(14, 4, True, seed=3)
+    unvis = torch.zeros((4, 14), dtype=torch.bool, device="cuda")
+    unvis[1, 3] = True  # one unvisited city; lane 0 has none
+    unvis[2, 3:6] = True
+    for use_lam in (False, True):
+        prim_compare(dbar, unvis, 14, lam if use_lam else None, "degenerate lanes", errs)
+        checked += 1
+    print(f"phase 5 prim_chain parity: {checked} bit-exact comparisons (tot bits, deg) "
+          "n in 5..200, k in {37, 1024}, lam on/off, integer and non-integer dbar, degenerate lanes")
+
+
+def run_bnb_cli(argv):
+    """The B&B CLI entry point in this process -> its JSON payload."""
+    from tsp_mpi_reduction_tpu_torch.tools import bnb_solve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bnb_solve.main(argv)
+    require(rc == 0, f"bnb_solve {argv}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_bnb_proofs():
+    for name, opt, extra in (("burma14", 3323.0, ["--k=64", "--capacity=16384"]),
+                             ("ulysses16", 6859.0, []), ("berlin52", 7542.0, [])):
+        out = run_bnb_cli([name, "--backend=cuda", *extra])
+        require(out["proven_optimal"] and out["cost"] == opt and out["mst_kernel"] == "prim_chain",
+                f"{name}: {out['cost']} proven={out['proven_optimal']} kernel={out['mst_kernel']}")
+        require(out["prim_chain_launches"] == 3 * out["steps_run"] > 0,
+                f"{name}: {out['prim_chain_launches']} launches for {out['steps_run']} steps")
+        print(f"phase 6 {name}: proved {out['cost']} in {out['nodes_expanded']} nodes, "
+              f"{out['prim_chain_launches']} prim_chain launches, time to proof {out['time_to_proof_s']} s")
+    walk = ["ulysses16", "--backend=cuda", "--bound=min-out", "--ils-rounds=0", "--k=32",
+            "--capacity=16384", "--max-iters=3000"]
+    kern = run_bnb_cli(walk + ["--mst-kernel=auto"])
+    plain = run_bnb_cli(walk + ["--mst-kernel=prim"])
+    require(kern["mst_kernel"] == "prim_chain" and plain["prim_chain_launches"] == 0,
+            "trajectory run: kernel/plain selection")
+    require(kern["nodes_expanded"] == plain["nodes_expanded"] == TRAJECTORY_NODES
+            and kern["lower_bound"] == plain["lower_bound"] and kern["cost"] == plain["cost"],
+            f"trajectory: kernel {kern['nodes_expanded']} / plain {plain['nodes_expanded']} nodes "
+            f"(want {TRAJECTORY_NODES}), LB {kern['lower_bound']} / {plain['lower_bound']}")
+    print(f"phase 6 trajectory (ulysses16 min-out, no ILS, k=32, 3000 steps): "
+          f"{kern['nodes_expanded']} nodes under prim_chain == plain chain, LB {kern['lower_bound']}; "
+          f"search {kern['wall_s']} s kernel vs {plain['wall_s']} s plain")
+
+
+def prim_bound(unvis, has_lam: bool):
+    """Bytes and operations one Prim-chain launch needs on these lanes:
+    unvis (1 B), lam (4 B, when given) and dbar read once, tot and deg
+    written once; per lane |U|-1 steps over |U| cities, each city one
+    argmin compare, one relaxation compare and, with lam, two adds."""
+    k, n = unvis.shape
+    u = unvis.sum(dim=1).double()
+    nbytes = k * n * (1 + 4 + (4 if has_lam else 0)) + 4 * n * n + 4 * k
+    ops = float(((u - 1.0).clamp(min=0.0) * u).sum()) * (2 + (2 if has_lam else 0))
+    return nbytes, ops
+
+
+def phase_bnb_full(smi, errs):
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    name, k, cap = BNB_FULL
+    # --- the main path: counts reset just before, read just after
+    prim_kernels.reset_launches()
+    out = run_bnb_cli([name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"])
+    launches = prim_kernels.LAUNCHES["prim_chain"]
+    require(out["prim_chain_launches"] == launches > 0, "eil51 did not go through prim_chain")
+    require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST
+            and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
+            f"eil51: cost {out['cost']} proven={out['proven_optimal']} root LB {out['root_lower_bound']}")
+    require(out["nodes_expanded"] == BNB_FULL_NODES,
+            f"eil51: {out['nodes_expanded']} nodes expanded, want {BNB_FULL_NODES}")
+    require(launches == 3 * out["steps_run"],
+            f"eil51: {launches} prim_chain launches for {out['steps_run']} steps (want 3 per step)")
+    print(f"phase 7 main path ({name}, k={k}, capacity={cap}, one-tree, node_ascent=2, "
+          f"mst_kernel={out['mst_kernel']}): proved {out['cost']} (root LB {out['root_lower_bound']}) "
+          f"in {out['nodes_expanded']} nodes, {out['steps_run']} steps, {launches} prim_chain launches")
+    print(f"phase 7 seconds: setup {out['setup_s']} (ascent {out['setup_ascent_s']}, "
+          f"ILS {out['setup_ils_s']}), search {out['wall_s']}, time to proof {out['time_to_proof_s']}; "
+          f"{out['nodes_per_sec']} nodes/s")
+
+    # --- the kernel at the main path's shape: k = 1024 lanes of eil51
+    d = tsplib.embedded(name).distance_matrix()
+    n = d.shape[0]
+    bd = bb._bound_setup(d, "one-tree", node_ascent=2, device="cuda")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    unvis = (torch.rand((k, n), generator=gen) < 0.5).cuda()
+    unvis[:, 0] = False
+    lam = torch.randint(-8, 8, (k, n), generator=gen).float().cuda() * float(bd.ascent_step)
+    triple = ((None,), (lam,), (lam,))  # one plain and node_ascent = 2 lam launches per step
+    for (lm,) in triple[:2]:
+        prim_compare(bd.dbar, unvis, n, lm, "eil51 k=1024", errs)
+    reps = 50
+
+    def kernel_step():
+        for (lm,) in triple:
+            prim_kernels.prim_chain(bd.dbar, unvis, n, lm)
+
+    def plain_step():
+        for (lm,) in triple:
+            prim_kernels.prim_chain_reference(bd.dbar, unvis, n, lm)
+
+    kernel_step()
+    plain_step()
+    k_ms = cuda_ms(kernel_step, reps) / 3
+    p_ms = cuda_ms(plain_step, 5) / 3
+    bounds = [prim_bound(unvis, lm is not None) for (lm,) in triple]
+    b_ms, b_by = bound_ms(sum(b for b, _ in bounds) / 3, sum(o for _, o in bounds) / 3, "float32")
+    print(f"phase 7 kernel prim_chain: {k_ms:.4f} ms/launch (CUDA events, mean of {reps}x3 at k={k}, "
+          f"n={n}), {launches} launches on the main path, bound {b_ms:.6f} ms ({b_by}), "
+          f"plain {p_ms:.4f} ms")
+    print(f"phase 7 card: {smi}")
+    return {"name": "prim_chain", "route": "cuda", "source": PRIM_SOURCE,
+            "replaces": REPLACES["prim_chain"], "launches": launches,
+            "max_abs_err": errs["prim_chain"], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -420,12 +633,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    errs = {"relax_minplus": 0.0, "relax_dense": 0.0}
+    errs = {"relax_minplus": 0.0, "relax_dense": 0.0, "prim_chain": 0.0}
     try:
         smi = phase_build()
         phase_kernel_parity(errs)
         phase_oracle()
         kernels = phase_full(smi, errs)
+        phase_prim_parity(errs)
+        phase_bnb_proofs()
+        kernels.append(phase_bnb_full(smi, errs))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

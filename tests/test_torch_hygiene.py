@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "tsp_mpi_reduction_tpu_torch"
@@ -77,13 +78,21 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
     """A tensor that is not on the CPU goes to the kernel or raises; the
     ``meta`` device stands in for a non-CPU device here."""
     before = dict(hkk.LAUNCHES)
+    before_prim = dict(prim_kernels.LAUNCHES)
     g = torch.empty((1, 4, 3), device="meta")
     with pytest.raises(ValueError):
         hkk.relax_minplus(g, torch.empty((1, 3, 3), device="meta"))
     table = torch.empty((1, 3, 8), device="meta")
     with pytest.raises(ValueError):
         hkk.relax_dense(table, torch.empty((1, 3, 3), device="meta"), 1)
+    dbar = torch.empty((5, 5), device="meta")
+    unvis = torch.empty((4, 5), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        prim_kernels.prim_chain(dbar, unvis, 5)
+    with pytest.raises(ValueError):
+        prim_kernels.prim_chain(dbar, unvis, 5, torch.empty((4, 5), device="meta"))
     assert hkk.LAUNCHES == before
+    assert prim_kernels.LAUNCHES == before_prim
 
 
 def _run_smoke(cwd: pathlib.Path):

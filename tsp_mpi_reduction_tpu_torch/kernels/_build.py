@@ -5,7 +5,8 @@ seconds with ``nvcc`` alone (no PyTorch headers) into a shared library
 under ``build/torch_ext/`` at the repository root (gitignored). The
 library's name carries a hash of its source and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing is built when
-this module is imported: the first kernel launch calls :func:`library`.
+this module is imported: the first kernel launch calls its library's
+loader (:func:`library`, :func:`prim_library`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import subprocess
 import sys
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "held_karp_relax.cu",)
+SOURCES = (_CSRC / "held_karp_relax.cu", _CSRC / "prim_chain.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -92,6 +93,18 @@ def library() -> ctypes.CDLL:
     lib.hk_relax_dense.restype = i
     lib.hk_error_string.argtypes = [i]
     lib.hk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def prim_library() -> ctypes.CDLL:
+    """The branch-and-bound Prim chain library, built on first use."""
+    lib = ctypes.CDLL(str(build(SOURCES[1])))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.prim_chain_launch.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
+    lib.prim_chain_launch.restype = i
+    lib.prim_error_string.argtypes = [i]
+    lib.prim_error_string.restype = ctypes.c_char_p
     return lib
 
 

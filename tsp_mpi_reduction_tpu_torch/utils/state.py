@@ -1,10 +1,11 @@
-"""State carried into the port from numpy: instances, plans, tours.
+"""State carried into the port from numpy: instances, plans, tours, B&B.
 
 The system has no weights; its state is the instance (coordinates and the
-``[N, N]`` distance matrix), the Held-Karp plan's fixed tables, and padded
-tours. These functions turn numpy arrays — for example ones produced by
-the JAX package — into the port's tensors, so both packages can be fed the
-same inputs.
+``[N, N]`` distance matrix), the Held-Karp plan's fixed tables, padded
+tours, and the branch-and-bound search state (the packed frontier and the
+bound tables). These functions turn numpy arrays — for example ones
+produced by the JAX package — into the port's tensors, so both packages
+can be fed the same inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..models.branch_bound import BoundData, Frontier
 from ..ops.distance import distance_matrix, distance_matrix_np
 from ..ops.held_karp import HeldKarpPlan
 from ..ops.merge import PaddedTour
@@ -73,3 +75,26 @@ def padded_tour_from_numpy(ids, length: int, cost: float, device, dtype=torch.fl
         torch.tensor(int(length), dtype=torch.int32, device=device),
         torch.tensor(float(cost), dtype=dtype, device=device),
     )
+
+
+def frontier_from_numpy(nodes, count, overflow, device) -> Frontier:
+    """A B&B :class:`Frontier` from numpy: packed int32 rows ``[F, C]``
+    (uint32 mask words keep their bits), the stack height and the
+    overflow flag."""
+    rows = np.ascontiguousarray(np.asarray(nodes)).view(np.int32)
+    return Frontier(
+        torch.as_tensor(rows.copy(), device=device),
+        torch.tensor(int(count), dtype=torch.int32, device=device),
+        torch.tensor(bool(overflow), device=device),
+    )
+
+
+def bound_data_from_numpy(min_out, bound_adj, dbar, pi, slack, ascent_step, lam_budget,
+                          root_lb, integral, device) -> BoundData:
+    """A B&B :class:`BoundData` from numpy arrays (float32 on ``device``)."""
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    return BoundData(f32(min_out), f32(bound_adj), f32(dbar), f32(pi), f32(slack),
+                     f32(ascent_step), f32(lam_budget), float(root_lb), bool(integral))
