@@ -21,21 +21,39 @@ Phases, each printing its own line; any failure exits non-zero:
    on the same CUDA tensors, bit for bit (``tot`` as int32 bits, ``deg``
    exactly), n in {5, 14, 51, 100, 200}, k in {37, 1024}, with and without
    per-lane ``lam``, integer and non-integer ``dbar``, degenerate lanes;
-6. B&B proofs through the CLI entry point (``tools/bnb_solve``, ``mst_kernel``
-   auto): burma14 3323, ulysses16 6859, berlin52 7542; and ulysses16 under
-   min-out with no ILS expands the same nodes under the kernel and under
-   the plain chain;
-7. the B&B full-size run: eil51 at k = 1024, capacity 2^18, one-tree,
-   node_ascent 2 — proves 426 from root bound 423 in 153,747 nodes, with
-   (1 + node_ascent) ``prim_chain`` launches per step; setup/ascent/ILS/
-   search seconds, nodes/s, time to proof, and the kernel's ms per launch
-   by CUDA events beside its bound and its plain version.
+6. B&B proofs through the CLI entry point (``tools/bnb_solve``, defaults:
+   the device loop, ``mst_kernel`` and ``step_kernel`` auto): burma14 3323,
+   ulysses16 6859, berlin52 7542; and ulysses16 under min-out with no ILS
+   (host loop) expands the same nodes under the kernel and under the plain
+   chain;
+7. the B&B full-size run through the default CLI: eil51 at k = 1024,
+   capacity 2^18, one-tree, node_ascent 2, the device loop with the fused
+   push — proves 426 from root bound 423 in 153,747 nodes, with one
+   ``push_rows`` and (1 + node_ascent) ``prim_chain`` launches per step;
+   the same under ``--step-kernel=reference``; setup/search seconds,
+   nodes/s, time to proof and the largest frontier count of both; the
+   kernels' ms per launch by CUDA events beside their bounds and plain
+   versions, ``push_rows`` against the reference push section on the
+   main path's recorded inputs;
+8. ``push_rows`` parity: the kernel against its plain version on the same
+   CUDA tensors, the whole buffer bit for bit, n in {5, 14, 33, 51, 100,
+   200}, k in {1, 37, 1024}, nothing / some / everything pushed (then up
+   to row F-1), NaN, -0.0 and inf bit patterns in the float columns;
+9. one chunk of the kroA100 certified-gap campaign through the CLI (k =
+   1024, capacity 2^19, node_ascent 6, re-sort every 16 steps, device
+   loop, 300 steps) under the fused and the reference push: both equal
+   the JAX package's numbers for the same call on the CPU (nodes,
+   iterations, cost, certified LB, every spill counter);
+10. a spill-forcing proof (13 random cities, capacity at the device
+    loop's 4*k*(n-1) floor): compacts on the card, exchanges with the host
+    reservoir and proves, fused == reference == the JAX package's pinned
+    numbers.
 
-Each main path (phase 4's Held-Karp run, phase 7's B&B run) runs with the
-kernels' launch counts reset just before and read just after; a kernel of
-the path that never launched fails the run. The last two lines are the
-per-kernel JSON and ``{"ok": true, ...}``. Imports nothing of JAX or of
-the JAX package.
+Each main path (phase 4's Held-Karp run, phase 7's eil51 and phase 9's
+kroA100 runs) runs with the kernels' launch counts reset just before and
+read just after; a kernel of the path that never launched fails the run.
+The last two lines are the per-kernel JSON and ``{"ok": true, ...}``.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -60,16 +78,37 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 N_FULL, B_FULL, GRID_FULL = 16, 1024, 1000
 KERNEL_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/held_karp_relax.cu"
 PRIM_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/prim_chain.cu"
+PUSH_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/push_rows.cu"
 REPLACES = {
     "relax_minplus": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:74",
     "relax_dense": "tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:173",
     "prim_chain": "tsp_mpi_reduction_tpu/ops/prim_pallas.py:155",
+    "push_rows": "tsp_mpi_reduction_tpu/ops/expand_pallas.py:214",
 }
 # the B&B full-size run (BENCHMARKS.md:112): eil51 at the width users run
 BNB_FULL = ("eil51", 1024, 1 << 18)
 BNB_FULL_NODES, BNB_FULL_COST, BNB_FULL_ROOT_LB = 153_747, 426.0, 423.0
 # ulysses16, min-out, no ILS, k = 32, 3000 steps: the JAX host loop's count
 TRAJECTORY_NODES = 96_208
+# one chunk of the kroA100 campaign (tools/tpu_bench.sh:130-134) and the
+# JAX package's numbers for the same call on the CPU (solve(d, k=1024,
+# capacity=1 << 19, node_ascent=6, reorder_every=16, device_loop=True,
+# max_iters=300))
+KRO_ARGS = ["kroA100", "--k=1024", "--capacity=524288", "--node-ascent=6", "--reorder-every=16",
+            "--device-loop=on", "--max-iters=300"]
+KRO_PINNED = {"nodes_expanded": 303_204, "iterations": 300, "cost": 21282.0,
+              "lower_bound": 21041.375, "proven_optimal": False, "spill_rounds": 3,
+              "spill_events": 3, "spill_full_merges": 0, "spill_bytes_to_host": 157_217_676,
+              "spill_bytes_to_device": 103_809_024}
+# the spill-forcing proof: 13 random cities (numpy seed 1, rounded x10
+# Euclidean), min-out, no MST re-bound, k = 8, capacity 4*k*(n-1) = 384;
+# the JAX package's device-loop numbers on the CPU
+SPILL_KW = dict(capacity=384, k=8, bound="min-out", mst_prune=False, node_ascent=0, ils_rounds=0,
+                max_iters=2_000_000)
+SPILL_PINNED = {"nodes_expanded": 26_900, "iterations": 3381, "cost": 3154.0,
+                "lower_bound": 3154.0, "proven_optimal": True, "spill_rounds": 14,
+                "spill_events": 14, "spill_full_merges": 0, "spill_bytes_to_host": 95_724,
+                "spill_bytes_to_device": 95_724}
 
 
 class SmokeFailure(Exception):
@@ -107,6 +146,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of one replay of ``fn`` captured in a CUDA graph,
+    by CUDA events: the device time of its launches without the host's
+    launch gaps (what a run of tiny launches in eager mode cannot show)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    return cuda_ms(graph.replay, reps)
+
+
 def wall_s(fn):
     import torch
 
@@ -138,6 +195,7 @@ def phase_build():
     libs = _build.build_all(verbose=True)
     _build.library()
     _build.prim_library()
+    _build.push_library()
     print(f"phase 1 build: {len(libs)} libraries built in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs)})")
     return smi
@@ -524,15 +582,21 @@ def phase_bnb_proofs():
         out = run_bnb_cli([name, "--backend=cuda", *extra])
         require(out["proven_optimal"] and out["cost"] == opt and out["mst_kernel"] == "prim_chain",
                 f"{name}: {out['cost']} proven={out['proven_optimal']} kernel={out['mst_kernel']}")
-        require(out["prim_chain_launches"] == 3 * out["steps_run"] > 0,
-                f"{name}: {out['prim_chain_launches']} launches for {out['steps_run']} steps")
+        require(out["prim_chain_launches"] == 3 * out["steps_run"] > 0
+                and out["push_rows_launches"] == out["steps_run"] and out["device_loop"]
+                and out["step_kernel"] == "fused",
+                f"{name}: {out['prim_chain_launches']} prim_chain / {out['push_rows_launches']} "
+                f"push_rows launches for {out['steps_run']} steps")
         print(f"phase 6 {name}: proved {out['cost']} in {out['nodes_expanded']} nodes, "
-              f"{out['prim_chain_launches']} prim_chain launches, time to proof {out['time_to_proof_s']} s")
+              f"{out['prim_chain_launches']} prim_chain + {out['push_rows_launches']} push_rows launches, "
+              f"time to proof {out['time_to_proof_s']} s")
+    # the host loop, whose node count at 3000 steps the JAX host loop pinned
     walk = ["ulysses16", "--backend=cuda", "--bound=min-out", "--ils-rounds=0", "--k=32",
-            "--capacity=16384", "--max-iters=3000"]
+            "--capacity=16384", "--max-iters=3000", "--device-loop=off"]
     kern = run_bnb_cli(walk + ["--mst-kernel=auto"])
     plain = run_bnb_cli(walk + ["--mst-kernel=prim"])
-    require(kern["mst_kernel"] == "prim_chain" and plain["prim_chain_launches"] == 0,
+    require(kern["mst_kernel"] == "prim_chain" and plain["prim_chain_launches"] == 0
+            and kern["push_rows_launches"] == kern["steps_run"] > 0,
             "trajectory run: kernel/plain selection")
     require(kern["nodes_expanded"] == plain["nodes_expanded"] == TRAJECTORY_NODES
             and kern["lower_bound"] == plain["lower_bound"] and kern["cost"] == plain["cost"],
@@ -555,34 +619,108 @@ def prim_bound(unvis, has_lam: bool):
     return nbytes, ops
 
 
+def push_bound(calls, k: int, n: int):
+    """Bytes and operations one ``push_rows`` launch needs, averaged over
+    the recorded steps: the k parent rows and the four [k, n] int32 planes
+    read once, the n_push pushed rows written once; one operation per
+    written word."""
+    cols = calls[0][1].shape[1]
+    n_push = sum(int(((c[2] >= 0) & (c[2] < c[0][0])).sum()) for c in calls) / len(calls)
+    nbytes = 4 * (k * cols + 4 * k * n) + 4 * n_push * cols
+    return nbytes, n_push * cols, n_push
+
+
+def record_pushes(d, k: int, cap: int):
+    """Solve once more with a recorder around ``push_rows`` that keeps a copy
+    of every launch's inputs; returns them (buffer shape, parents, dest,
+    ccost, cbound, csum)."""
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    calls, real = [], ek.push_rows
+
+    def recorder(nodes, parents, dest, ccost, cbound, csum, n):
+        calls.append((tuple(nodes.shape), parents.clone(), dest.clone(), ccost.clone(),
+                      cbound.clone(), csum.clone()))
+        return real(nodes, parents, dest, ccost, cbound, csum, n)
+
+    ek.push_rows = recorder
+    try:
+        bb.solve(d, k=k, capacity=cap, device="cuda")
+    finally:
+        ek.push_rows = real
+    return calls
+
+
+def reference_push_args(call):
+    """The reference push's arguments for a recorded step: pushed flags,
+    ranks and base row follow from ``dest``."""
+    import torch
+
+    shape, parents, dest, cc, cb, cs = call
+    flat = dest.reshape(-1).long()
+    flat_push = (flat >= 0) & (flat < shape[0])
+    base = torch.where(flat_push, flat, shape[0]).min()
+    return parents, cc, cb, cs, flat_push, flat - base, base
+
+
 def phase_bnb_full(smi, errs):
     import torch
 
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
     from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
     from tsp_mpi_reduction_tpu_torch.utils import tsplib
 
     name, k, cap = BNB_FULL
-    # --- the main path: counts reset just before, read just after
-    prim_kernels.reset_launches()
-    out = run_bnb_cli([name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"])
-    launches = prim_kernels.LAUNCHES["prim_chain"]
-    require(out["prim_chain_launches"] == launches > 0, "eil51 did not go through prim_chain")
-    require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST
-            and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
-            f"eil51: cost {out['cost']} proven={out['proven_optimal']} root LB {out['root_lower_bound']}")
-    require(out["nodes_expanded"] == BNB_FULL_NODES,
-            f"eil51: {out['nodes_expanded']} nodes expanded, want {BNB_FULL_NODES}")
-    require(launches == 3 * out["steps_run"],
-            f"eil51: {launches} prim_chain launches for {out['steps_run']} steps (want 3 per step)")
-    print(f"phase 7 main path ({name}, k={k}, capacity={cap}, one-tree, node_ascent=2, "
-          f"mst_kernel={out['mst_kernel']}): proved {out['cost']} (root LB {out['root_lower_bound']}) "
-          f"in {out['nodes_expanded']} nodes, {out['steps_run']} steps, {launches} prim_chain launches")
-    print(f"phase 7 seconds: setup {out['setup_s']} (ascent {out['setup_ascent_s']}, "
-          f"ILS {out['setup_ils_s']}), search {out['wall_s']}, time to proof {out['time_to_proof_s']}; "
-          f"{out['nodes_per_sec']} nodes/s")
+    base_argv = [name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"]
+    # the main path first (counts reset just before, read just after), then
+    # the reference push and the two again in reverse order (ABBA), so the
+    # search times of the two pushes are compared within one call
+    runs = []
+    for kernel in ("auto", "reference", "reference", "auto"):
+        argv = base_argv + ([] if kernel == "auto" else ["--step-kernel=reference"])
+        prim_kernels.reset_launches()
+        ek.reset_launches()
+        bb.reset_frontier_stats()
+        out = run_bnb_cli(argv)
+        out["_launches"] = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
+        out["_peak"] = bb.FRONTIER_STATS["peak_count"]
+        runs.append(out)
+        fused = kernel == "auto"
+        require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST
+                and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
+                f"eil51 {kernel}: cost {out['cost']} proven={out['proven_optimal']} "
+                f"root LB {out['root_lower_bound']}")
+        require(out["nodes_expanded"] == BNB_FULL_NODES,
+                f"eil51 {kernel}: {out['nodes_expanded']} nodes expanded, want {BNB_FULL_NODES}")
+        require(out["device_loop"] and out["mst_kernel"] == "prim_chain"
+                and out["step_kernel"] == ("fused" if fused else "reference"),
+                f"eil51 {kernel}: device_loop {out['device_loop']} mst_kernel {out['mst_kernel']} "
+                f"step_kernel {out['step_kernel']}")
+        require(out["_launches"]["prim_chain"] == out["prim_chain_launches"] == 3 * out["steps_run"] > 0,
+                f"eil51 {kernel}: {out['_launches']['prim_chain']} prim_chain launches for "
+                f"{out['steps_run']} steps (want 3 per step)")
+        want_push = out["steps_run"] if fused else 0
+        require(out["_launches"]["push_rows"] == out["push_rows_launches"] == want_push,
+                f"eil51 {kernel}: {out['_launches']['push_rows']} push_rows launches for "
+                f"{out['steps_run']} steps")
+        require((out["lower_bound"], out["steps_run"]) == (runs[0]["lower_bound"], runs[0]["steps_run"]),
+                "eil51: the reference push gives another search than the fused one")
+    main = runs[0]
+    launches = main["_launches"]
+    print(f"phase 7 main path ({name}, k={k}, capacity={cap}, one-tree, node_ascent=2, device loop, "
+          f"mst_kernel={main['mst_kernel']}, step_kernel={main['step_kernel']}): proved {main['cost']} "
+          f"(root LB {main['root_lower_bound']}) in {main['nodes_expanded']} nodes, {main['steps_run']} "
+          f"steps, {launches['prim_chain']} prim_chain + {launches['push_rows']} push_rows launches, "
+          f"largest frontier count {main['_peak']}; --step-kernel=reference: the same nodes, cost, LB")
+    for out in runs:
+        print(f"phase 7 seconds ({out['step_kernel']} push): setup {out['setup_s']} (ascent "
+              f"{out['setup_ascent_s']}, ILS {out['setup_ils_s']}), search {out['wall_s']}, time to "
+              f"proof {out['time_to_proof_s']}; {out['nodes_per_sec']} nodes/s; largest count "
+              f"{out['_peak']}")
 
-    # --- the kernel at the main path's shape: k = 1024 lanes of eil51
+    # --- prim_chain at the main path's shape: k = 1024 lanes of eil51
     d = tsplib.embedded(name).distance_matrix()
     n = d.shape[0]
     bd = bb._bound_setup(d, "one-tree", node_ascent=2, device="cuda")
@@ -605,18 +743,204 @@ def phase_bnb_full(smi, errs):
 
     kernel_step()
     plain_step()
-    k_ms = cuda_ms(kernel_step, reps) / 3
+    k_eager_ms = cuda_ms(kernel_step, reps) / 3
+    k_ms = graph_ms(kernel_step, reps) / 3
     p_ms = cuda_ms(plain_step, 5) / 3
     bounds = [prim_bound(unvis, lm is not None) for (lm,) in triple]
     b_ms, b_by = bound_ms(sum(b for b, _ in bounds) / 3, sum(o for _, o in bounds) / 3, "float32")
-    print(f"phase 7 kernel prim_chain: {k_ms:.4f} ms/launch (CUDA events, mean of {reps}x3 at k={k}, "
-          f"n={n}), {launches} launches on the main path, bound {b_ms:.6f} ms ({b_by}), "
+    print(f"phase 7 kernel prim_chain: {k_ms:.4f} ms/launch on the device (CUDA graph replay, CUDA "
+          f"events, mean of {reps}x3 at k={k}, n={n}), {k_eager_ms:.4f} ms/launch eager; "
+          f"{launches['prim_chain']} launches on the main path, bound {b_ms:.6f} ms ({b_by}), "
           f"plain {p_ms:.4f} ms")
+
+    # --- push_rows on the main path's own inputs, step by step
+    calls = record_pushes(d, k, cap)
+    require(len(calls) == main["steps_run"], f"recorded {len(calls)} pushes, want {main['steps_run']}")
+    scratch = torch.zeros(calls[0][0], dtype=torch.int32, device="cuda")
+    for call in calls:
+        got, want = scratch.clone(), scratch.clone()
+        ek.push_rows(got, *call[1:], n)
+        ek.push_rows_reference(want, *call[1:], n)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "push_rows != plain on a recorded eil51 step")
+        errs["push_rows"] = max(errs["push_rows"], max_abs_err(got.double(), want.double()))
+    del got, want
+
+    def each(fn):
+        return lambda: [fn(call) for call in calls]
+
+    kernel_all = each(lambda c: ek.push_rows(scratch, *c[1:], n))
+    plain_all = each(lambda c: ek.push_rows_reference(scratch, *c[1:], n))
+    ref_args = [reference_push_args(c) for c in calls]
+
+    def reference_all():
+        for a in ref_args:
+            bb._reference_push(scratch, *a[:4], a[4], a[5], a[6], n)
+
+    kernel_all()
+    reference_all()
+    steps = len(calls)
+    push_eager_ms = cuda_ms(kernel_all, 5) / steps
+    push_ms = graph_ms(kernel_all, 5) / steps
+    plain_push_ms = cuda_ms(plain_all, 2) / steps
+    ref_eager_ms = cuda_ms(reference_all, 5) / steps
+    ref_push_ms = graph_ms(reference_all, 5) / steps
+    nbytes, ops, mean_push = push_bound(calls, k, n)
+    pb_ms, pb_by = bound_ms(nbytes, ops, "float32")
+    print(f"phase 7 kernel push_rows: {push_ms:.4f} ms/launch on the device (CUDA graph replay of the "
+          f"{steps} recorded eil51 steps, CUDA events, mean of 5), {push_eager_ms:.4f} ms/launch eager; "
+          f"{launches['push_rows']} launches on the main path, bound {pb_ms:.6f} ms ({pb_by}; mean "
+          f"n_push {mean_push:.1f}), plain {plain_push_ms:.4f} ms")
+    print(f"phase 7 push section per step: fused push_rows {push_ms:.4f} ms device / {push_eager_ms:.4f} "
+          f"ms eager; reference (candidate block + compaction + index_copy_) {ref_push_ms:.4f} ms "
+          f"device / {ref_eager_ms:.4f} ms eager")
     print(f"phase 7 card: {smi}")
-    return {"name": "prim_chain", "route": "cuda", "source": PRIM_SOURCE,
-            "replaces": REPLACES["prim_chain"], "launches": launches,
-            "max_abs_err": errs["prim_chain"], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return [
+        {"name": "prim_chain", "route": "cuda", "source": PRIM_SOURCE,
+         "replaces": REPLACES["prim_chain"], "launches": launches["prim_chain"],
+         "max_abs_err": errs["prim_chain"], "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+        {"name": "push_rows", "route": "cuda", "source": PUSH_SOURCE,
+         "replaces": REPLACES["push_rows"], "launches": launches["push_rows"],
+         "max_abs_err": errs["push_rows"], "ms": push_ms, "plain_ms": plain_push_ms,
+         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None},
+    ]
+
+
+SPECIAL_BITS = (0x7FC00000, 0x7FC00123, 0x80000000, 0x7F800000, 0xFF800000)
+
+
+def push_inputs(n: int, k: int, case: str, seed: int):
+    """A frontier buffer, k parent rows, dest and the float columns on the
+    card from a numpy seed: nothing, some (in random order, some parked at
+    -1 or past F) or everything pushed (then ending at row F-1); the float
+    columns carry NaN, -0.0 and inf bit patterns."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    rng = np.random.default_rng(seed)
+    cols = ek.row_width(n)
+    pw, w = (n + 3) // 4, (n + 31) // 32
+    f_rows = k * n + 17
+    nodes = rng.integers(-(2**31), 2**31, size=(f_rows, cols), dtype=np.int64).astype(np.int32)
+    parents = rng.integers(-(2**31), 2**31, size=(k, cols), dtype=np.int64).astype(np.int32)
+    parents[:, pw + w] = rng.integers(0, n + 3, size=k)
+    push = {"some": rng.random((k, n)) < 0.3, "none": np.zeros((k, n), bool),
+            "all": np.ones((k, n), bool)}[case].reshape(-1)
+    n_push = int(push.sum())
+    rank = np.zeros(k * n, np.int64)
+    rank[rng.permutation(np.flatnonzero(push))] = np.arange(n_push)
+    base = f_rows - n_push if case == "all" else int(rng.integers(0, f_rows - n_push + 1))
+    dest = np.where(push, base + rank, rng.integers(f_rows, f_rows + 50, size=k * n))
+    dest[~push & (rng.random(k * n) < 0.1)] = -1
+    special = np.array(SPECIAL_BITS, np.uint32).view(np.int32)
+    floats = []
+    for _ in range(3):
+        bits = rng.integers(-(2**31), 2**31, size=k * n, dtype=np.int64).astype(np.int32)
+        bits[rng.integers(0, k * n, size=len(special))] = special
+        floats.append(torch.tensor(bits.view(np.float32).reshape(k, n), device="cuda"))
+    return (torch.tensor(nodes, device="cuda"), torch.tensor(parents, device="cuda"),
+            torch.tensor(dest.reshape(k, n).astype(np.int32), device="cuda"), *floats)
+
+
+def phase_push_parity(errs):
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    checked = 0
+    for n in (5, 14, 33, 51, 100, 200):
+        for k in (1, 37, 1024):
+            for case in ("none", "some", "all"):
+                nodes, parents, dest, cc, cb, cs = push_inputs(n, k, case, seed=n * k + len(case))
+                want = ek.push_rows_reference(nodes.clone(), parents, dest, cc, cb, cs, n)
+                ek.push_rows(nodes, parents, dest, cc, cb, cs, n)
+                torch.cuda.synchronize()
+                require(torch.equal(nodes, want), f"push_rows != plain at n={n} k={k} {case}")
+                if case == "all":
+                    require(int(dest.max()) == nodes.shape[0] - 1, "no destination at row F-1")
+                    flat = dest.reshape(-1).long()
+                    require(all(torch.equal(nodes[flat, col], f.view(torch.int32).reshape(-1))
+                                for col, f in ((-3, cc), (-2, cb), (-1, cs))),
+                            f"float bit patterns changed at n={n} k={k}")
+                errs["push_rows"] = max(errs["push_rows"], max_abs_err(nodes.double(), want.double()))
+                checked += 1
+    print(f"phase 8 push_rows parity: {checked} whole-buffer bit-exact comparisons, n in 5..200, "
+          "k in {1, 37, 1024}, nothing / some / everything pushed (to row F-1), NaN/-0.0/inf bits")
+
+
+SPILL_KEYS = ("spill_rounds", "spill_events", "spill_full_merges", "spill_bytes_to_host",
+              "spill_bytes_to_device")
+
+
+def pinned_fields(out: dict, pinned: dict, what: str) -> None:
+    got = {key: out[key] for key in pinned}
+    require(got == pinned, f"{what}: {got} != the JAX package's {pinned}")
+
+
+def phase_kroa100(smi):
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+
+    runs = {}
+    for kernel in ("fused", "reference"):
+        prim_kernels.reset_launches()
+        ek.reset_launches()
+        bb.reset_frontier_stats()
+        out = run_bnb_cli(KRO_ARGS + ["--backend=cuda", f"--step-kernel={kernel}"])
+        stats = dict(bb.FRONTIER_STATS)
+        runs[kernel] = out
+        pinned_fields(out, KRO_PINNED, f"kroA100 chunk, {kernel} push")
+        want_push = out["steps_run"] if kernel == "fused" else 0
+        require(prim_kernels.LAUNCHES["prim_chain"] == 7 * out["steps_run"] > 0
+                and ek.LAUNCHES["push_rows"] == out["push_rows_launches"] == want_push,
+                f"kroA100 {kernel}: {prim_kernels.LAUNCHES['prim_chain']} prim_chain / "
+                f"{ek.LAUNCHES['push_rows']} push_rows launches for {out['steps_run']} steps")
+        print(f"phase 9 kroA100 chunk ({kernel} push; k=1024, capacity=524288, node_ascent=6, "
+              f"reorder every 16, device loop, 300 steps): {out['nodes_expanded']} nodes, "
+              f"{out['steps_run']} expanded steps, cost {out['cost']}, certified LB {out['lower_bound']} "
+              f"(root {out['root_lower_bound']}), spill rounds/events/full merges "
+              f"{out['spill_rounds']}/{out['spill_events']}/{out['spill_full_merges']}, bytes to host "
+              f"{out['spill_bytes_to_host']}, to device {out['spill_bytes_to_device']}; "
+              f"{stats['reorders']} re-sorts, {stats['compactions']} compactions, largest count "
+              f"{stats['peak_count']}; {ek.LAUNCHES['push_rows']} push_rows + "
+              f"{prim_kernels.LAUNCHES['prim_chain']} prim_chain launches")
+        print(f"phase 9 seconds ({kernel} push): setup {out['setup_s']} (ascent {out['setup_ascent_s']}, "
+              f"ILS {out['setup_ils_s']}), search {out['wall_s']}; {out['nodes_per_sec']} nodes/s")
+    require(runs["fused"]["steps_run"] == runs["reference"]["steps_run"],
+            "kroA100: fused and reference expanded different numbers of steps")
+    print(f"phase 9 card: {smi}")
+
+
+def phase_spill(smi):
+    import numpy as np
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    xy = np.random.default_rng(1).uniform(0, 100, (13, 2))
+    d = np.rint(np.sqrt(((xy[:, None] - xy[None]) ** 2).sum(-1)) * 10)
+    for kernel in ("fused", "reference"):
+        ek.reset_launches()
+        bb.reset_frontier_stats()
+        res = bb.solve(d, step_kernel=kernel, device="cuda", **SPILL_KW)
+        stats = dict(bb.FRONTIER_STATS)
+        out = {key: getattr(res, key) for key in SPILL_PINNED}
+        pinned_fields(out, SPILL_PINNED, f"spill-forcing proof, {kernel} push")
+        require(res.device_loop and stats["compactions"] > 0 and res.spill_rounds > 0,
+                f"spill-forcing proof ({kernel}): {stats['compactions']} compactions, "
+                f"{res.spill_rounds} spill rounds")
+        require(ek.LAUNCHES["push_rows"] == (res.steps_run if kernel == "fused" else 0),
+                f"spill-forcing proof ({kernel}): {ek.LAUNCHES['push_rows']} push_rows launches")
+        print(f"phase 10 spill-forcing proof ({kernel} push; 13 cities, k=8, capacity=384, device "
+              f"loop): proved {res.cost} in {res.nodes_expanded} nodes, {res.iterations} iterations, "
+              f"{stats['compactions']} compactions, spill rounds/events {res.spill_rounds}/"
+              f"{res.spill_events}, bytes {res.spill_bytes_to_host} down / {res.spill_bytes_to_device} "
+              f"up, largest count {stats['peak_count']}; search {res.wall_seconds:.3f} s")
+    print(f"phase 10 card: {smi}")
 
 
 def main() -> int:
@@ -633,7 +957,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    errs = {"relax_minplus": 0.0, "relax_dense": 0.0, "prim_chain": 0.0}
+    errs = {"relax_minplus": 0.0, "relax_dense": 0.0, "prim_chain": 0.0, "push_rows": 0.0}
     try:
         smi = phase_build()
         phase_kernel_parity(errs)
@@ -641,7 +965,10 @@ def main() -> int:
         kernels = phase_full(smi, errs)
         phase_prim_parity(errs)
         phase_bnb_proofs()
-        kernels.append(phase_bnb_full(smi, errs))
+        kernels += phase_bnb_full(smi, errs)
+        phase_push_parity(errs)
+        phase_kroa100(smi)
+        phase_spill(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -114,3 +114,19 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _run_smoke(tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_push_rows_never_falls_back_off_the_cpu():
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels
+
+    before = dict(expand_kernels.LAUNCHES)
+    n, k = 8, 2
+    cols = expand_kernels.row_width(n)
+    meta = dict(device="meta")
+    args = (torch.empty((32, cols), dtype=torch.int32, **meta),
+            torch.empty((k, cols), dtype=torch.int32, **meta),
+            torch.empty((k, n), dtype=torch.int32, **meta),
+            *(torch.empty((k, n), **meta) for _ in range(3)))
+    with pytest.raises(ValueError):
+        expand_kernels.push_rows(*args, n)
+    assert expand_kernels.LAUNCHES == before

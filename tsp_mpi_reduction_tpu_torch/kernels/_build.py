@@ -6,7 +6,7 @@ under ``build/torch_ext/`` at the repository root (gitignored). The
 library's name carries a hash of its source and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing is built when
 this module is imported: the first kernel launch calls its library's
-loader (:func:`library`, :func:`prim_library`).
+loader (:func:`library`, :func:`prim_library`, :func:`push_library`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import subprocess
 import sys
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "held_karp_relax.cu", _CSRC / "prim_chain.cu")
+SOURCES = (_CSRC / "held_karp_relax.cu", _CSRC / "prim_chain.cu", _CSRC / "push_rows.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -105,6 +105,18 @@ def prim_library() -> ctypes.CDLL:
     lib.prim_chain_launch.restype = i
     lib.prim_error_string.argtypes = [i]
     lib.prim_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def push_library() -> ctypes.CDLL:
+    """The branch-and-bound fused push library, built on first use."""
+    lib = ctypes.CDLL(str(build(SOURCES[2])))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.push_rows_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.push_rows_launch.restype = i
+    lib.push_error_string.argtypes = [i]
+    lib.push_error_string.restype = ctypes.c_char_p
     return lib
 
 

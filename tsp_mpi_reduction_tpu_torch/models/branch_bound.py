@@ -1,7 +1,7 @@
 """Exact branch-and-bound TSP on one device: packed frontier + batched step.
 
 Counterpart of ``tsp_mpi_reduction_tpu/models/branch_bound.py``, single
-device, host-loop form (``device_loop=False`` there). A solve:
+device. A solve:
 
 1. builds the bound tables on the host in float64 numpy
    (:func:`_bound_setup`: Held-Karp 1-tree potentials snapped to a
@@ -15,8 +15,17 @@ device, host-loop form (``device_loop=False`` there). A solve:
    reduced-cost MST bound (the Prim chain runs in the hand-written CUDA
    kernel ``prim_chain`` on a CUDA device), expands all k*n children,
    prunes them against the incumbent, and pushes the survivors
-   best-first (:func:`_expand_step`). The host reads the frontier count
-   and the incumbent once per ``inner_steps`` steps.
+   best-first (:func:`_expand_step`; on a CUDA device the hand-written
+   kernel ``push_rows`` builds and stores the pushed rows in place);
+4. guards the frontier's capacity. The device loop (the default on a CUDA
+   device, :func:`_guarded_expand_steps`) checks the count every step,
+   squeezes incumbent-closed nodes out on the device
+   (:func:`_compact_frontier`) and stops before a push could overflow;
+   the host loop runs ``inner_steps`` steps between checks. Either way,
+   a frontier near capacity is exchanged with the host reservoir
+   (:class:`_Reservoir`), which hands nodes back when the device stack
+   empties. ``reorder_every`` re-sorts the stack best-bound-first
+   (:func:`_reorder_frontier`).
 
 Frontier row layout (``FRONTIER_LAYOUT_VERSION`` 2 of the JAX package;
 P = ceil(n/4) path words, W = ceil(n/32) mask words)::
@@ -30,11 +39,8 @@ P = ceil(n/4) path words, W = ceil(n/32) mask words)::
 Visited masks are int32 bit patterns here (the JAX package reads them as
 uint32): ``(w >> b) & 1`` gives the same bit for every b, bit 31 included.
 
-Not ported yet, each raising ``ValueError("... not ported yet")``: the host
-reservoir spill/refill (a solve whose frontier would spill raises and names
-``capacity``), checkpoints and resume, ``device_loop=True``,
-``reorder_every > 0``, ``ascent="device"``, the Boruvka MST and
-``step_kernel="fused"``.
+Not ported yet, each raising ``ValueError("... not ported yet")``:
+checkpoints and resume, ``ascent="device"`` and the Boruvka MST.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import prim_kernels
+from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
 
 INF = float("inf")
@@ -63,6 +69,12 @@ MAX_BNB_CITIES = 200
 #: "prim_chain" (the kernel's wrapper, which takes the plain chain only
 #: for CPU tensors)
 MST_KERNELS = ("auto", "prim", "prim_chain")
+
+#: the expansion step's push: "auto" (the fused ``push_rows`` kernel on a
+#: CUDA device, the reference push on the CPU), "reference" (the candidate
+#: block) or "fused" (``push_rows``, whose wrapper takes its plain version
+#: only for CPU tensors)
+STEP_KERNELS = ("auto", "reference", "fused")
 
 
 def _path_words(n: int) -> int:
@@ -233,8 +245,17 @@ class BnBResult:
     ascent_seconds: float = 0.0
     ils_seconds: float = 0.0
     lower_bound_raw: float = -np.inf
-    steps_run: int = 0  # expansion steps that popped at least one node
+    # host reservoir transfers (SpillStats): rounds, events, full merges,
+    # bytes each way
+    spill_rounds: int = 0
+    spill_events: int = 0
+    spill_full_merges: int = 0
+    spill_bytes_to_host: int = 0
+    spill_bytes_to_device: int = 0
+    steps_run: int = 0  # expansion steps run (one _expand_step call each)
     mst_kernel: str = ""  # the resolved Prim chain: "prim" or "prim_chain"
+    step_kernel: str = ""  # the resolved push: "reference" or "fused"
+    device_loop: bool = False  # the resolved loop
 
 
 # ---------------------------------------------------------------------------
@@ -386,19 +407,12 @@ def _is_integral(d) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _mask_consts(n: int, device: str):
-    """Per-``n`` helpers for the [W]-word visited mask -> (W, word_idx [n]
-    int64, bit [n] int32, set_bit [n, W] int32 bit patterns): city j is
-    bit ``bit[j]`` of word ``word_idx[j]``; OR-ing ``set_bit[j]`` visits j."""
-    w = (n + 31) // 32
-    word_idx = np.arange(n) // 32
-    bit = np.arange(n) % 32
-    set_bit = np.zeros((n, w), np.uint32)
-    set_bit[np.arange(n), word_idx] = np.uint32(1) << bit.astype(np.uint32)
+    """Per-``n`` helpers for the [W]-word visited mask -> (word_idx [n]
+    int64, bit [n] int32): city j is bit ``bit[j]`` of word ``word_idx[j]``
+    (the push's OR table lives in ``ops/expand_kernels``)."""
     return (
-        w,
-        torch.as_tensor(word_idx, dtype=torch.int64, device=device),
-        torch.as_tensor(bit, dtype=torch.int32, device=device),
-        torch.as_tensor(set_bit.view(np.int32), device=device),
+        torch.as_tensor(np.arange(n) // 32, dtype=torch.int64, device=device),
+        torch.as_tensor(np.arange(n) % 32, dtype=torch.int32, device=device),
     )
 
 
@@ -609,9 +623,16 @@ def _batched_mst_bound(dbar, pi, unvis, cur, p_cost, n, node_ascent=0, ascent_st
 
 def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
                  use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim",
-                 push_order: str = "best-first", push_block: int = 0):
+                 push_order: str = "best-first", push_block: int = 0,
+                 step_kernel: str = "reference"):
     """Pop <= k nodes, re-bound, expand, prune, push
-    (``branch_bound.py:1108-1411``, reference push).
+    (``branch_bound.py:1108-1411``).
+
+    ``step_kernel``: "reference" (build the ``[k*n, C]`` candidate block,
+    compact it, write it at the stack top) or "fused" (``push_rows`` builds
+    and stores only the pushed rows; the hand kernel on a CUDA device).
+    Both share every screen, flag and destination, so the live prefix is
+    bit-identical; only dead rows past the count can differ.
 
     Returns ``(frontier', inc_cost', inc_tour', popped)``. The frontier's
     node buffer is updated IN PLACE (the JAX step donates it); count and
@@ -630,6 +651,11 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
         raise ValueError(f"unknown push_order {push_order!r} (expected best-first|natural)")
     if push_block < 0:
         raise ValueError(f"push_block must be >= 0, got {push_block}")
+    if step_kernel not in ("reference", "fused"):
+        raise ValueError(f"unknown step_kernel {step_kernel!r} (expected reference|fused)")
+    if step_kernel == "fused" and push_block:
+        raise ValueError("push_block is a reference-kernel knob; "
+                         "step_kernel='fused' writes pushed rows only")
     dev = nodes.device
     integral = bd.integral
     f_cap = f_phys - k * n
@@ -654,8 +680,7 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
         live = live & (p_bound < inc_cost)
     cur = _path_byte_get(p_pathw, torch.clamp(p_depth - 1, min=0)).long()
 
-    _, word_idx, bit, set_bit = _mask_consts(n, str(dev))
-    cities = torch.arange(n, dtype=torch.int32, device=dev)
+    word_idx, bit = _mask_consts(n, str(dev))
     unvis = ((p_mask[:, word_idx] >> bit[None, :]) & 1) == 0
 
     if use_mst:
@@ -720,42 +745,40 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     n_push = flat_push.sum().to(torch.int32)
     base = fr.count - take
 
-    # reference push: the candidate block in the packed layout, compacted
-    # in priority order, written as one contiguous block at the stack top
-    dpos = torch.clamp(p_depth, max=n - 1)
-    wsel = (dpos // PATH_PACK)[:, None, None]
-    shift = ((dpos % PATH_PACK) * 8)[:, None, None]
-    pwb = p_pathw[:, None, :].expand(k, n, pw)
-    widx = torch.arange(pw, dtype=torch.int32, device=dev)[None, None, :]
-    neww = (pwb & ~(0xFF << shift)) | (cities[None, :, None] << shift)
-    child_pathw = torch.where(widx == wsel, neww, pwb)
-    child_mask = p_mask[:, None, :] | set_bit[None, :, :]
-    cand = torch.cat(
-        [
-            child_pathw.reshape(-1, pw),
-            child_mask.reshape(-1, w),
-            cdepth.expand(k, n).reshape(-1, 1),
-            _i32(ccost).reshape(-1, 1),
-            _i32(cbound).reshape(-1, 1),
-            _i32(child_sum).reshape(-1, 1),
-        ],
-        dim=1,
-    )
-    # compacting index: pushed candidate c goes to slot rank[c]; the rest
-    # land in one spare slot kn that is cut off (no index out of range)
-    comp_idx = torch.zeros(kn + 1, dtype=torch.int64, device=dev)
-    comp_idx.scatter_(0, torch.where(flat_push, rank, kn), torch.arange(kn, device=dev))
-    rows = kn
-    if push_block and push_block < kn and int(n_push) <= push_block:
-        rows = push_block  # capped write; every pushed row is inside it
-    start = torch.clamp(base, max=f_phys - rows)
-    dest = start.long() + torch.arange(rows, device=dev)
-    nodes.index_copy_(0, dest, cand[comp_idx[:rows]])
+    if step_kernel == "fused":
+        # the fused push: destination rows from the same rank as the
+        # reference push, pruned children parked at f_phys (not stored);
+        # ``p`` is the gathered copy of the popped rows, since the
+        # destinations start at count - take, the slots they came from
+        dest = torch.where(flat_push, base + rank, f_phys).to(torch.int32).reshape(k, n)
+        expand_kernels.push_rows(nodes, p, dest, ccost, cbound, child_sum, n)
+    else:
+        _reference_push(nodes, p, ccost, cbound, child_sum, flat_push, rank, base, n, push_block)
 
     new_count = base + n_push
     overflow = fr.overflow | (new_count > f_cap) | (base > f_phys - kn)
     new_count = torch.clamp(new_count, max=f_cap)
     return Frontier(nodes, new_count, overflow), new_inc_cost, new_inc_tour, take
+
+
+def _reference_push(nodes, parents, ccost, cbound, child_sum, flat_push, rank, base, n: int,
+                    push_block: int = 0) -> None:
+    """The reference push, in place: the ``[k*n, C]`` candidate block in the
+    packed layout, compacted in priority order (pushed candidate c to slot
+    ``rank[c]``, the rest to one spare slot that is cut off), written as
+    one contiguous block at row ``base`` (clamped into the buffer).
+    ``push_block`` caps the block when every pushed row fits in it."""
+    kn = flat_push.shape[0]
+    dev = nodes.device
+    cand = expand_kernels.child_rows(parents, _i32(ccost), _i32(cbound), _i32(child_sum), n)
+    cand = cand.reshape(kn, -1)
+    comp_idx = torch.zeros(kn + 1, dtype=torch.int64, device=dev)
+    comp_idx.scatter_(0, torch.where(flat_push, rank, kn), torch.arange(kn, device=dev))
+    rows = kn
+    if push_block and push_block < kn and int(flat_push.sum()) <= push_block:
+        rows = push_block  # capped write; every pushed row is inside it
+    start = torch.clamp(base, max=nodes.shape[0] - rows)
+    nodes.index_copy_(0, start.long() + torch.arange(rows, device=dev), cand[comp_idx[:rows]])
 
 
 def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
@@ -765,11 +788,296 @@ def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     inc_tour, popped, steps run)."""
     popped = torch.zeros((), dtype=torch.int64, device=fr.nodes.device)
     steps = 0
-    while steps < inner_steps and int(fr.count) > 0:
+    while steps < inner_steps and _read_count(fr)[0] > 0:
         fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
         popped = popped + take
         steps += 1
     return fr, inc_cost, inc_tour, int(popped), steps
+
+
+# ---------------------------------------------------------------------------
+# The device loop: re-sort, compaction, the guarded steps
+# ---------------------------------------------------------------------------
+
+#: device-loop runs: the first loop's step budget when ``time_limit_s`` is
+#: set, before any steps/s has been measured (``branch_bound.py:577``)
+_FIRST_DISPATCH_STEPS = 5_000
+
+#: since the last :func:`reset_frontier_stats`: frontier re-sorts,
+#: on-device compactions, and the largest count the loops read (the tests
+#: and ``chip_smoke.py`` read them)
+FRONTIER_STATS = {"reorders": 0, "compactions": 0, "peak_count": 0}
+
+
+def reset_frontier_stats() -> None:
+    for key in FRONTIER_STATS:
+        FRONTIER_STATS[key] = 0
+
+
+def _read_count(fr: Frontier) -> Tuple[int, bool]:
+    """Count and overflow flag in one device-to-host read."""
+    cnt, overflow = torch.stack([fr.count, fr.overflow.to(torch.int32)]).tolist()
+    FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], cnt)
+    return cnt, bool(overflow)
+
+
+def _reorder_frontier(fr: Frontier, rows: Optional[int] = None) -> Frontier:
+    """Re-sort the live stack so the lowest-bound node is on top (popped
+    next), in place (``branch_bound.py:1488-1516``): bound DESC from the
+    bottom, dead rows (-inf keys) past the live prefix; a stable argsort, as
+    ``jnp.argsort``. ``rows`` limits the sort to the logical slots (None:
+    the whole buffer)."""
+    nodes = fr.nodes
+    rows = nodes.shape[0] if rows is None else rows
+    live = torch.arange(rows, device=nodes.device) < fr.count
+    key = torch.where(live, _f32(nodes[:rows, -2]), -INF)
+    perm = torch.argsort(-key, stable=True)
+    nodes[:rows] = nodes[:rows][perm]
+    FRONTIER_STATS["reorders"] += 1
+    return Frontier(nodes, fr.count, fr.overflow)
+
+
+def _compact_frontier(fr: Frontier, inc_cost, integral: bool,
+                      rows: Optional[int] = None) -> Frontier:
+    """Drop the nodes the incumbent has closed from the device stack, in
+    place and in stable order (``branch_bound.py:1527-1552``). A gather
+    ``new[j] = old[src[j]]``: ``src`` sends slot j to the j-th alive row,
+    and slots past the alive count to themselves; the alive rows' slots
+    come from a prefix sum scattered into a spare entry for the dead ones,
+    so nothing waits for the device."""
+    nodes = fr.nodes
+    dev = nodes.device
+    rows = nodes.shape[0] if rows is None else rows
+    bound = _f32(nodes[:rows, -2])
+    live = torch.arange(rows, device=dev) < fr.count
+    if integral:
+        alive = live & (bound <= inc_cost - 1.0)
+    else:
+        alive = live & (bound < inc_cost)
+    slot = torch.where(alive, torch.cumsum(alive, 0) - 1, rows)
+    src = torch.arange(rows + 1, device=dev)
+    src.scatter_(0, slot, torch.arange(rows, device=dev))
+    nodes[:rows] = nodes[src[:rows]]
+    FRONTIER_STATS["compactions"] += 1
+    return Frontier(nodes, alive.sum().to(torch.int32), fr.overflow)
+
+
+def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
+                          max_steps: int, reorder_every: int = 0, step0: int = 0, **step_kw):
+    """Up to ``max_steps`` expansion steps with a per-step capacity guard
+    (``branch_bound.py:1617-1702``): compact when the count passes
+    ``f_cap - headroom``, and when compaction cannot get below that line,
+    stop with the stack intact (the stopping iteration counts as a step),
+    so the push never overflows. Every ``reorder_every`` run-global steps
+    (``step0 + i``) the stack is re-sorted first.
+
+    PyTorch has no device ``while_loop``, so this is a host loop with the
+    JAX loop's semantics. The host reads count and overflow together, once
+    per step (and the count once more after a compaction). Returns
+    ``(frontier, inc_cost, inc_tour, popped, steps, best_step, expanded)``;
+    ``best_step`` (0-d tensor) is the in-loop index of the last incumbent
+    improvement, -1 if none; ``expanded`` counts the steps that expanded
+    (all but a final stop on a full stack).
+    """
+    dev = fr.nodes.device
+    f_cap = max(fr.nodes.shape[0] - k * n, 1)
+    headroom = min(f_cap // 4, k * (n - 1))
+    popped = torch.zeros((), dtype=torch.int64, device=dev)
+    best_step = torch.full((), -1, dtype=torch.int64, device=dev)
+    cnt, overflow = _read_count(fr)
+    i = expanded = 0
+    full = False
+    while i < max_steps and cnt > 0 and not overflow and not full:
+        ic_before = inc_cost
+        if reorder_every and (step0 + i) % reorder_every == reorder_every - 1:
+            fr = _reorder_frontier(fr, rows=f_cap)
+        if cnt > f_cap - headroom:
+            fr = _compact_frontier(fr, inc_cost, bd.integral, rows=f_cap)
+            cnt = int(fr.count)
+        full = cnt > f_cap - headroom
+        if not full:
+            fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
+            popped = popped + take
+            expanded += 1
+            cnt, overflow = _read_count(fr)
+        best_step = torch.where(inc_cost < ic_before, i, best_step)
+        i += 1
+    return fr, inc_cost, inc_tour, int(popped), i, best_step, expanded
+
+
+def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n: int) -> bool:
+    """The device loop's compaction floor ``capacity >= 4*k*(n-1)`` (one push
+    batch of headroom per step): auto falls back to the host loop, an
+    explicit request raises (``branch_bound.py:1954-1969``)."""
+    if device_loop and capacity < 4 * k * (n - 1):
+        if auto:
+            return False
+        raise ValueError(
+            f"device_loop needs capacity >= 4*k*(n-1) = {4 * k * (n - 1)} "
+            f"(got {capacity}); lower k or raise capacity"
+        )
+    return device_loop
+
+
+def _dispatch_budget(remaining_units: int, int32_cap_units: int, rate_units: float,
+                     remaining_s: Optional[float], first_units: int) -> int:
+    """Step budget of one device-loop run (``branch_bound.py:1999-2038``):
+    the remaining iterations, the steps at which the int32 node counter
+    could overflow, and, under a time limit, the steps the last run's rate
+    fits in the remaining clock (``first_units`` before any rate exists).
+
+    The JAX package applies the clock cap on the CPU only: there a readback
+    after the first dispatch would slow its remote TPU's later ones. The
+    port's loop reads the device every step anyway, so it applies the cap on
+    every device, which keeps a time limit honest on the card too.
+    """
+    b = min(remaining_units, int32_cap_units)
+    if remaining_s is not None:
+        b = min(b, int(rate_units * max(remaining_s, 0.0)) + 1 if rate_units > 0 else first_units)
+    return max(b, 1)
+
+
+# ---------------------------------------------------------------------------
+# The host reservoir
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SpillStats:
+    """Reservoir transfer accounting (``branch_bound.py:327-346``):
+    exchange/refill rounds and events, full merges among them, and the
+    bytes moved each way (live-prefix fetches down, kept slices up)."""
+
+    rounds: int = 0
+    events: int = 0
+    full_merges: int = 0
+    bytes_to_host: int = 0
+    bytes_to_device: int = 0
+
+
+def _np_bound_col(rows: np.ndarray) -> np.ndarray:
+    """The float32 bound column of packed host rows (second to last)."""
+    return np.ascontiguousarray(rows[..., -2]).view(np.float32)
+
+
+def _fetch_live_rows(nodes: torch.Tensor, cnt: int) -> np.ndarray:
+    """The one device-to-host fetch of a spill: only the live prefix of the
+    frontier buffer, copied so it never aliases the buffer."""
+    return nodes[:cnt].cpu().numpy().copy()
+
+
+class _Reservoir:
+    """Host overflow store for frontier nodes: packed numpy chunks in the
+    frontier's row layout (``branch_bound.py:1737-1927``). When the device
+    stack nears capacity its rows are re-partitioned with the reservoir and
+    the best-bound half goes back; when the stack empties, nodes flow back.
+    A node is dropped only by a certified bound check."""
+
+    def __init__(self, stats: Optional[SpillStats] = None):
+        self.chunks: list = []
+        self.stats = stats if stats is not None else SpillStats()
+
+    def __len__(self) -> int:
+        return sum(int(c.shape[0]) for c in self.chunks)
+
+    def min_bound(self) -> float:
+        """Min bound over every spilled node (inf when empty)."""
+        mins = [float(_np_bound_col(c).min()) for c in self.chunks if c.shape[0]]
+        return min(mins) if mins else float("inf")
+
+    def prune(self, inc_cost: float, integral: bool) -> None:
+        """Drop incumbent-closed rows chunk by chunk (no concatenate)."""
+        out = []
+        for c in self.chunks:
+            b = _np_bound_col(c)
+            alive = b <= inc_cost - 1.0 if integral else b < inc_cost
+            if alive.all():
+                out.append(c)
+            elif alive.any():
+                out.append(c[alive])
+        self.chunks = out
+
+    def refill(self, fr: Frontier, inc_cost: float, integral: bool, capacity: int) -> Frontier:
+        """Reload up to half the logical ``capacity`` onto an empty device
+        stack, written in place over the dead rows of the buffer."""
+        keep = self._partition(None, inc_cost, integral, capacity)
+        if keep is None:
+            return fr
+        take = keep.shape[0]
+        self.stats.rounds += 1
+        self.stats.events += 1
+        self.stats.bytes_to_device += keep.nbytes
+        fr.nodes[:take].copy_(torch.from_numpy(keep))
+        return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
+
+    def _partition(self, extra, inc_cost, integral, capacity: int):
+        """Merge ``extra`` rows (or None) with every spilled chunk, drop the
+        incumbent-closed ones, keep the best-bound ``min(alive, capacity //
+        2)`` rows (stack order: worst at the bottom) and re-spill the rest.
+        Selection by argpartition; only the kept rows are sorted."""
+        chunks = self.chunks if extra is None else self.chunks + [extra]
+        self.chunks = []
+        chunks = [c for c in chunks if c.shape[0]]
+        if not chunks:
+            return None
+        merged = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
+        bounds = _np_bound_col(merged)
+        alive = bounds <= inc_cost - 1.0 if integral else bounds < inc_cost
+        merged = merged[alive]
+        bounds = bounds[alive]
+        m = merged.shape[0]
+        take = min(m, capacity // 2)
+        if take == 0:
+            if m:
+                self.chunks.append(merged)  # no device slots: stay spilled
+            return None
+        if take < m:
+            sel = np.argpartition(bounds, take - 1)[:take]
+            rest = np.ones(m, bool)
+            rest[sel] = False
+            self.chunks.append(merged[rest])
+            merged = merged[sel]
+            bounds = bounds[sel]
+        return merged[np.argsort(-bounds, kind="stable")]
+
+    def exchange(self, fr: Frontier, inc_cost: float, integral: bool, capacity: int) -> Frontier:
+        """Fetch the live prefix and re-partition: when the reservoir holds
+        the global alive minimum, merge everything and put the best-bound
+        ``capacity // 2`` back on the device; else keep the best half of the
+        live rows only and spill the rest. Only the kept slice goes up."""
+        cnt = int(fr.count)
+        live = _fetch_live_rows(fr.nodes, cnt)
+        lb = _np_bound_col(live)
+        alive_lb = lb[lb <= inc_cost - 1.0] if integral else lb[lb < inc_cost]
+        live_min = float(alive_lb.min()) if alive_lb.size else float("inf")
+        merge = not (cnt and self.min_bound() >= live_min)
+        self.stats.rounds += 1
+        self.stats.events += 1
+        self.stats.full_merges += int(merge)
+        self.stats.bytes_to_host += live.nbytes
+        if merge:
+            keep = self._partition(live, inc_cost, integral, capacity)
+        else:
+            keep = self._keep_live_only(live, inc_cost, integral, capacity)
+        if keep is None:
+            return Frontier(fr.nodes, _count_like(fr.count, 0), fr.overflow)
+        take = keep.shape[0]
+        self.stats.bytes_to_device += keep.nbytes
+        fr.nodes[:take].copy_(torch.from_numpy(keep))
+        return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
+
+    def _keep_live_only(self, live, inc_cost, integral, capacity: int):
+        """Best-half select over the live rows only; the cut rows join the
+        reservoir, whose chunks are never touched."""
+        saved, self.chunks = self.chunks, []
+        keep = self._partition(live, inc_cost, integral, capacity)
+        saved.extend(self.chunks)
+        self.chunks = saved
+        return keep
+
+
+def _count_like(count: torch.Tensor, value: int) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.int32, device=count.device)
 
 
 # ---------------------------------------------------------------------------
@@ -804,17 +1112,29 @@ def _spill_headroom(capacity: int, inner_steps: int, k: int, n: int) -> int:
 
 
 def _final_lower_bound(proven: bool, cost: float, root_lb: float, open_bounds,
-                       overflow: bool = False) -> float:
+                       reservoir: Optional[_Reservoir] = None, overflow: bool = False) -> float:
     """Certified global lower bound at stop: the proven cost, or the min
-    bound over the still-open nodes, floored at the root bound and capped
-    at the incumbent; after an overflow only the root bound is certified."""
+    bound over the still-open nodes (device frontier and host reservoir),
+    floored at the root bound and capped at the incumbent; after an
+    overflow only the root bound is certified."""
     if proven:
         return cost
     if overflow:
         return min(root_lb, cost)
     mins = [float(b.min()) for b in open_bounds if b.size]
+    if reservoir is not None and len(reservoir):
+        mins.append(reservoir.min_bound())
     lb = min(mins) if mins else cost
     return min(max(lb, root_lb), cost)
+
+
+def _resolve_step_kernel(step_kernel: str, device) -> str:
+    """``auto`` -> the fused push on a CUDA device, the reference on the CPU."""
+    if step_kernel not in STEP_KERNELS:
+        raise ValueError(f"unknown step_kernel {step_kernel!r} (expected one of {STEP_KERNELS})")
+    if step_kernel == "auto":
+        return "fused" if torch.device(device).type == "cuda" else "reference"
+    return step_kernel
 
 
 def solve(
@@ -838,18 +1158,24 @@ def solve(
     mst_kernel: str = "auto",
     push_order: str = "best-first",
     push_block: int = 0,
-    step_kernel: str = "reference",
+    step_kernel: str = "auto",
     device="cuda",
 ) -> BnBResult:
     """Exact B&B on one device; ``d`` is a dense [n, n] distance matrix.
 
-    The host loop of ``branch_bound.solve`` (``device_loop=False``): bound
-    setup on the host, the incumbent and the search on ``device``. Stops
-    when the frontier empties (proven optimal) or at ``max_iters`` /
-    ``time_limit_s`` / ``target_cost`` (then best so far). Arguments of
-    later slices raise ``ValueError``; a frontier that would need the host
-    reservoir (count above ``capacity`` minus the spill headroom) raises
-    ``RuntimeError`` rather than drop nodes.
+    ``branch_bound.solve`` of the JAX package, single device: bound setup
+    on the host, the incumbent and the search on ``device``. Stops when the
+    frontier and the host reservoir are both empty (proven optimal) or at
+    ``max_iters`` / ``time_limit_s`` / ``target_cost`` (then best so far).
+
+    ``device_loop``: None is on for a CUDA device and off for the CPU. On,
+    the steps run under :func:`_guarded_expand_steps` (compaction and a stop
+    before the stack could overflow, then a reservoir exchange); off, in
+    batches of ``inner_steps`` with a reservoir exchange when a batch could
+    overflow. ``reorder_every`` re-sorts the stack best-bound-first every
+    that many steps. ``step_kernel`` and ``mst_kernel`` "auto" pick the
+    hand kernels on a CUDA device and the plain versions on the CPU.
+    Checkpoints, resume and ``ascent="device"`` raise ``ValueError``.
     """
     t_setup = time.perf_counter()
     n = d.shape[0]
@@ -857,22 +1183,22 @@ def solve(
         raise ValueError(f"B&B engine supports 3 <= n <= {MAX_BNB_CITIES} cities, got {n}")
     if checkpoint_path or checkpoint_every or resume_from:
         _not_ported("checkpoint/resume")
-    if device_loop:
-        _not_ported("device_loop=True")
-    if reorder_every:
-        _not_ported("reorder_every > 0")
-    if step_kernel != "reference":
-        _not_ported(f"step_kernel={step_kernel!r}")
     if ascent != "host":
         _not_ported(f"ascent={ascent!r}")
     device = torch.device(device)
     mst_kernel = _resolve_mst_kernel(mst_kernel, device)
+    step_kernel = _resolve_step_kernel(step_kernel, device)
+    auto_loop = device_loop is None
+    if auto_loop:
+        device_loop = device.type == "cuda"
+    device_loop = _resolve_device_loop(bool(device_loop), auto_loop, capacity, k, n)
 
     d32 = torch.as_tensor(np.asarray(d, np.float32), device=device)
     t_asc = time.perf_counter()
     bd = _bound_setup(d, bound, node_ascent=node_ascent, device=device)
     ascent_s = time.perf_counter() - t_asc
     min_out_np = bd.min_out.cpu().numpy().astype(np.float64)
+    integral = bd.integral
 
     t_ils = time.perf_counter()
     inc_tour_np = _initial_incumbent(d, ils_rounds, device)
@@ -882,9 +1208,11 @@ def solve(
     inc_tour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device)
     fr = make_root_frontier(n, capacity, min_out_np, device=device, pad_rows=k * n)
     headroom = _spill_headroom(capacity, inner_steps, k, n)
+    spill_stats = SpillStats()
+    reservoir = _Reservoir(stats=spill_stats)
 
     step_kw = dict(use_mst=mst_prune, node_ascent=node_ascent, mst_kernel=mst_kernel,
-                   push_order=push_order, push_block=push_block)
+                   push_order=push_order, push_block=push_block, step_kernel=step_kernel)
     inner = max(1, inner_steps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -892,25 +1220,58 @@ def solve(
     setup_s = t0 - t_setup
     t_best = 0.0
     last_inc = float(inc_cost)
+    last_pruned = last_inc  # reservoir GC high-water mark
     nodes = it = steps_run = 0
+    last_reorder = 0
+    steps_rate = 0.0  # steps/s of the last device-loop run
     while it < max_iters:
-        fr, inc_cost, inc_tour, popped, steps = _expand_loop(
-            fr, inc_cost, inc_tour, d32, bd, k, n, inner, **step_kw
-        )
-        nodes += popped
-        steps_run += steps
-        it += inner
+        if device_loop:
+            budget = _dispatch_budget(
+                max_iters - it, (2**31 - 1) // max(k, 1), steps_rate,
+                None if time_limit_s is None else time_limit_s - (time.perf_counter() - t0),
+                _FIRST_DISPATCH_STEPS,
+            )
+            t_disp = time.perf_counter()
+            fr, inc_cost, inc_tour, popped, steps, best_step, expanded = _guarded_expand_steps(
+                fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, **step_kw
+            )
+            nodes += popped
+            steps_run += expanded
+            disp_s = time.perf_counter() - t_disp
+            if disp_s > 0 and steps > 0:
+                steps_rate = steps / disp_s
+            best = int(best_step)
+            if float(inc_cost) < last_inc and best >= 0:
+                # the improving step's time: its share of this run's wall
+                last_inc = float(inc_cost)
+                t_best = (t_disp - t0) + (best + 1) / max(steps, 1) * disp_s
+            it += max(steps, 1)
+            if bool(fr.overflow):
+                break  # exactness already lost (only if the guard was bypassed)
+        else:
+            fr, inc_cost, inc_tour, popped, steps = _expand_loop(
+                fr, inc_cost, inc_tour, d32, bd, k, n, inner, **step_kw
+            )
+            nodes += popped
+            steps_run += steps
+            it += inner
         cnt = int(fr.count)
         ic = float(inc_cost)
         if ic < last_inc:
             last_inc = ic
             t_best = time.perf_counter() - t0
-        if cnt > capacity - headroom:
-            raise RuntimeError(
-                f"the frontier holds {cnt} nodes, above capacity {capacity} minus the spill "
-                f"headroom {headroom}; the host reservoir is not ported yet, so raise "
-                "capacity (--capacity) or lower k"
-            )
+        if len(reservoir) and last_inc < last_pruned:
+            reservoir.prune(last_inc, integral)
+            last_pruned = last_inc
+        if cnt == 0 and len(reservoir):
+            fr = reservoir.refill(fr, ic, integral, capacity)
+            cnt = int(fr.count)
+        elif cnt > capacity - headroom:
+            fr = reservoir.exchange(fr, ic, integral, capacity)
+            cnt = int(fr.count)
+        if reorder_every and not device_loop and it - last_reorder >= reorder_every:
+            fr = _reorder_frontier(fr, rows=capacity)
+            last_reorder = it
         if cnt == 0:
             break
         if time_limit_s is not None and time.perf_counter() - t0 > time_limit_s:
@@ -920,9 +1281,9 @@ def solve(
     wall = time.perf_counter() - t0
     count = int(fr.count)
     overflow = bool(fr.overflow)
-    proven = count == 0 and not overflow
+    proven = count == 0 and len(reservoir) == 0 and not overflow
     lb_raw = _final_lower_bound(proven, float(inc_cost), bd.root_lb,
-                                [fr.bound[:count].cpu().numpy()], overflow=overflow)
+                                [fr.bound[:count].cpu().numpy()], reservoir, overflow=overflow)
     return BnBResult(
         cost=float(inc_cost),
         tour=inc_tour.cpu().numpy(),
@@ -938,6 +1299,13 @@ def solve(
         ascent_seconds=ascent_s,
         ils_seconds=ils_s,
         lower_bound_raw=lb_raw,
+        spill_rounds=spill_stats.rounds,
+        spill_events=spill_stats.events,
+        spill_full_merges=spill_stats.full_merges,
+        spill_bytes_to_host=spill_stats.bytes_to_host,
+        spill_bytes_to_device=spill_stats.bytes_to_device,
         steps_run=steps_run,
         mst_kernel=mst_kernel,
+        step_kernel=step_kernel,
+        device_loop=device_loop,
     )

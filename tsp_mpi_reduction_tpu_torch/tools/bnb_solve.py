@@ -6,9 +6,12 @@
 Counterpart of ``tools/bnb_solve.py``, single device. The instance is an
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
-computes, ``null`` for the telemetry blocks it does not port yet, the
-resolved ``mst_kernel`` and the ``prim_chain`` kernel launches of the
-solve. ``--backend=auto`` and ``cuda`` need a GPU (exit 2 without one).
+computes (the host reservoir's ``spill_*`` counters included), ``null``
+for the telemetry blocks it does not port yet, the resolved
+``mst_kernel``, ``step_kernel`` and ``device_loop``, and the launches of
+the ``prim_chain`` and ``push_rows`` kernels in the solve. On a GPU the
+defaults run the device loop with both kernels. ``--backend=auto`` and
+``cuda`` need a GPU (exit 2 without one).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import sys
 from typing import List, Optional
 
 
-def result_payload(res, inst, args, device, launches: int) -> dict:
+def result_payload(res, inst, args, device, launches: dict) -> dict:
     """The one-line JSON payload (schema of the JAX driver's
     ``result_payload``, single device)."""
     opt = inst.known_optimum
@@ -45,7 +48,9 @@ def result_payload(res, inst, args, device, launches: int) -> dict:
         "nodes_per_rank": None,
         "bound": args.bound,
         "mst_kernel": res.mst_kernel,
-        "step_kernel": "reference",
+        "step_kernel": res.step_kernel,
+        "device_loop": res.device_loop,
+        "reorder_every": args.reorder_every,
         "push_order": args.push_order,
         "push_block": args.push_block,
         "balance": None,
@@ -54,11 +59,11 @@ def result_payload(res, inst, args, device, launches: int) -> dict:
         "lb_raw": round(res.lower_bound_raw, 3) if res.lower_bound_raw > -1e30 else None,
         "lb_certified": round(res.lower_bound, 3),
         "gap": round(res.cost - res.lower_bound, 3) if res.lower_bound > -1e30 else None,
-        "spill_rounds": 0,
-        "spill_events": 0,
-        "spill_full_merges": 0,
-        "spill_bytes_to_host": 0,
-        "spill_bytes_to_device": 0,
+        "spill_rounds": res.spill_rounds,
+        "spill_events": res.spill_events,
+        "spill_full_merges": res.spill_full_merges,
+        "spill_bytes_to_host": res.spill_bytes_to_host,
+        "spill_bytes_to_device": res.spill_bytes_to_device,
         "health": None,
         "compile_cache": None,
         "series": None,
@@ -67,7 +72,8 @@ def result_payload(res, inst, args, device, launches: int) -> dict:
         "obs": None,
         "iterations": res.iterations,
         "steps_run": res.steps_run,
-        "prim_chain_launches": launches,
+        "prim_chain_launches": launches["prim_chain"],
+        "push_rows_launches": launches["push_rows"],
         "device": device,
     }
 
@@ -88,6 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mst-kernel", default="auto", choices=["auto", "prim", "prim_chain"],
                     help="Prim chain of the MST bound: auto (the prim_chain CUDA kernel "
                     "on cuda, the plain chain on cpu), prim (plain torch) or prim_chain")
+    ap.add_argument("--step-kernel", default="auto", choices=["auto", "reference", "fused"],
+                    help="the expansion step's push: auto (the push_rows CUDA kernel on cuda, "
+                    "the reference push on cpu), reference (the candidate block) or fused")
+    ap.add_argument("--device-loop", default="auto", choices=["auto", "on", "off"],
+                    help="per-step capacity guard with on-device compaction (auto: on for "
+                    "cuda, off for cpu); off runs --inner-steps steps between checks")
+    ap.add_argument("--reorder-every", type=int, default=0,
+                    help="every N expansion steps, re-sort the stack best-bound-first (0 = off)")
     ap.add_argument("--push-order", default="best-first", choices=["best-first", "natural"])
     ap.add_argument("--push-block", type=int, default=0,
                     help="cap the per-step push block write at this many rows (0 = k*n)")
@@ -100,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     from ..models import branch_bound as bb
-    from ..ops import prim_kernels
+    from ..ops import expand_kernels, prim_kernels
     from ..utils import tsplib
     from ..utils.backend import resolve_device
 
@@ -120,6 +134,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     d = inst.distance_matrix()
 
     prim_kernels.reset_launches()
+    expand_kernels.reset_launches()
     res = bb.solve(
         d,
         capacity=args.capacity,
@@ -133,6 +148,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         mst_kernel=args.mst_kernel,
         push_order=args.push_order,
         push_block=args.push_block,
+        step_kernel=args.step_kernel,
+        device_loop={"auto": None, "on": True, "off": False}[args.device_loop],
+        reorder_every=args.reorder_every,
         device=device,
     )
     name = device.type
@@ -140,7 +158,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         import torch
 
         name = torch.cuda.get_device_name(device)
-    print(json.dumps(result_payload(res, inst, args, name, prim_kernels.LAUNCHES["prim_chain"])))
+    launches = {**prim_kernels.LAUNCHES, **expand_kernels.LAUNCHES}
+    print(json.dumps(result_payload(res, inst, args, name, launches)))
     return 0
 
 
