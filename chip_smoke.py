@@ -16,7 +16,8 @@ Phases, each printing its own line; any failure exits non-zero:
 4. full size: n = 16 cities per block (the reference's cap), 1024 blocks,
    1000x1000, float32, impl ``auto`` — phase times, the final line, fused
    against plain compact on one distance tensor (exact), per-kernel times
-   from CUDA events with the kernels' bounds, and each impl's wall time;
+   from CUDA events (eager and CUDA-graph replay) with the kernels'
+   bounds, and each impl's wall time;
 5. ``prim_chain`` parity: the B&B Prim kernel against its plain version
    on the same CUDA tensors, bit for bit (``tot`` as int32 bits, ``deg``
    exactly), n in {5, 14, 51, 100, 200}, k in {37, 1024}, with and without
@@ -32,7 +33,8 @@ Phases, each printing its own line; any failure exits non-zero:
    ``push_rows`` and (1 + node_ascent) ``prim_chain`` launches per step;
    the same under ``--step-kernel=reference``; setup/search seconds,
    nodes/s, time to proof and the largest frontier count of both; the
-   kernels' ms per launch by CUDA events beside their bounds and plain
+   kernels' ms per launch by CUDA events (eager and CUDA-graph replay)
+   beside their bounds and plain
    versions, ``push_rows`` against the reference push section on the
    main path's recorded inputs;
 8. ``push_rows`` parity: the kernel against its plain version on the same
@@ -52,7 +54,10 @@ Phases, each printing its own line; any failure exits non-zero:
 Each main path (phase 4's Held-Karp run, phase 7's eil51 and phase 9's
 kroA100 runs) runs with the kernels' launch counts reset just before and
 read just after; a kernel of the path that never launched fails the run.
-The last two lines are the per-kernel JSON and ``{"ok": true, ...}``.
+The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
+the JSON every kernel's ``ms`` is its eager per-launch time by CUDA events
+(the host's launch gaps included) and ``device_ms`` the same launches
+replayed from a CUDA graph (the device's time alone).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -440,6 +445,7 @@ def phase_full(smi, errs):
             hkk.relax_dense(tab, d_sub, c)  # idempotent on the finished table
 
     dense_ms = cuda_ms(dense_all, reps) / (m - 1)
+    dense_dev_ms = graph_ms(dense_all, reps) / (m - 1)
     dense_b = [dense_bound(nb, m, c, elt) for c in range(1, m)]
     dense_bms = [bound_ms(b, o, dt_name) for b, o in dense_b]
     d_bound = sum(b for b, _ in dense_bms) / len(dense_bms)
@@ -475,6 +481,7 @@ def phase_full(smi, errs):
             hkk.relax_minplus(g, d_t)
 
     minplus_ms = cuda_ms(minplus_all, reps) / (m - 1)
+    minplus_dev_ms = graph_ms(minplus_all, reps) / (m - 1)
     mp_bytes, mp_ops = minplus_bound(nb, j, m, elt)
     mp_bound, mp_by = bound_ms(mp_bytes, mp_ops, dt_name)
     del gs
@@ -482,21 +489,25 @@ def phase_full(smi, errs):
 
     plain_d = sum(plain_dense_ms) / len(plain_dense_ms)
     plain_mp = sum(plain_minplus_ms) / len(plain_minplus_ms)
-    print(f"phase 4 kernel relax_dense: {dense_ms:.4f} ms/launch (CUDA events, mean of {reps}x{m - 1}), "
+    print(f"phase 4 kernel relax_dense: {dense_ms:.4f} ms/launch eager, {dense_dev_ms:.4f} ms/launch "
+          f"by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
           f"{launches_main['relax_dense']} launches per solve, bound {d_bound:.4f} ms ({d_by}), "
           f"plain {plain_d:.4f} ms")
-    print(f"phase 4 kernel relax_minplus: {minplus_ms:.4f} ms/launch (CUDA events, mean of {reps}x{m - 1}), "
+    print(f"phase 4 kernel relax_minplus: {minplus_ms:.4f} ms/launch eager, {minplus_dev_ms:.4f} ms/launch "
+          f"by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
           f"{launches_pallas['relax_minplus']} launches per solve, bound {mp_bound:.4f} ms ({mp_by}), "
           f"plain {plain_mp:.4f} ms")
     print(f"phase 4 card: {smi}")
     return [
         {"name": "relax_minplus", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_minplus"], "launches": launches_pallas["relax_minplus"],
-         "max_abs_err": errs["relax_minplus"], "ms": minplus_ms, "plain_ms": plain_mp,
+         "max_abs_err": errs["relax_minplus"], "ms": minplus_ms, "device_ms": minplus_dev_ms,
+         "plain_ms": plain_mp,
          "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None},
         {"name": "relax_dense", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_dense"], "launches": launches_main["relax_dense"],
-         "max_abs_err": errs["relax_dense"], "ms": dense_ms, "plain_ms": plain_d,
+         "max_abs_err": errs["relax_dense"], "ms": dense_ms, "device_ms": dense_dev_ms,
+         "plain_ms": plain_d,
          "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
     ]
 
@@ -621,12 +632,13 @@ def prim_bound(unvis, has_lam: bool):
 
 def push_bound(calls, k: int, n: int):
     """Bytes and operations one ``push_rows`` launch needs, averaged over
-    the recorded steps: the k parent rows and the four [k, n] int32 planes
-    read once, the n_push pushed rows written once; one operation per
-    written word."""
+    the recorded steps: the k parent rows and ``dest`` [k, n] read once,
+    the three float columns read only at the n_push pushed children (4 B
+    each, not charged per 32 B sector), the n_push pushed rows written
+    once; one operation per written word."""
     cols = calls[0][1].shape[1]
     n_push = sum(int(((c[2] >= 0) & (c[2] < c[0][0])).sum()) for c in calls) / len(calls)
-    nbytes = 4 * (k * cols + 4 * k * n) + 4 * n_push * cols
+    nbytes = 4 * (k * cols + k * n) + 4 * 3 * n_push + 4 * n_push * cols
     return nbytes, n_push * cols, n_push
 
 
@@ -798,11 +810,12 @@ def phase_bnb_full(smi, errs):
     return [
         {"name": "prim_chain", "route": "cuda", "source": PRIM_SOURCE,
          "replaces": REPLACES["prim_chain"], "launches": launches["prim_chain"],
-         "max_abs_err": errs["prim_chain"], "ms": k_ms, "plain_ms": p_ms,
+         "max_abs_err": errs["prim_chain"], "ms": k_eager_ms, "device_ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
         {"name": "push_rows", "route": "cuda", "source": PUSH_SOURCE,
          "replaces": REPLACES["push_rows"], "launches": launches["push_rows"],
-         "max_abs_err": errs["push_rows"], "ms": push_ms, "plain_ms": plain_push_ms,
+         "max_abs_err": errs["push_rows"], "ms": push_eager_ms, "device_ms": push_ms,
+         "plain_ms": plain_push_ms,
          "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None},
     ]
 

@@ -9,7 +9,8 @@ the host reservoir, on the CPU, against the JAX package.
 - whole solves under ``device_loop=True`` against the JAX package's device
   loop, and host-loop solves that spill and re-sort against its host loop:
   nodes, iterations, cost, tour, certified bound and every spill counter;
-- the device loop's capacity floor and its step budget.
+- the device loop's capacity floor, its step budget, its per-step
+  deadline check and its time to best.
 
 Inputs are embedded TSPLIB instances or made with numpy from a seed.
 """
@@ -255,21 +256,42 @@ def test_device_loop_default_is_off_on_the_cpu():
     assert not r.device_loop and r.proven_optimal
 
 
-@pytest.mark.parametrize(
-    "args",
-    [(100, 50, 0.0, None, 5000), (10_000, 50, 0.0, 3.0, 5000), (10_000, 10**9, 20.0, 2.5, 5000),
-     (10_000, 10**9, 20.0, -1.0, 5000), (0, 10, 0.0, None, 5)],
-)
+@pytest.mark.parametrize("args", [(100, 50), (10_000, 50), (10_000, 10**9), (0, 10), (7, 7)])
 def test_dispatch_budget_matches_jax(args):
-    remaining, cap, rate, remaining_s, first = args
-    assert tbb._dispatch_budget(remaining, cap, rate, remaining_s, first) == jbb._dispatch_budget(
-        remaining, cap, None, rate, remaining_s, first)
+    """Without a time limit a run's step budget is the JAX package's: the
+    remaining iterations under the int32 node-counter cap, at least 1."""
+    remaining, cap = args
+    assert tbb._dispatch_budget(remaining, cap) == jbb._dispatch_budget(
+        remaining, cap, None, 0.0, None, 5000)
+
+
+@pytest.mark.parametrize("max_iters", [2, 50, 100_000])
+def test_device_loop_stops_at_the_first_step_past_the_deadline(max_iters):
+    """The device loop checks the clock after every step, so a time limit
+    already passed stops it after the root's step, whatever its budget."""
+    d = jtsplib.embedded("ulysses16").distance_matrix()
+    r = tbb.solve(d, capacity=2048, k=32, bound="min-out", ils_rounds=0, device="cpu",
+                  device_loop=True, time_limit_s=0.0, max_iters=max_iters)
+    assert (r.iterations, r.steps_run, r.nodes_expanded) == (1, 1, 1)
+    assert not r.proven_optimal
+
+
+def test_device_loop_stamps_the_time_to_best(monkeypatch):
+    """From an identity-tour incumbent the search improves it; the device
+    loop stamps the improving step's time, within the search's wall."""
+    d = random_d(12, 3)
+    identity = np.append(np.arange(12), 0).astype(np.int32)
+    monkeypatch.setattr(tbb, "_initial_incumbent", lambda d, ils_rounds, device: identity)
+    r = tbb.solve(d, capacity=4096, k=16, bound="min-out", device="cpu", device_loop=True)
+    want = jbb.solve(d, capacity=4096, k=16, bound="min-out")
+    assert r.proven_optimal and r.cost == want.cost < tbb.tour_cost(d, identity)
+    assert 0.0 < r.time_to_best <= r.wall_seconds
 
 
 def test_time_limited_device_loop_stops_and_keeps_open_nodes():
-    """A time limit splits the device loop into budgeted runs; an early stop
-    reports an unproven result whose certified bound covers the open
-    nodes."""
+    """A time limit stops the device loop at the first step past it; an
+    early stop reports an unproven result whose certified bound covers the
+    open nodes."""
     d = jtsplib.embedded("ulysses16").distance_matrix()
     r = tbb.solve(d, capacity=2048, k=32, bound="min-out", ils_rounds=0, device="cpu",
                   device_loop=True, time_limit_s=0.5, max_iters=100_000)

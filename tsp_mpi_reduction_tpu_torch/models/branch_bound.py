@@ -799,10 +799,6 @@ def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
 # The device loop: re-sort, compaction, the guarded steps
 # ---------------------------------------------------------------------------
 
-#: device-loop runs: the first loop's step budget when ``time_limit_s`` is
-#: set, before any steps/s has been measured (``branch_bound.py:577``)
-_FIRST_DISPATCH_STEPS = 5_000
-
 #: since the last :func:`reset_frontier_stats`: frontier re-sorts,
 #: on-device compactions, and the largest count the loops read (the tests
 #: and ``chip_smoke.py`` read them)
@@ -814,11 +810,12 @@ def reset_frontier_stats() -> None:
         FRONTIER_STATS[key] = 0
 
 
-def _read_count(fr: Frontier) -> Tuple[int, bool]:
-    """Count and overflow flag in one device-to-host read."""
-    cnt, overflow = torch.stack([fr.count, fr.overflow.to(torch.int32)]).tolist()
+def _read_count(fr: Frontier, *flags) -> Tuple:
+    """Count, overflow flag and any further 0-d bool ``flags`` in one
+    device-to-host read."""
+    cnt, *bits = torch.stack([fr.count] + [f.to(torch.int32) for f in (fr.overflow, *flags)]).tolist()
     FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], cnt)
-    return cnt, bool(overflow)
+    return (cnt, *map(bool, bits))
 
 
 def _reorder_frontier(fr: Frontier, rows: Optional[int] = None) -> Frontier:
@@ -863,7 +860,8 @@ def _compact_frontier(fr: Frontier, inc_cost, integral: bool,
 
 
 def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
-                          max_steps: int, reorder_every: int = 0, step0: int = 0, **step_kw):
+                          max_steps: int, reorder_every: int = 0, step0: int = 0,
+                          deadline: Optional[float] = None, **step_kw):
     """Up to ``max_steps`` expansion steps with a per-step capacity guard
     (``branch_bound.py:1617-1702``): compact when the count passes
     ``f_cap - headroom``, and when compaction cannot get below that line,
@@ -872,37 +870,44 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
     (``step0 + i``) the stack is re-sorted first.
 
     PyTorch has no device ``while_loop``, so this is a host loop with the
-    JAX loop's semantics. The host reads count and overflow together, once
-    per step (and the count once more after a compaction). Returns
-    ``(frontier, inc_cost, inc_tour, popped, steps, best_step, expanded)``;
-    ``best_step`` (0-d tensor) is the in-loop index of the last incumbent
-    improvement, -1 if none; ``expanded`` counts the steps that expanded
+    JAX loop's semantics. The host reads count, overflow and whether the
+    step improved the incumbent together, once per step (and the count once
+    more after a compaction); so it also stops at the first step that ends
+    past ``deadline`` (a ``time.perf_counter()`` value) and stamps the
+    improvement's time itself, where the JAX loop sizes its runs by a
+    measured step rate and interpolates the time to best. Returns
+    ``(frontier, inc_cost, inc_tour, popped, steps, t_improved, expanded)``;
+    ``t_improved`` is the ``perf_counter`` time of the last incumbent
+    improvement, None if none; ``expanded`` counts the steps that expanded
     (all but a final stop on a full stack).
     """
     dev = fr.nodes.device
     f_cap = max(fr.nodes.shape[0] - k * n, 1)
     headroom = min(f_cap // 4, k * (n - 1))
     popped = torch.zeros((), dtype=torch.int64, device=dev)
-    best_step = torch.full((), -1, dtype=torch.int64, device=dev)
+    t_improved = None
     cnt, overflow = _read_count(fr)
     i = expanded = 0
     full = False
     while i < max_steps and cnt > 0 and not overflow and not full:
-        ic_before = inc_cost
         if reorder_every and (step0 + i) % reorder_every == reorder_every - 1:
             fr = _reorder_frontier(fr, rows=f_cap)
         if cnt > f_cap - headroom:
             fr = _compact_frontier(fr, inc_cost, bd.integral, rows=f_cap)
             cnt = int(fr.count)
         full = cnt > f_cap - headroom
+        i += 1
         if not full:
+            ic_before = inc_cost
             fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
             popped = popped + take
             expanded += 1
-            cnt, overflow = _read_count(fr)
-        best_step = torch.where(inc_cost < ic_before, i, best_step)
-        i += 1
-    return fr, inc_cost, inc_tour, int(popped), i, best_step, expanded
+            cnt, overflow, improved = _read_count(fr, inc_cost < ic_before)
+            if improved:
+                t_improved = time.perf_counter()
+            if deadline is not None and time.perf_counter() > deadline:
+                break
+    return fr, inc_cost, inc_tour, int(popped), i, t_improved, expanded
 
 
 def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n: int) -> bool:
@@ -919,22 +924,14 @@ def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n
     return device_loop
 
 
-def _dispatch_budget(remaining_units: int, int32_cap_units: int, rate_units: float,
-                     remaining_s: Optional[float], first_units: int) -> int:
+def _dispatch_budget(remaining_units: int, int32_cap_units: int) -> int:
     """Step budget of one device-loop run (``branch_bound.py:1999-2038``):
-    the remaining iterations, the steps at which the int32 node counter
-    could overflow, and, under a time limit, the steps the last run's rate
-    fits in the remaining clock (``first_units`` before any rate exists).
-
-    The JAX package applies the clock cap on the CPU only: there a readback
-    after the first dispatch would slow its remote TPU's later ones. The
-    port's loop reads the device every step anyway, so it applies the cap on
-    every device, which keeps a time limit honest on the card too.
-    """
-    b = min(remaining_units, int32_cap_units)
-    if remaining_s is not None:
-        b = min(b, int(rate_units * max(remaining_s, 0.0)) + 1 if rate_units > 0 else first_units)
-    return max(b, 1)
+    the remaining iterations and the steps at which the int32 node counter
+    could overflow. The JAX package also caps a run by the clock, from a
+    measured step rate; the port's loop reads the device every step, so
+    :func:`_guarded_expand_steps` checks the deadline itself, on every
+    device."""
+    return max(min(remaining_units, int32_cap_units), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1223,28 +1220,18 @@ def solve(
     last_pruned = last_inc  # reservoir GC high-water mark
     nodes = it = steps_run = 0
     last_reorder = 0
-    steps_rate = 0.0  # steps/s of the last device-loop run
+    deadline = None if time_limit_s is None else t0 + time_limit_s
     while it < max_iters:
         if device_loop:
-            budget = _dispatch_budget(
-                max_iters - it, (2**31 - 1) // max(k, 1), steps_rate,
-                None if time_limit_s is None else time_limit_s - (time.perf_counter() - t0),
-                _FIRST_DISPATCH_STEPS,
-            )
-            t_disp = time.perf_counter()
-            fr, inc_cost, inc_tour, popped, steps, best_step, expanded = _guarded_expand_steps(
-                fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, **step_kw
+            budget = _dispatch_budget(max_iters - it, (2**31 - 1) // max(k, 1))
+            fr, inc_cost, inc_tour, popped, steps, t_improved, expanded = _guarded_expand_steps(
+                fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, deadline, **step_kw
             )
             nodes += popped
             steps_run += expanded
-            disp_s = time.perf_counter() - t_disp
-            if disp_s > 0 and steps > 0:
-                steps_rate = steps / disp_s
-            best = int(best_step)
-            if float(inc_cost) < last_inc and best >= 0:
-                # the improving step's time: its share of this run's wall
+            if t_improved is not None:
                 last_inc = float(inc_cost)
-                t_best = (t_disp - t0) + (best + 1) / max(steps, 1) * disp_s
+                t_best = t_improved - t0
             it += max(steps, 1)
             if bool(fr.overflow):
                 break  # exactness already lost (only if the guard was bypassed)
