@@ -8,20 +8,25 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device and build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from ``kernels/csrc`` for sm_90a;
 2. kernel parity: each hand kernel against its plain PyTorch version,
-   exactly (``torch.equal``), f32 and f64, with inf entries and ties; plus
-   a check that ``argmin``/``argmax`` pick the first index on CUDA;
+   exactly (``torch.equal``), f32 and f64, with inf entries and ties (the
+   dense sweep against the per-level plain loop at m in {2, 5, 9, 10, 11,
+   15, 17}); plus a check that ``argmin``/``argmax`` pick the first index
+   on CUDA;
 3. oracle parity: the CLI's ``10 6 500 500`` cost, and the goldens'
    block solutions, fold costs and final tour in float64 under the
    ``fused`` and ``pallas`` impls; ``--ranks=4`` equal under fused/compact;
 4. full size: n = 16 cities per block (the reference's cap), 1024 blocks,
-   1000x1000, float32, impl ``auto`` — phase times, the final line, fused
-   against plain compact on one distance tensor (exact), per-kernel times
-   from CUDA events (eager and CUDA-graph replay) with the kernels'
-   bounds, and each impl's wall time;
+   1000x1000, float32, impl ``auto`` — phase times, the final line, the
+   sweep's h + 1 launches, fused against plain compact on one distance
+   tensor (exact), the sweep against the per-level plain loop at full size
+   in float32 and float64 (exact), per-kernel times from CUDA events
+   (eager and CUDA-graph replay; ``relax_dense`` per solve and per launch)
+   with the kernels' bounds, and each impl's wall time;
 5. ``prim_chain`` parity: the B&B Prim kernel against its plain version
    on the same CUDA tensors, bit for bit (``tot`` as int32 bits, ``deg``
-   exactly), n in {5, 14, 51, 100, 200}, k in {37, 1024}, with and without
-   per-lane ``lam``, integer and non-integer ``dbar``, degenerate lanes;
+   exactly), n in {5, 14, 33, 51, 96, 97, 100, 200}, k in {37, 300, 1024},
+   with and without per-lane ``lam``, integer and non-integer ``dbar``,
+   -0.0 and +inf in ``dbar``, |U| in {0, 1, 2, n} mixed across lanes;
 6. B&B proofs through the CLI entry point (``tools/bnb_solve``, defaults:
    the device loop, ``mst_kernel`` and ``step_kernel`` auto): burma14 3323,
    ulysses16 6859, berlin52 7542; and ulysses16 under min-out with no ILS
@@ -32,11 +37,12 @@ Phases, each printing its own line; any failure exits non-zero:
    push — proves 426 from root bound 423 in 153,747 nodes, with one
    ``push_rows`` and (1 + node_ascent) ``prim_chain`` launches per step;
    the same under ``--step-kernel=reference``; setup/search seconds,
-   nodes/s, time to proof and the largest frontier count of both; the
-   kernels' ms per launch by CUDA events (eager and CUDA-graph replay)
-   beside their bounds and plain
-   versions, ``push_rows`` against the reference push section on the
-   main path's recorded inputs;
+   nodes/s, time to proof and the largest frontier count of both; both B&B
+   kernels on the main path's recorded inputs (every launch, bit for bit
+   against the plain versions, then timed eager and by CUDA-graph replay
+   beside their bounds and plain versions; ``prim_chain`` also on
+   synthetic half-visited lanes), ``push_rows`` against the reference push
+   section;
 8. ``push_rows`` parity: the kernel against its plain version on the same
    CUDA tensors, the whole buffer bit for bit, n in {5, 14, 33, 51, 100,
    200}, k in {1, 37, 1024}, nothing / some / everything pushed (then up
@@ -45,7 +51,8 @@ Phases, each printing its own line; any failure exits non-zero:
    1024, capacity 2^19, node_ascent 6, re-sort every 16 steps, device
    loop, 300 steps) under the fused and the reference push: both equal
    the JAX package's numbers for the same call on the CPU (nodes,
-   iterations, cost, certified LB, every spill counter);
+   iterations, cost, certified LB, every spill counter); ``prim_chain`` on
+   the recorded inputs of the chunk's first 20 steps, checked and timed;
 10. a spill-forcing proof (13 random cities, capacity at the device
     loop's 4*k*(n-1) floor): compacts on the card, exchanges with the host
     reservoir and proves, fused == reference == the JAX package's pinned
@@ -55,9 +62,12 @@ Each main path (phase 4's Held-Karp run, phase 7's eil51 and phase 9's
 kroA100 runs) runs with the kernels' launch counts reset just before and
 read just after; a kernel of the path that never launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
-the JSON every kernel's ``ms`` is its eager per-launch time by CUDA events
-(the host's launch gaps included) and ``device_ms`` the same launches
-replayed from a CUDA graph (the device's time alone).
+the JSON every kernel's ``ms`` is its eager time by CUDA events (the
+host's launch gaps included) and ``device_ms`` the same launches replayed
+from a CUDA graph (the device's time alone); ``per`` says the unit: a
+launch, or for ``relax_dense`` one sweep (a whole DP of
+``launches_per_solve`` launches), with its bound for the same work. The
+timing helpers are ``tsp_mpi_reduction_tpu_torch/tools/kernel_times.py``.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -74,11 +84,6 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDENS = ROOT / "goldens"
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and the
-# non-tensor-core float32 / float64 rates
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
 N_FULL, B_FULL, GRID_FULL = 16, 1024, 1000
 KERNEL_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/held_karp_relax.cu"
@@ -138,37 +143,6 @@ def max_abs_err(a, b) -> float:
     return float((a[fa].double() - b[fb].double()).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
-    import torch
-
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean milliseconds of one replay of ``fn`` captured in a CUDA graph,
-    by CUDA events: the device time of its launches without the host's
-    launch gaps (what a run of tiny launches in eager mode cannot show)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up off the default stream, as capture requires
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    return cuda_ms(graph.replay, reps)
-
-
 def wall_s(fn):
     import torch
 
@@ -177,12 +151,6 @@ def wall_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def bound_ms(nbytes: float, ops: float, dtype_name: str):
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -229,22 +197,25 @@ def phase_kernel_parity(errs):
                     f"relax_minplus != plain at M={m} {dt}")
             errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
             checked += 1
-    for n in (6, 16, 18):
-        m = n - 1
+    for m in (2, 5, 9, 10, 11, 15, 17):
         for dt in (torch.float32, torch.float64):
-            rng = np.random.default_rng(n)
-            bsz = 4 if n < 18 else 2
-            d_sub = torch.tensor(np.round(rng.uniform(0, 50, (bsz, m, m))), dtype=dt, device="cuda")
+            rng = np.random.default_rng(m)
+            bsz = 4 if m < 15 else 2
+            d = np.round(rng.uniform(0, 50, (bsz, m, m)))  # rounded: many ties
+            d[rng.uniform(size=d.shape) < 0.05] = 0.0
+            d[rng.uniform(size=d.shape) < 0.05] = np.inf
+            d_sub = torch.tensor(d, dtype=dt, device="cuda")
             tab = torch.full((bsz, m, 1 << m), math.inf, dtype=dt, device="cuda")
             tab[:, :, 0] = torch.tensor(np.round(rng.uniform(0, 50, (bsz, m))), dtype=dt)
+            tab[0, m - 1, 0] = math.inf
+            ref = tab.clone()
             for c in range(1, m):
-                ref = hkk.relax_dense_reference(tab, d_sub, c)
-                got = hkk.relax_dense(tab.clone(), d_sub, c)
-                torch.cuda.synchronize()
-                require(torch.equal(ref, got), f"relax_dense != plain at n={n} c={c} {dt}")
-                errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(got, ref))
-                tab = ref
-                checked += 1
+                ref = hkk.relax_dense_reference(ref, d_sub, c)
+            got = hkk.relax_dense_sweep(tab, d_sub)
+            torch.cuda.synchronize()
+            require(got is tab and torch.equal(ref, tab), f"relax_dense_sweep != plain per-level loop at m={m} {dt}")
+            errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(tab, ref))
+            checked += 1
 
     # first-index ties of argmin / argmax on CUDA (merge and backtrack rely on it)
     rng = np.random.default_rng(7)
@@ -338,16 +309,6 @@ def phase_oracle():
     print(f"phase 3 ranks=4 (10x100): cost {got['fused'].cost:f} under fused == compact (float64)")
 
 
-def dense_bound(bsz: int, m: int, c: int, elt: int):
-    """Bytes and operations one dense step at cardinality c needs: read the
-    popcount c-1 states (endpoint outside), write the popcount c states,
-    read d_sub; c adds and c-1 mins per new state."""
-    new_states = math.comb(m, c) * (m - c)
-    nbytes = bsz * elt * (math.comb(m, c - 1) * (m - c + 1) + new_states + m * m)
-    ops = bsz * new_states * (2 * c - 1)
-    return nbytes, ops
-
-
 def minplus_bound(bsz: int, j: int, m: int, elt: int):
     """Bytes and operations of one compact step: g, d_t in; cost, int32
     parent out; M adds and M-1 compares per output."""
@@ -363,21 +324,24 @@ def phase_full(smi, errs):
     from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices, run_pipeline
     from tsp_mpi_reduction_tpu_torch.ops import held_karp
     from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
     from tsp_mpi_reduction_tpu_torch.utils import reporting
 
     n, nb, m = N_FULL, B_FULL, N_FULL - 1
     dt, dt_name, elt = torch.float32, "float32", 4
     dev = torch.device("cuda")
 
-    # --- the main path: impl auto (relax_dense), counts reset just before
+    # --- the main path: impl auto (relax_dense_sweep), counts reset just before
     hkk.reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(n, nb, GRID_FULL, GRID_FULL, dtype=dt, device=dev)
     elapsed_ms = int((time.perf_counter() - t0) * 1000)
     launches_main = dict(hkk.LAUNCHES)
     require(held_karp.effective_impl(dev) == "fused", "auto does not resolve to fused on CUDA")
-    require(launches_main["relax_dense"] == m - 1,
-            f"main path launched relax_dense {launches_main['relax_dense']} times, want {m - 1}")
+    want_sweep = hkk.sweep_launches(m)  # h + 1, one launch per popcount of the high bits
+    require(launches_main["relax_dense"] == want_sweep,
+            f"main path launched relax_dense {launches_main['relax_dense']} times, want {want_sweep} "
+            f"(l = {hkk.sweep_low_bits(m)})")
     phases = ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_seconds.items())
     print(f"phase 4 main path (n={n}, {nb} blocks, {GRID_FULL}x{GRID_FULL}, float32, auto=fused): {phases}")
     print(f"phase 4 {reporting.final_line(elapsed_ms, res.num_cities, res.cost)}")
@@ -422,35 +386,26 @@ def phase_full(smi, errs):
           + f"; fused == dense == pallas == compact exactly; block cost vs tour length rel err {rel:.2e}")
     del results
 
-    # --- per-kernel timing at the main path's shapes
+    # --- per-kernel timing at the main path's shapes: the whole sweep
+    # against the per-level plain loop (exact), per solve and per launch
     d_sub = block_d[:, 1:, 1:].contiguous()
     tab = torch.full((nb, m, 1 << m), math.inf, dtype=dt, device=dev)
     tab[:, :, 0] = block_d[:, 0, 1:]
-    plain_dense_ms = []
-    for c in range(1, m):
-        ref_ms_start, ref_ms_stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ref_ms_start.record()
-        ref = hkk.relax_dense_reference(tab, d_sub, c)
-        ref_ms_stop.record()
-        hkk.relax_dense(tab, d_sub, c)
-        torch.cuda.synchronize()
-        plain_dense_ms.append(ref_ms_start.elapsed_time(ref_ms_stop))
-        require(torch.equal(tab, ref), f"relax_dense != plain at full size, c={c}")
-        errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(tab, ref))
-        del ref
     reps = 5
-
-    def dense_all():
-        for c in range(1, m):
-            hkk.relax_dense(tab, d_sub, c)  # idempotent on the finished table
-
-    dense_ms = cuda_ms(dense_all, reps) / (m - 1)
-    dense_dev_ms = graph_ms(dense_all, reps) / (m - 1)
-    dense_b = [dense_bound(nb, m, c, elt) for c in range(1, m)]
-    dense_bms = [bound_ms(b, o, dt_name) for b, o in dense_b]
-    d_bound = sum(b for b, _ in dense_bms) / len(dense_bms)
-    d_by = "bytes" if sum(b for b, _ in dense_b) / PEAK_BYTES_PER_S >= sum(
-        o for _, o in dense_b) / PEAK_OPS_PER_S[dt_name] else "operations"
+    dense = kt.time_dense(d_sub, tab, reps)
+    errs["relax_dense"] = max(errs["relax_dense"], dense["max_abs_err"])
+    # the same exactness in float64 at full size (parity mode's type)
+    d64, tab64 = d_sub.double(), torch.full((nb, m, 1 << m), math.inf, dtype=torch.float64, device=dev)
+    tab64[:, :, 0] = block_d[:, 0, 1:].double()
+    ref64 = tab64.clone()
+    for c in range(1, m):
+        ref64 = hkk.relax_dense_reference(ref64, d64, c)
+    hkk.relax_dense_sweep(tab64, d64)
+    torch.cuda.synchronize()
+    require(torch.equal(tab64, ref64), "relax_dense_sweep != plain per-level loop at full size, float64")
+    errs["relax_dense"] = max(errs["relax_dense"], max_abs_err(tab64, ref64))
+    del d64, tab64, ref64
+    torch.cuda.empty_cache()
 
     # compact inputs of every step, rebuilt from the finished table
     scatter_idx, prev_idx, member = held_karp._plan_tensors(n, str(dev))
@@ -480,19 +435,22 @@ def phase_full(smi, errs):
         for g in gs:
             hkk.relax_minplus(g, d_t)
 
-    minplus_ms = cuda_ms(minplus_all, reps) / (m - 1)
-    minplus_dev_ms = graph_ms(minplus_all, reps) / (m - 1)
+    minplus_ms = kt.cuda_ms(minplus_all, reps) / (m - 1)
+    minplus_dev_ms = kt.graph_ms(minplus_all, reps) / (m - 1)
     mp_bytes, mp_ops = minplus_bound(nb, j, m, elt)
-    mp_bound, mp_by = bound_ms(mp_bytes, mp_ops, dt_name)
+    mp_bound, mp_by = kt.bound_ms(mp_bytes, mp_ops, dt_name)
     del gs
     torch.cuda.empty_cache()
 
-    plain_d = sum(plain_dense_ms) / len(plain_dense_ms)
     plain_mp = sum(plain_minplus_ms) / len(plain_minplus_ms)
-    print(f"phase 4 kernel relax_dense: {dense_ms:.4f} ms/launch eager, {dense_dev_ms:.4f} ms/launch "
-          f"by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
-          f"{launches_main['relax_dense']} launches per solve, bound {d_bound:.4f} ms ({d_by}), "
-          f"plain {plain_d:.4f} ms")
+    per = dense["launches_per_solve"]
+    print(f"phase 4 kernel relax_dense (relax_dense_sweep, l = {hkk.sweep_low_bits(m)}): "
+          f"{dense['ms_per_solve']:.4f} ms/solve eager, {dense['device_ms_per_solve']:.4f} ms/solve by CUDA "
+          f"graph replay (CUDA events, mean of {reps}) = {dense['device_ms_per_solve'] / per:.4f} ms/launch "
+          f"over {per} launches; {launches_main['relax_dense']} launches on the main path; bound "
+          f"{dense['bound_ms_per_solve']:.4f} ms/solve ({dense['bound_by']}, every computed state written "
+          f"once); plain per-level loop {dense['plain_ms_per_solve']:.4f} ms/solve; exact in float32 "
+          f"and float64")
     print(f"phase 4 kernel relax_minplus: {minplus_ms:.4f} ms/launch eager, {minplus_dev_ms:.4f} ms/launch "
           f"by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
           f"{launches_pallas['relax_minplus']} launches per solve, bound {mp_bound:.4f} ms ({mp_by}), "
@@ -503,12 +461,14 @@ def phase_full(smi, errs):
          "replaces": REPLACES["relax_minplus"], "launches": launches_pallas["relax_minplus"],
          "max_abs_err": errs["relax_minplus"], "ms": minplus_ms, "device_ms": minplus_dev_ms,
          "plain_ms": plain_mp,
-         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None},
+         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None, "per": "launch"},
+        # times and bound per solve: one relax_dense_sweep call, all cardinalities
         {"name": "relax_dense", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_dense"], "launches": launches_main["relax_dense"],
-         "max_abs_err": errs["relax_dense"], "ms": dense_ms, "device_ms": dense_dev_ms,
-         "plain_ms": plain_d,
-         "bound_ms": d_bound, "bound_by": d_by, "library_ms": None},
+         "max_abs_err": errs["relax_dense"], "ms": dense["ms_per_solve"],
+         "device_ms": dense["device_ms_per_solve"], "plain_ms": dense["plain_ms_per_solve"],
+         "bound_ms": dense["bound_ms_per_solve"], "bound_by": dense["bound_by"], "library_ms": None,
+         "per": "solve", "launches_per_solve": per},
     ]
 
 
@@ -539,6 +499,31 @@ def prim_lanes(n: int, k: int, integral: bool, seed: int):
             torch.tensor(unvis, device=dev), torch.tensor(lam, device=dev))
 
 
+def prim_edge_lanes(n: int, k: int, seed: int):
+    """Lanes whose |U| cycles through 0, 1, 2, n (every city, 0 included)
+    and a random size; ``dbar`` carries -0.0 and +inf entries, and city
+    n - 1 is reachable only from city 0 (a lane whose U holds it stalls on
+    +inf and its chain takes a city outside U first)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = rng.integers(1, 500, size=(n, n)).astype(np.float32)
+    d = d + d.T
+    np.fill_diagonal(d, 0.0)
+    flat = d.reshape(-1)
+    flat[rng.choice(n * n, size=n, replace=False)] = -0.0
+    flat[rng.choice(n * n, size=n, replace=False)] = np.inf
+    d[1:, n - 1] = np.inf
+    unvis = np.zeros((k, n), bool)
+    for i in range(k):
+        size = (0, 1, 2, n, int(rng.integers(0, n + 1)))[i % 5]
+        unvis[i, rng.permutation(n)[:size]] = True
+    lam = rng.integers(-8, 8, size=(k, n)).astype(np.float32)
+    return (torch.tensor(d, device="cuda"), torch.tensor(unvis, device="cuda"),
+            torch.tensor(lam, device="cuda"))
+
+
 def prim_compare(dbar, unvis, n, lam, what, errs):
     import torch
 
@@ -557,7 +542,7 @@ def phase_prim_parity(errs):
     import torch
 
     checked = 0
-    for n in (5, 14, 51, 100, 200):
+    for n in (5, 14, 51, 96, 97, 100, 200):
         for k in (37, 1024):
             for integral in (True, False):
                 dbar, unvis, lam = prim_lanes(n, k, integral, seed=n * k + integral)
@@ -572,8 +557,15 @@ def phase_prim_parity(errs):
     for use_lam in (False, True):
         prim_compare(dbar, unvis, 14, lam if use_lam else None, "degenerate lanes", errs)
         checked += 1
+    for n in (5, 33, 51, 96, 97, 100, 200):
+        dbar, unvis, lam = prim_edge_lanes(n, 300, seed=n)
+        for use_lam in (False, True):
+            prim_compare(dbar, unvis, n, lam if use_lam else None, f"edge lanes n={n} lam={use_lam}", errs)
+            checked += 1
     print(f"phase 5 prim_chain parity: {checked} bit-exact comparisons (tot bits, deg) "
-          "n in 5..200, k in {37, 1024}, lam on/off, integer and non-integer dbar, degenerate lanes")
+          "n in 5..200 (96/97/100 across the old shared-memory edge), k in {37, 300, 1024}, lam on/off, "
+          "integer and non-integer dbar, degenerate lanes, |U| in {0, 1, 2, n} mixed, -0.0 and +inf "
+          "in dbar, a city reachable only from outside U")
 
 
 def run_bnb_cli(argv):
@@ -618,18 +610,6 @@ def phase_bnb_proofs():
           f"search {kern['wall_s']} s kernel vs {plain['wall_s']} s plain")
 
 
-def prim_bound(unvis, has_lam: bool):
-    """Bytes and operations one Prim-chain launch needs on these lanes:
-    unvis (1 B), lam (4 B, when given) and dbar read once, tot and deg
-    written once; per lane |U|-1 steps over |U| cities, each city one
-    argmin compare, one relaxation compare and, with lam, two adds."""
-    k, n = unvis.shape
-    u = unvis.sum(dim=1).double()
-    nbytes = k * n * (1 + 4 + (4 if has_lam else 0)) + 4 * n * n + 4 * k
-    ops = float(((u - 1.0).clamp(min=0.0) * u).sum()) * (2 + (2 if has_lam else 0))
-    return nbytes, ops
-
-
 def push_bound(calls, k: int, n: int):
     """Bytes and operations one ``push_rows`` launch needs, averaged over
     the recorded steps: the k parent rows and ``dest`` [k, n] read once,
@@ -642,26 +622,43 @@ def push_bound(calls, k: int, n: int):
     return nbytes, n_push * cols, n_push
 
 
-def record_pushes(d, k: int, cap: int):
-    """Solve once more with a recorder around ``push_rows`` that keeps a copy
-    of every launch's inputs; returns them (buffer shape, parents, dest,
-    ccost, cbound, csum)."""
+def keep_push(nodes, parents, dest, ccost, cbound, csum, n):
+    return (tuple(nodes.shape), parents.clone(), dest.clone(), ccost.clone(), cbound.clone(), csum.clone())
+
+
+def record_main_path(d, k: int, cap: int):
+    """Solve once more with recorders around ``push_rows`` and
+    ``prim_chain`` that keep a copy of every launch's inputs; returns both
+    lists (pushes: buffer shape, parents, dest, ccost, cbound, csum;
+    chains: dbar, unvis, n, lam)."""
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
 
-    calls, real = [], ek.push_rows
-
-    def recorder(nodes, parents, dest, ccost, cbound, csum, n):
-        calls.append((tuple(nodes.shape), parents.clone(), dest.clone(), ccost.clone(),
-                      cbound.clone(), csum.clone()))
-        return real(nodes, parents, dest, ccost, cbound, csum, n)
-
-    ek.push_rows = recorder
-    try:
+    with kt.recorded(ek, "push_rows", keep_push) as pushes, \
+            kt.recorded(prim_kernels, "prim_chain", kt.keep_prim) as chains:
         bb.solve(d, k=k, capacity=cap, device="cuda")
-    finally:
-        ek.push_rows = real
-    return calls
+    return pushes, chains
+
+
+def prim_recorded(calls, what: str, errs, reps: int = 5) -> dict:
+    """``prim_chain`` on a main path's recorded inputs: bit for bit against
+    the plain chain on every launch, then timed (tools/kernel_times)."""
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
+
+    try:
+        lanes = kt.prim_check(calls)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
+    row = kt.time_prim(calls, what, reps=reps)
+    print(f"phase {what}: {len(calls)} recorded launches (n={row['n']}, k={row['k']}, {lanes} lanes) "
+          f"== plain bit for bit; {row['device_ms']:.4f} ms/launch on the device (CUDA graph replay of "
+          f"every recorded launch, CUDA events, mean of {reps}), {row['ms']:.4f} ms/launch eager; bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}); plain {row['plain_ms']:.4f} ms; dependent steps "
+          f"(max |U| - 1 over a launch's lanes) mean {row['dependent_steps_mean']:.1f}, max "
+          f"{row['dependent_steps_max']} of n - 1 = {row['n_minus_1']}; mean |U| {row['mean_U']:.1f}")
+    return row
 
 
 def reference_push_args(call):
@@ -682,6 +679,7 @@ def phase_bnb_full(smi, errs):
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
     from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
     from tsp_mpi_reduction_tpu_torch.utils import tsplib
 
     name, k, cap = BNB_FULL
@@ -732,41 +730,25 @@ def phase_bnb_full(smi, errs):
               f"proof {out['time_to_proof_s']}; {out['nodes_per_sec']} nodes/s; largest count "
               f"{out['_peak']}")
 
-    # --- prim_chain at the main path's shape: k = 1024 lanes of eil51
+    # --- prim_chain on synthetic half-visited eil51 lanes (k = 1024): one
+    # plain and node_ascent = 2 lam launches a step
     d = tsplib.embedded(name).distance_matrix()
     n = d.shape[0]
-    bd = bb._bound_setup(d, "one-tree", node_ascent=2, device="cuda")
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    unvis = (torch.rand((k, n), generator=gen) < 0.5).cuda()
-    unvis[:, 0] = False
-    lam = torch.randint(-8, 8, (k, n), generator=gen).float().cuda() * float(bd.ascent_step)
-    triple = ((None,), (lam,), (lam,))  # one plain and node_ascent = 2 lam launches per step
-    for (lm,) in triple[:2]:
-        prim_compare(bd.dbar, unvis, n, lm, "eil51 k=1024", errs)
-    reps = 50
+    triple = kt.synthetic_prim_calls(k)
+    for c in triple[:2]:
+        prim_compare(*c, "eil51 k=1024 synthetic", errs)
+    syn = kt.time_prim(triple, "synthetic", reps=50)
+    print(f"phase 7 kernel prim_chain, synthetic half-visited eil51 lanes: {syn['device_ms']:.4f} ms/launch "
+          f"on the device (CUDA graph replay, CUDA events, mean of 50x3 at k={k}, n={n}), "
+          f"{syn['ms']:.4f} ms/launch eager; bound {syn['bound_ms']:.6f} ms ({syn['bound_by']}), plain "
+          f"{syn['plain_ms']:.4f} ms; dependent steps max {syn['dependent_steps_max']}")
 
-    def kernel_step():
-        for (lm,) in triple:
-            prim_kernels.prim_chain(bd.dbar, unvis, n, lm)
-
-    def plain_step():
-        for (lm,) in triple:
-            prim_kernels.prim_chain_reference(bd.dbar, unvis, n, lm)
-
-    kernel_step()
-    plain_step()
-    k_eager_ms = cuda_ms(kernel_step, reps) / 3
-    k_ms = graph_ms(kernel_step, reps) / 3
-    p_ms = cuda_ms(plain_step, 5) / 3
-    bounds = [prim_bound(unvis, lm is not None) for (lm,) in triple]
-    b_ms, b_by = bound_ms(sum(b for b, _ in bounds) / 3, sum(o for _, o in bounds) / 3, "float32")
-    print(f"phase 7 kernel prim_chain: {k_ms:.4f} ms/launch on the device (CUDA graph replay, CUDA "
-          f"events, mean of {reps}x3 at k={k}, n={n}), {k_eager_ms:.4f} ms/launch eager; "
-          f"{launches['prim_chain']} launches on the main path, bound {b_ms:.6f} ms ({b_by}), "
-          f"plain {p_ms:.4f} ms")
-
-    # --- push_rows on the main path's own inputs, step by step
-    calls = record_pushes(d, k, cap)
+    # --- both B&B kernels on the main path's own inputs, launch by launch
+    calls, chains = record_main_path(d, k, cap)
+    require(len(chains) == launches["prim_chain"],
+            f"recorded {len(chains)} prim_chain launches, want {launches['prim_chain']}")
+    prim_row = prim_recorded(chains, "7 kernel prim_chain, recorded eil51 inputs", errs)
+    del chains
     require(len(calls) == main["steps_run"], f"recorded {len(calls)} pushes, want {main['steps_run']}")
     scratch = torch.zeros(calls[0][0], dtype=torch.int32, device="cuda")
     for call in calls:
@@ -792,13 +774,13 @@ def phase_bnb_full(smi, errs):
     kernel_all()
     reference_all()
     steps = len(calls)
-    push_eager_ms = cuda_ms(kernel_all, 5) / steps
-    push_ms = graph_ms(kernel_all, 5) / steps
-    plain_push_ms = cuda_ms(plain_all, 2) / steps
-    ref_eager_ms = cuda_ms(reference_all, 5) / steps
-    ref_push_ms = graph_ms(reference_all, 5) / steps
+    push_eager_ms = kt.cuda_ms(kernel_all, 5) / steps
+    push_ms = kt.graph_ms(kernel_all, 5) / steps
+    plain_push_ms = kt.cuda_ms(plain_all, 2) / steps
+    ref_eager_ms = kt.cuda_ms(reference_all, 5) / steps
+    ref_push_ms = kt.graph_ms(reference_all, 5) / steps
     nbytes, ops, mean_push = push_bound(calls, k, n)
-    pb_ms, pb_by = bound_ms(nbytes, ops, "float32")
+    pb_ms, pb_by = kt.bound_ms(nbytes, ops, "float32")
     print(f"phase 7 kernel push_rows: {push_ms:.4f} ms/launch on the device (CUDA graph replay of the "
           f"{steps} recorded eil51 steps, CUDA events, mean of 5), {push_eager_ms:.4f} ms/launch eager; "
           f"{launches['push_rows']} launches on the main path, bound {pb_ms:.6f} ms ({pb_by}; mean "
@@ -808,15 +790,17 @@ def phase_bnb_full(smi, errs):
           f"device / {ref_eager_ms:.4f} ms eager")
     print(f"phase 7 card: {smi}")
     return [
+        # times and bound per launch, on the recorded eil51 inputs
         {"name": "prim_chain", "route": "cuda", "source": PRIM_SOURCE,
          "replaces": REPLACES["prim_chain"], "launches": launches["prim_chain"],
-         "max_abs_err": errs["prim_chain"], "ms": k_eager_ms, "device_ms": k_ms, "plain_ms": p_ms,
-         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+         "max_abs_err": errs["prim_chain"], "ms": prim_row["ms"], "device_ms": prim_row["device_ms"],
+         "plain_ms": prim_row["plain_ms"], "bound_ms": prim_row["bound_ms"], "bound_by": prim_row["bound_by"],
+         "library_ms": None, "per": "launch"},
         {"name": "push_rows", "route": "cuda", "source": PUSH_SOURCE,
          "replaces": REPLACES["push_rows"], "launches": launches["push_rows"],
          "max_abs_err": errs["push_rows"], "ms": push_eager_ms, "device_ms": push_ms,
          "plain_ms": plain_push_ms,
-         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None},
+         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None, "per": "launch"},
     ]
 
 
@@ -893,10 +877,11 @@ def pinned_fields(out: dict, pinned: dict, what: str) -> None:
     require(got == pinned, f"{what}: {got} != the JAX package's {pinned}")
 
 
-def phase_kroa100(smi):
+def phase_kroa100(smi, errs):
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
     from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
 
     runs = {}
     for kernel in ("fused", "reference"):
@@ -925,6 +910,14 @@ def phase_kroa100(smi):
               f"ILS {out['setup_ils_s']}), search {out['wall_s']}; {out['nodes_per_sec']} nodes/s")
     require(runs["fused"]["steps_run"] == runs["reference"]["steps_run"],
             "kroA100: fused and reference expanded different numbers of steps")
+    # prim_chain on the inputs of the chunk's first steps (n = 100)
+    first = [a for a in KRO_ARGS if not a.startswith("--max-iters")]
+    chains, _ = kt.record_prim_calls(first + ["--backend=cuda", f"--max-iters={kt.KRO_STEPS}"],
+                                     kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP)
+    require(len(chains) == kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP,
+            f"recorded {len(chains)} kroA100 prim_chain launches")
+    prim_recorded(chains, f"9 kernel prim_chain, recorded inputs of the first {kt.KRO_STEPS} "
+                  "kroA100 steps", errs)
     print(f"phase 9 card: {smi}")
 
 
@@ -980,7 +973,7 @@ def main() -> int:
         phase_bnb_proofs()
         kernels += phase_bnb_full(smi, errs)
         phase_push_parity(errs)
-        phase_kroa100(smi)
+        phase_kroa100(smi, errs)
         phase_spill(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -58,21 +58,28 @@ def test_relax_minplus_kernel_exact(cuda, m, dtype):
     assert torch.equal(got[1][:, 3], torch.zeros_like(got[1][:, 3]))  # all-inf row
 
 
-@pytest.mark.parametrize("n", [6, 16])
+def _dense_case(m, dtype, device, bsz):
+    rng = np.random.default_rng(m)
+    d_sub = np.round(rng.uniform(0, 50, (bsz, m, m)))  # rounded: many ties
+    d_sub[rng.uniform(size=d_sub.shape) < 0.05] = 0.0
+    d_sub[rng.uniform(size=d_sub.shape) < 0.05] = np.inf
+    table = torch.full((bsz, m, 1 << m), float("inf"), dtype=dtype, device=device)
+    table[:, :, 0] = torch.as_tensor(np.round(rng.uniform(0, 50, (bsz, m))), dtype=dtype)
+    return torch.as_tensor(d_sub, dtype=dtype, device=device), table
+
+
+@pytest.mark.parametrize("m", [2, 5, 9, 10, 11, 15, 17])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_relax_dense_kernel_exact(cuda, n, dtype):
-    m = n - 1
-    rng = np.random.default_rng(n)
-    d_sub = torch.as_tensor(np.round(rng.uniform(0, 50, (3, m, m))), dtype=dtype, device=cuda)
-    table = torch.full((3, m, 1 << m), float("inf"), dtype=dtype, device=cuda)
-    table[:, :, 0] = torch.as_tensor(np.round(rng.uniform(0, 50, (3, m))), dtype=dtype)
-    before = hkk.LAUNCHES["relax_dense"]
+def test_relax_dense_sweep_kernel_exact(cuda, m, dtype):
+    d_sub, table = _dense_case(m, dtype, cuda, 3 if m < 17 else 1)
+    want = table.clone()
     for c in range(1, m):
-        want = hkk.relax_dense_reference(table, d_sub, c)
-        hkk.relax_dense(table, d_sub, c)
-        torch.cuda.synchronize()
-        assert torch.equal(table, want)
-    assert hkk.LAUNCHES["relax_dense"] == before + m - 1
+        want = hkk.relax_dense_reference(want, d_sub, c)
+    before = hkk.LAUNCHES["relax_dense"]
+    got = hkk.relax_dense_sweep(table, d_sub)
+    torch.cuda.synchronize()
+    assert got is table and torch.equal(table, want)
+    assert hkk.LAUNCHES["relax_dense"] == before + hkk.sweep_launches(m)
 
 
 @pytest.mark.parametrize("impl", ["fused", "pallas"])
@@ -91,7 +98,7 @@ def test_auto_pipeline_runs_the_dense_kernel(cuda):
     hkk.reset_launches()
     res = run_pipeline(10, 6, 500, 500, dtype=torch.float64, device=cuda)
     assert f"{res.cost:f}" == "3720.557435"
-    assert hkk.LAUNCHES == {"relax_minplus": 0, "relax_dense": 8}
+    assert hkk.LAUNCHES == {"relax_minplus": 0, "relax_dense": hkk.sweep_launches(9)}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -101,4 +108,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         hkk.relax_minplus(g[..., :4].half(), torch.zeros((1, 4, 4), device=cuda).half())
     with pytest.raises(ValueError):
-        hkk.relax_dense(torch.zeros((1, 4, 16), device=cuda), torch.zeros((1, 4, 4), device=cuda), 4)
+        hkk.relax_dense_sweep(torch.zeros((1, 4, 8), device=cuda), torch.zeros((1, 4, 4), device=cuda))
+    with pytest.raises(ValueError):
+        hkk.relax_dense_sweep(torch.zeros((1, 4, 16), device=cuda), torch.zeros((1, 4, 4), device=cuda).double())

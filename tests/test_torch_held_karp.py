@@ -96,8 +96,10 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     table = torch.full((2, 5, 32), float("inf"), dtype=torch.float64)
     table[:, :, 0] = 1.0
     d_sub = torch.ones((2, 5, 5), dtype=torch.float64)
-    want = hkk.relax_dense_reference(table, d_sub, 1)
-    got = hkk.relax_dense(table, d_sub, 1)
+    want = table.clone()
+    for c in range(1, 5):
+        want = hkk.relax_dense_reference(want, d_sub, c)
+    got = hkk.relax_dense_sweep(table, d_sub)
     assert got is table and torch.equal(got, want)  # updated in place
     assert hkk.LAUNCHES == {"relax_minplus": 0, "relax_dense": 0}
 

@@ -84,7 +84,7 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
         hkk.relax_minplus(g, torch.empty((1, 3, 3), device="meta"))
     table = torch.empty((1, 3, 8), device="meta")
     with pytest.raises(ValueError):
-        hkk.relax_dense(table, torch.empty((1, 3, 3), device="meta"), 1)
+        hkk.relax_dense_sweep(table, torch.empty((1, 3, 3), device="meta"))
     dbar = torch.empty((5, 5), device="meta")
     unvis = torch.empty((4, 5), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):

@@ -48,13 +48,13 @@ def _case(rng, k, n, integral=True, frac_unvis=0.6):
     return dbar, unvis, cur
 
 
-def _assert_same(dbar, unvis, cur, n, lam=None):
+def _assert_same(dbar, unvis, cur, n, lam=None, chain=prim_kernels.prim_chain_reference):
     ref_val, ref_deg = jbb._mst_conn(
         jnp.asarray(dbar), jnp.asarray(unvis), jnp.asarray(cur), n,
         None if lam is None else jnp.asarray(lam),
     )
     t_lam = None if lam is None else torch.as_tensor(lam)
-    tot, deg = prim_kernels.prim_chain_reference(torch.as_tensor(dbar), torch.as_tensor(unvis), n, t_lam)
+    tot, deg = chain(torch.as_tensor(dbar), torch.as_tensor(unvis), n, t_lam)
     conn, bump = tbb._conn_edges(torch.as_tensor(dbar), torch.as_tensor(unvis),
                                  torch.as_tensor(cur).long(), n, t_lam)
     val = (tot + conn).numpy()
@@ -106,6 +106,64 @@ def test_ties_go_to_the_first_index():
     cur = np.where(np.arange(k) % 2 == 0, 0, rng.integers(1, n, size=k)).astype(np.int32)
     unvis[np.arange(k), cur] = False
     _assert_same(d, unvis, cur, n)
+
+
+def _mixed_lanes(rng, n, k):
+    """Lanes whose |U| cycles through 0, 1, 2, n - 1 and a random size
+    (city 0 never in U), and a visited city per lane for the connection
+    edges; ``dbar`` carries +inf and -0.0 entries, and city n - 1 is
+    reachable only from city 0, so a lane whose U holds it stalls and the
+    chain takes the non-U city 0 into its tree first."""
+    dbar, _, _ = _case(rng, 1, n)
+    flat = dbar.reshape(-1)
+    flat[rng.choice(n * n, size=n, replace=False)] = np.inf
+    flat[rng.choice(n * n, size=n, replace=False)] = -0.0
+    dbar[1:, n - 1] = np.inf
+    unvis = np.zeros((k, n), bool)
+    cur = np.zeros(k, np.int32)
+    for i in range(k):
+        size = (0, 1, 2, n - 1, int(rng.integers(3, n - 1)))[i % 5]
+        unvis[i, 1 + rng.permutation(n - 1)[:size]] = True
+        visited = np.flatnonzero(~unvis[i])
+        cur[i] = visited[rng.integers(len(visited))]
+    return dbar, unvis, cur
+
+
+@pytest.mark.parametrize("n", [5, 14, 51, 100])
+@pytest.mark.parametrize("with_lam", [False, True], ids=["nolam", "lam"])
+def test_early_exit_chain_matches_plain_and_mst_conn(n, with_lam):
+    """The kernel's schedule (a lane stops once U is in its tree, argmin by
+    order-preserving keys) equals the fixed-length chain and the JAX
+    package's ``_mst_conn`` on mixed |U|, +inf and -0.0 entries."""
+    rng = np.random.default_rng(77 * n + with_lam)
+    k = 40
+    dbar, unvis, cur = _mixed_lanes(rng, n, k)
+    lam = rng.integers(-8, 8, size=(k, n)).astype(np.float32) if with_lam else None
+    t_lam = None if lam is None else torch.as_tensor(lam)
+    args = (torch.as_tensor(dbar), torch.as_tensor(unvis), n, t_lam)
+    want = prim_kernels.prim_chain_reference(*args)
+    got = prim_kernels.prim_chain_early_exit_reference(*args)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    _assert_same(dbar, unvis, cur, n, lam, chain=prim_kernels.prim_chain_early_exit_reference)
+
+
+def test_float_keys_order_floats_and_invert():
+    """The kernel's argmin keys: a < b iff key(a) < key(b) over finite,
+    subnormal, signed-zero and infinite floats; -0.0 keys as +0.0."""
+    vals = np.array([-np.inf, -3e38, -1.5, -1e-45, -0.0, 0.0, 1e-45, 1e-38, 2.0, 3e38, np.inf],
+                    np.float32)
+    rng = np.random.default_rng(2)
+    vals = np.concatenate([vals, rng.standard_normal(200).astype(np.float32) * 1e3])
+    t = torch.as_tensor(vals)
+    keys = prim_kernels._float_keys(t)
+    assert bool((keys >= 0).all() and (keys < 2**32).all())
+    lt = t[:, None] < t[None, :]
+    assert torch.equal(lt, keys[:, None] < keys[None, :])
+    assert torch.equal(t[:, None] == t[None, :], keys[:, None] == keys[None, :])
+    back = prim_kernels._key_floats(keys)
+    assert torch.equal(back, t)  # value equality: -0.0 == 0.0
+    assert int(back[4].view(torch.int32)) == 0  # -0.0 comes back as +0.0
 
 
 def test_wrapper_takes_the_plain_chain_on_the_cpu():

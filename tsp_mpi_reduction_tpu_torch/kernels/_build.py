@@ -89,8 +89,8 @@ def library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.hk_relax_minplus.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
     lib.hk_relax_minplus.restype = i
-    lib.hk_relax_dense.argtypes = [vp, vp, vp, i, i, i, i, vp]
-    lib.hk_relax_dense.restype = i
+    lib.hk_relax_dense_sweep.argtypes = [vp, vp, vp, i, vp, i, i, i, i, vp]
+    lib.hk_relax_dense_sweep.restype = i
     lib.hk_error_string.argtypes = [i]
     lib.hk_error_string.restype = ctypes.c_char_p
     return lib

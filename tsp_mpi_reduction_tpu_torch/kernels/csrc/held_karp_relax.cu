@@ -3,40 +3,96 @@
 // They replace the two Pallas TPU kernels of
 // tsp_mpi_reduction_tpu/ops/held_karp_pallas.py:
 //
-//   relax_minplus  <- _relax_kernel / relax_minplus (compact layout)
+//   relax_minplus     <- _relax_kernel / relax_minplus (compact layout)
 //       cost[b,j,k]   = min_{m'} g[b,j,m'] + d_t[b,k,m']
 //       parent[b,j,k] = the first m' reaching that minimum
-//   relax_dense    <- _relax_dense_kernel / relax_dense (dense layout)
-//       for every mask of popcount c and every endpoint k outside it:
+//   relax_dense_sweep <- _relax_dense_kernel / relax_dense (dense layout),
+//       every cardinality c = 1 .. m-1 of the DP in one tiled sweep:
+//       for every mask of popcount c and every endpoint k outside it,
 //       table[b,k,mask] = min_{i in mask} table[b,i,mask^(1<<i)] + d_sub[b,i,k]
 //
 // Exactness: both kernels only add and compare, so there is no multiply to
-// contract into an FMA; a strict `<` over ascending indices gives the
-// first-index tie-break of torch.argmin. Results are bit-identical to the
-// plain PyTorch versions in ops/held_karp_kernels.py.
+// contract into an FMA (nvcc runs with --fmad=false anyway). relax_minplus
+// keeps a strict `<` over ascending indices, the first-index tie-break of
+// torch.argmin. The sweep computes each state as the min over one add per
+// predecessor, the same adds as the plain version's g + d_sub followed by
+// amin; a min does not depend on the order of its operands when none is NaN
+// and no -0.0 meets a +0.0, and here none can: distances are finite and
+// non-negative and the table holds +inf where no state was written. So both
+// results are bit-identical to the plain PyTorch versions in
+// ops/held_karp_kernels.py, in float and double, for m up to kMaxM = 17.
 //
-// What bounds them on the card: both are gathers over bit-indexed tables
-// with 2 operations per loaded value, far below the ridge point, so they are
-// bound by memory traffic. The design keeps each thread's predecessor
-// values in registers (at most 17 of them) and the block's distance matrix
-// in shared memory, so every table value is read from device memory once
-// per thread that needs it and every output is written once. The dense
-// kernel visits only the masks of the current popcount (an index list),
-// not the whole 2^m table, and updates it in place: a step reads only
-// popcount c-1 entries and writes only popcount c entries, so there is no
-// race. Coalescing, TMA and persistent blocks are later work.
+// What bounds them on the card: both are min-plus products over
+// bit-indexed tables with about 2 operations per value moved, far below the
+// ridge point, so their bound is memory traffic. There is no tensor-core
+// form of a min-plus product. relax_minplus keeps each thread's predecessor
+// values in registers and the block's distances in shared memory.
+//
+// The sweep (design): a mask is split into h = m - l high bits H (cities
+// l .. m-1) and l low bits L (cities 0 .. l-1). A tile is the 2^l masks
+// sharing H, for all m endpoints: [m, 2^l] in shared memory. l is 9 in
+// float and in double (the wrapper passes it; l = m when m is smaller, one
+// tile): 30 KB a tile at m = 15 in float, 68 KB at m = 17 in double; with
+// 128 threads a block, six blocks share an SM in float, three in double.
+// Of the variants timed on the H100 (l = 8, 9, 10; 64 to 256 threads;
+// register caps), this one was the fastest in float at m = 15.
+// One launch per p = popcount(H), p = 0 .. h, each on a grid of C(h, p)
+// tiles x B blocks: 7 launches at m = 15, where the per-cardinality design
+// took 14. Inside a tile, state (k, M), k not in M, needs
+// (i, M ^ (1<<i)) for each i in M:
+//
+//   - i a high bit: that state lies in tile H \ {i}, row i, written by the
+//     previous launch; for fixed i these are 2^l contiguous values, read
+//     coalesced along L. A pre-pass takes the min over them into the tile
+//     (and the H = 0 tile loads the init row table[:, :, 0]);
+//   - i a low bit: that state lies in the same tile. The tile sweeps
+//     popcount(L) = 1 .. l in shared memory, __syncthreads() between
+//     levels, each level reading only the one below it.
+//
+// A thread keeps the candidate minima of all endpoints of one mask in
+// registers and folds in one predecessor at a time (one add and one min
+// per endpoint, the predecessor's distance row a broadcast shared read),
+// looping over the mask's set bits only: the instruction count follows
+// the DP's own work. Then the tile writes its valid states
+// (1 <= popcount(M) <= m-1, k not in M) once, coalesced along L, and
+// leaves every other entry as it was, as the plain version copies it.
+// Every computed state is written once and only the states whose endpoint
+// is a high bit are read back from device memory: at m = 15, l = 9,
+// B = 1024, float, about 1.0 GB written and 0.40 GB read for the whole DP,
+// against about 14 x 1.46 GB of sectors touched by one launch per
+// cardinality over a table whose same-popcount masks are sparse. What
+// bounds the sweep on the card is latency rather than bytes: l levels of
+// dependent shared-memory updates a tile, each level's masks a few warps.
 //
 // Plain C interface, loaded from Python with ctypes (kernels/_build.py).
 // Each launcher enqueues on the given stream, does not synchronise, and
-// returns cudaGetLastError() so a refused launch is reported.
+// returns the CUDA error of the attribute call or of the launch.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxM = 17;  // n - 1 for the largest block, MAX_BLOCK_CITIES = 18
 constexpr int kThreads = 256;
+constexpr int kSweepThreads = 128;
+
+// The sweep: at most 9 low bits (a tile [kMaxM, 2^9] is 34 KB in float,
+// 68 KB in double), and per type the blocks an SM must hold at once, which
+// caps a thread's registers (six blocks of 128 threads: 80 in float;
+// double keeps its registers). Both chosen by timing the variants on the
+// H100 at m = 15, B = 1024.
+constexpr int kMaxLow = 9;
+template <typename T> struct SweepMinBlocks;
+template <> struct SweepMinBlocks<float> { static constexpr int value = 6; };
+template <> struct SweepMinBlocks<double> { static constexpr int value = 1; };
+constexpr int kMaxHigh = kMaxM - kMaxLow;  // h = m - l, at most 8
+constexpr int kSdLd = 20;            // d_sub rows padded to 16-byte multiples
+
+// min of two values that are never NaN; a -0.0 never meets a +0.0 here
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
 
 template <typename T>
 __global__ void relax_minplus_kernel(const T* __restrict__ g,
@@ -77,43 +133,123 @@ __global__ void relax_minplus_kernel(const T* __restrict__ g,
   }
 }
 
+// One launch of the sweep: every tile H = highs[blockIdx.x] (popcount p)
+// of block b = blockIdx.y. `lows` lists the 2^l low masks by popcount.
+// Each thread keeps the kMaxM candidate minima of one mask in registers
+// and folds in one predecessor at a time: one add and one min per
+// endpoint, the distances of the predecessor's row read from shared
+// memory, so no instruction is spent on bits outside the mask.
 template <typename T>
-__global__ void relax_dense_kernel(T* __restrict__ table,
-                                   const T* __restrict__ d_sub,
-                                   const int32_t* __restrict__ masks,
-                                   int count, int m) {
-  __shared__ T sd[kMaxM * kMaxM];
+__global__ void __launch_bounds__(kSweepThreads, SweepMinBlocks<T>::value)
+relax_dense_sweep_kernel(T* __restrict__ table,
+                         const T* __restrict__ d_sub,
+                         const int32_t* __restrict__ highs,
+                         const int32_t* __restrict__ lows,
+                         int m, int l) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nl = 1 << l;
+  T* sd = reinterpret_cast<T*>(smem);  // [kMaxM][kSdLd] distances, +inf past m
+  T* tile = sd + kMaxM * kSdLd;        // [m][2^l]: tile[k * nl + L] = state (k, H|L)
+  const int h = m - l;
+  const int H = highs[blockIdx.x];
   const int b = blockIdx.y;
+  const size_t S = (size_t)1 << m;
+  const size_t base = (size_t)H << l;
+  T* tb = table + (size_t)b * m * S;
   const T* db = d_sub + (size_t)b * m * m;
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x) sd[i] = db[i];
+  const T inf = static_cast<T>(INFINITY);
+  for (int t = threadIdx.x; t < kMaxM * kSdLd; t += blockDim.x) {
+    const int i = t / kSdLd, k = t - i * kSdLd;
+    sd[t] = (i < m && k < m) ? db[i * m + k] : inf;
+  }
   __syncthreads();
 
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= count) return;
-  const int mask = masks[t];
-  const size_t S = (size_t)1 << m;
-  T* tb = table + (size_t)b * m * S;
-  T gv[kMaxM];
+  // pre-pass: the high-bit predecessors (tiles of the previous launch),
+  // loaded coalesced along L; the H = 0 tile holds the init row at L = 0
+  for (int L = threadIdx.x; L < nl; L += blockDim.x) {
+    T pv[kMaxHigh];
 #pragma unroll
-  for (int i = 0; i < kMaxM; ++i) {
-    if (i < m && ((mask >> i) & 1)) gv[i] = tb[(size_t)i * S + (mask ^ (1 << i))];
-  }
-  for (int k = 0; k < m; ++k) {
-    if ((mask >> k) & 1) continue;  // endpoint inside the mask: not a state
-    bool have = false;
-    T best = T(0);
-#pragma unroll
-    for (int i = 0; i < kMaxM; ++i) {
-      if (i < m && ((mask >> i) & 1)) {
-        const T v = gv[i] + sd[i * m + k];
-        if (!have || v < best) {
-          best = v;
-          have = true;
-        }
+    for (int j = 0; j < kMaxHigh; ++j) {
+      if (j < h && ((H >> j) & 1)) {
+        pv[j] = tb[(size_t)(l + j) * S + ((base ^ ((size_t)1 << (l + j))) | L)];
       }
     }
-    tb[(size_t)k * S + mask] = best;
+    T best[kMaxM];
+#pragma unroll
+    for (int k = 0; k < kMaxM; ++k) best[k] = inf;
+#pragma unroll
+    for (int j = 0; j < kMaxHigh; ++j) {
+      if (j < h && ((H >> j) & 1)) {  // uniform across the block
+        const T* dr = sd + (l + j) * kSdLd;
+#pragma unroll
+        for (int k = 0; k < kMaxM; ++k) best[k] = min_of(best[k], pv[j] + dr[k]);
+      }
+    }
+    if (base == 0 && L == 0) {
+#pragma unroll
+      for (int k = 0; k < kMaxM; ++k) {
+        if (k < m) best[k] = tb[(size_t)k * S];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxM; ++k) {
+      if (k < m) tile[k * nl + L] = best[k];
+    }
   }
+  __syncthreads();
+
+  // the low-bit predecessors: popcount(L) = 1 .. l inside the tile; every
+  // mask of a level has q bits, so the threads of a warp loop alike.
+  // Entries with k inside the mask are computed and never read.
+  int off = 0, cnt = 1;  // where popcount q starts in `lows`, and C(l, q)
+  for (int q = 1; q <= l; ++q) {
+    off += cnt;
+    cnt = cnt * (l - q + 1) / q;
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
+      const int L = lows[off + t];
+      T best[kMaxM];
+#pragma unroll
+      for (int k = 0; k < kMaxM; ++k) best[k] = k < m ? tile[k * nl + L] : inf;
+      for (unsigned rest = L; rest != 0u; rest &= rest - 1u) {
+        const int i = __ffs(rest) - 1;
+        const T pv = tile[i * nl + (L ^ (1 << i))];
+        const T* dr = sd + i * kSdLd;
+#pragma unroll
+        for (int k = 0; k < kMaxM; ++k) best[k] = min_of(best[k], pv + dr[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxM; ++k) {
+        if (k < m) tile[k * nl + L] = best[k];
+      }
+    }
+    __syncthreads();
+  }
+
+  // write the valid states once, coalesced along L: k outside M and M not
+  // empty (k outside M already means popcount(M) <= m-1)
+  for (int k = 0; k < m; ++k) {
+    if (k >= l && ((H >> (k - l)) & 1)) continue;  // the whole row is inside
+    T* row = tb + (size_t)k * S + base;
+    for (int L = threadIdx.x; L < nl; L += blockDim.x) {
+      const bool in_mask = k < l && ((L >> k) & 1);
+      if (!in_mask && (base | L) != 0) row[L] = tile[k * nl + L];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_sweep(T* table, const T* d_sub, const int32_t* highs, int count,
+                         const int32_t* lows, int B, int m, int l, cudaStream_t s) {
+  if (l < 1 || l > kMaxLow || l > m || m > kMaxM || m - l > kMaxHigh) return cudaErrorInvalidValue;
+  // opt in once to the shared memory of the largest tile, [kMaxM, 2^kMaxLow]
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      relax_dense_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(T) * (kMaxM * (1 << kMaxLow) + kMaxM * kSdLd)));
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = sizeof(T) * ((size_t)m * (1 << l) + kMaxM * kSdLd);
+  const dim3 grid(count, B);
+  relax_dense_sweep_kernel<T><<<grid, kSweepThreads, smem, s>>>(table, d_sub, highs, lows, m, l);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -136,20 +272,19 @@ int hk_relax_minplus(const void* g, const void* d_t, void* cost, void* parent,
   return static_cast<int>(cudaGetLastError());
 }
 
-int hk_relax_dense(void* table, const void* d_sub, const void* masks, int count,
-                   int B, int m, int is_double, void* stream) {
-  const dim3 grid((count + kThreads - 1) / kThreads, B);
+// One launch of the dense sweep: the `count` tiles listed at `highs` (all
+// of one popcount p of H, the launches going p = 0 .. m-l in order).
+int hk_relax_dense_sweep(void* table, const void* d_sub, const void* highs, int count,
+                         const void* lows, int B, int m, int l, int is_double, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) {
-    relax_dense_kernel<double><<<grid, kThreads, 0, s>>>(
-        static_cast<double*>(table), static_cast<const double*>(d_sub),
-        static_cast<const int32_t*>(masks), count, m);
-  } else {
-    relax_dense_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<float*>(table), static_cast<const float*>(d_sub),
-        static_cast<const int32_t*>(masks), count, m);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int32_t* hi = static_cast<const int32_t*>(highs);
+  const int32_t* lo = static_cast<const int32_t*>(lows);
+  const cudaError_t err =
+      is_double ? launch_sweep<double>(static_cast<double*>(table), static_cast<const double*>(d_sub),
+                                       hi, count, lo, B, m, l, s)
+                : launch_sweep<float>(static_cast<float*>(table), static_cast<const float*>(d_sub),
+                                      hi, count, lo, B, m, l, s);
+  return static_cast<int>(err);
 }
 
 const char* hk_error_string(int code) {

@@ -2,8 +2,7 @@
 //
 // Replaces the Pallas TPU kernel tsp_mpi_reduction_tpu/ops/prim_pallas.py
 // (_prim_kernel / prim_chain). For each B&B node (lane) b with unvisited set
-// U = {c : unvis[b,c]} it runs the n-1 steps of Prim's MST over U on the
-// reduced costs
+// U = {c : unvis[b,c]} it runs Prim's MST over U on the reduced costs
 //
 //     row(u)[c] = (dbar[u,c] + lam[b,u]) + lam[b,c]     (lam optional)
 //
@@ -20,25 +19,49 @@
 //              mind = min(mind, r)
 //
 // Exactness: only adds and compares, in the order above (and nvcc runs with
-// --fmad=false); the warp argmin orders (value, index) pairs, so ties go to
-// the lower index as argmin's do. The result is bit-identical to the plain
-// PyTorch version prim_chain_reference (ops/prim_kernels.py).
+// --fmad=false); ties go to the lower index as argmin's do. The result is
+// bit-identical to the plain PyTorch version prim_chain_reference
+// (ops/prim_kernels.py). No NaN reaches the kernel: dbar and lam are finite
+// or +inf, so every row value and every mind is a number or +inf (a NaN
+// would follow the strict `<` below and never win, where torch.argmin
+// would pick it).
 //
 // What bounds it on this card: not bytes (a lane reads n bytes of unvis and
 // n floats of lam once, writes n+1 words) and not operations (about 4n per
-// step), but the n-1 dependent steps of the chain: each is a 5-level warp
-// shuffle reduction plus a row read. The design gives each lane one warp,
-// with the lane's mind/closest/intree/unvis/lam/deg in registers (each
-// thread holds the cities c = tid + 32*e, e < NPT = ceil(n/32) <= 7), so a
-// step touches no memory except one row of dbar: from shared memory up to
-// n = 96 (36 KB, inside the 48 KB a block gets without opt-in), else from
-// global memory, where it stays resident in L1/L2 (160 KB at n = 200). The
-// TPU version's 128-lane padding, 128-row tiles, one-hot matmul row select
-// and float-encoded `closest` are not carried over.
+// step), but the chain of dependent steps, each an argmin across the warp
+// followed by a row update. One warp per lane; each thread holds the cities
+// c = tid + 32*e, e < NPT = ceil(n/32) <= 7, with the lane's mind, closest,
+// lam and deg in registers and U and the tree as bit masks. The design
+// shortens each step and runs fewer of them:
+//
+//   1. argmin by two warp reductions (redux.sync, sm_80+) instead of a
+//      5-level shuffle butterfly: the min of an order-preserving uint32 key
+//      of each thread's best value, then the min index among the threads
+//      whose key equals it (a thread holds cities tid + 32e, so the lowest
+//      lane of a ballot is not the lowest city). -0.0 is made +0.0 before
+//      the key, since float `<` sees them equal; wu is read back from the
+//      key, and tot never holds -0.0 (it starts at +0.0 and a sum is -0.0
+//      only when both terms are), so adding +0.0 for -0.0 changes no bit;
+//   2. lam[b,u] and closest[u] come by two independent shuffles from the
+//      thread holding city u: no global load in the step;
+//   3. dbar sits in shared memory for every n <= 200 (n*n floats, 160 KB at
+//      n = 200, opt-in dynamic shared memory set once per instantiation),
+//      so the step's row is a conflict-free shared read; 8 warps a block
+//      put k = 1024 lanes in 128 blocks, about one per SM, so dbar is
+//      copied into shared memory about 128 times;
+//   4. a warp stops once every city of U is in the tree (a warp-uniform
+//      ballot): after that a non-U city's mind stays +inf (its row values
+//      are masked to +inf), so every later step has wu = inf and changes
+//      neither tot nor deg. The fixed-length chain runs n-1 steps; this one
+//      about |U|-1.
+//
+// There is no tensor-core form of a Prim chain. The TPU version's 128-lane
+// padding, 128-row tiles, one-hot matmul row select and float-encoded
+// `closest` are not carried over.
 //
 // Plain C interface, loaded from Python with ctypes (kernels/_build.py).
 // The launcher enqueues on the given stream, does not synchronise, and
-// returns cudaGetLastError() so a refused launch is reported.
+// returns the CUDA error of the attribute call or of the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,25 +69,20 @@
 
 namespace {
 
-constexpr int kMaxN = 200;                // MAX_BNB_CITIES
-constexpr int kWarpsPerBlock = 4;
-constexpr int kSmemNpt = 3;  // n <= 96: the n x n dbar (<= 36 KB) fits the 48 KB default
+constexpr int kMaxN = 200;          // MAX_BNB_CITIES
+constexpr int kWarpsPerBlock = 8;   // k = 1024 lanes -> 128 blocks on 132 SMs
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNoIndex = 0xffffffffu;
 
-// (value, index) argmin across the warp; every thread gets the result.
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    if (ov < v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// Order-preserving key of a float that is not NaN: for a, b not NaN,
+// a < b  <=>  key(a) < key(b), and a == b  <=>  key(a) == key(b).
+__device__ __forceinline__ unsigned float_key(float v) {
+  unsigned b = __float_as_uint(v);
+  if (b == 0x80000000u) b = 0u;  // -0.0 -> +0.0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-template <int NPT, bool kHasLam, bool kSmem>
+template <int NPT, bool kHasLam>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 prim_chain_kernel(const float* __restrict__ dbar,
                   const uint8_t* __restrict__ unvis,
@@ -72,19 +90,24 @@ prim_chain_kernel(const float* __restrict__ dbar,
                   float* __restrict__ tot_out,
                   int32_t* __restrict__ deg_out,
                   int k, int n) {
-  extern __shared__ float sd[];  // n*n floats when kSmem, else none
-  if (kSmem) {
-    for (int i = threadIdx.x; i < n * n; i += blockDim.x) sd[i] = dbar[i];
-    __syncthreads();
+  extern __shared__ float sd[];  // the n x n dbar
+  const int nn = n * n;
+  if ((reinterpret_cast<uintptr_t>(dbar) & 15u) == 0u) {
+    const float4* src = reinterpret_cast<const float4*>(dbar);
+    float4* dst = reinterpret_cast<float4*>(sd);
+    for (int i = threadIdx.x; i < nn / 4; i += blockDim.x) dst[i] = src[i];
+    for (int i = (nn / 4) * 4 + threadIdx.x; i < nn; i += blockDim.x) sd[i] = dbar[i];
+  } else {
+    for (int i = threadIdx.x; i < nn; i += blockDim.x) sd[i] = dbar[i];
   }
-  const float* D = kSmem ? sd : dbar;
+  __syncthreads();
 
   const int tid = threadIdx.x & 31;
   const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (lane >= k) return;  // whole warps leave together
   const float inf = __int_as_float(0x7f800000);
 
-  bool un[NPT], in_tree[NPT];
+  unsigned un = 0u, tree = 0u;  // bit e: city tid + 32e is in U / in the tree
   float lm[NPT], mind[NPT];
   int closest[NPT], deg[NPT];
   const uint8_t* ub = unvis + (size_t)lane * n;
@@ -95,68 +118,89 @@ prim_chain_kernel(const float* __restrict__ dbar,
 #pragma unroll
   for (int e = 0; e < NPT; ++e) {
     const int c = tid + 32 * e;
-    un[e] = c < n && ub[c] != 0;
+    const bool in_u = c < n && ub[c] != 0;
+    un |= static_cast<unsigned>(in_u) << e;
     lm[e] = (kHasLam && c < n) ? lb[c] : 0.0f;
-    const unsigned m = __ballot_sync(kFull, un[e]);
+    const unsigned m = __ballot_sync(kFull, in_u);
     if (start < 0 && m != 0u) start = 32 * e + __ffs(m) - 1;
   }
   if (start < 0) start = 0;
 
-  const float lam_s = kHasLam ? lb[start] : 0.0f;
+  // lam[start] from the register of the thread holding city start
+  float lam_s = 0.0f;
+  if (kHasLam) {
+    float mine = lm[0];
+#pragma unroll
+    for (int e = 1; e < NPT; ++e) {
+      if (e == (start >> 5)) mine = lm[e];
+    }
+    lam_s = __shfl_sync(kFull, mine, start & 31);
+  }
+  const float* ds = sd + start * n;
 #pragma unroll
   for (int e = 0; e < NPT; ++e) {
     const int c = tid + 32 * e;
     float r = inf;
     if (c < n) {
-      r = D[start * n + c];
+      r = ds[c];
       if (kHasLam) r = (r + lam_s) + lm[e];
     }
-    mind[e] = un[e] ? r : inf;
-    in_tree[e] = c == start;
+    mind[e] = ((un >> e) & 1u) ? r : inf;
     closest[e] = start;
     deg[e] = 0;
   }
+  if ((start & 31) == tid) tree = 1u << (start >> 5);
 
   float tot = 0.0f;
   for (int step = 0; step < n - 1; ++step) {
-    // first-index argmin over cand = intree ? inf : mind; cities past n
-    // carry inf with an index above every real one, so they never win
+    // every city of U in the tree: the remaining steps change nothing
+    if (__ballot_sync(kFull, (un & ~tree) != 0u) == 0u) break;
+
+    // this thread's first-index argmin over cand = intree ? inf : mind
+    // (NaN never passes `<` or `==`, so bv is never NaN)
     float bv = inf;
-    int bi = 0x7fffffff;
+    unsigned bi = kNoIndex;
 #pragma unroll
     for (int e = 0; e < NPT; ++e) {
       const int c = tid + 32 * e;
-      const float cv = (c >= n || in_tree[e]) ? inf : mind[e];
-      if (c < n && (cv < bv || (cv == bv && c < bi))) {
+      const float cv = ((tree >> e) & 1u) ? inf : mind[e];
+      if (c < n && (cv < bv || (cv == bv && static_cast<unsigned>(c) < bi))) {
         bv = cv;
         bi = c;
       }
     }
-    warp_argmin(bv, bi);
-    const int u = bi;
-    const float wu = bv;
+    // across the warp: the least key, then the least city holding it
+    const unsigned key = float_key(bv);
+    const unsigned kmin = __reduce_min_sync(kFull, key);
+    const int u = static_cast<int>(__reduce_min_sync(kFull, key == kmin ? bi : kNoIndex));
+    const float wu = __uint_as_float((kmin & 0x80000000u) ? (kmin ^ 0x80000000u) : ~kmin);
     const bool fin = isfinite(wu);
     tot = tot + (fin ? wu : 0.0f);
 
-    // par = closest[u], held by thread u % 32 in slot u / 32
-    int par_mine = 0;
+    // closest[u] and lam[b,u] from the thread holding city u, slot u / 32
+    const int slot = u >> 5;
+    int par_mine = closest[0];
+    float lam_mine = lm[0];
 #pragma unroll
-    for (int e = 0; e < NPT; ++e) {
-      if (e == (u >> 5)) par_mine = closest[e];
+    for (int e = 1; e < NPT; ++e) {
+      if (e == slot) {
+        par_mine = closest[e];
+        lam_mine = lm[e];
+      }
     }
     const int par = __shfl_sync(kFull, par_mine, u & 31);
+    const float lam_u = kHasLam ? __shfl_sync(kFull, lam_mine, u & 31) : 0.0f;
+    if ((u & 31) == tid) tree |= 1u << slot;
 
-    const float lam_u = kHasLam ? lb[u] : 0.0f;
-    const float* du = D + u * n;
+    const float* du = sd + u * n;
 #pragma unroll
     for (int e = 0; e < NPT; ++e) {
       const int c = tid + 32 * e;
       if (fin) deg[e] += (c == u) + (c == par);
-      if (c == u) in_tree[e] = true;
       if (c < n) {
         float r = du[c];
         if (kHasLam) r = (r + lam_u) + lm[e];
-        if (!un[e]) r = inf;
+        if (!((un >> e) & 1u)) r = inf;
         if (r < mind[e]) {
           closest[e] = u;
           mind[e] = r;
@@ -177,12 +221,16 @@ prim_chain_kernel(const float* __restrict__ dbar,
 template <int NPT, bool kHasLam>
 cudaError_t launch_npt(const float* dbar, const uint8_t* unvis, const float* lam,
                        float* tot, int32_t* deg, int k, int n, cudaStream_t s) {
-  // dbar in shared memory up to n = 96 (36 KB), from L1/L2 above
-  constexpr bool kSmem = NPT <= kSmemNpt;
+  // opt in once per instantiation to the shared memory its largest n needs
+  constexpr int kNmax = 32 * NPT < kMaxN ? 32 * NPT : kMaxN;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prim_chain_kernel<NPT, kHasLam>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * kNmax * kNmax));
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((k + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(kWarpsPerBlock * 32);
-  const size_t smem = kSmem ? sizeof(float) * n * n : 0;
-  prim_chain_kernel<NPT, kHasLam, kSmem><<<grid, block, smem, s>>>(dbar, unvis, lam, tot, deg, k, n);
+  const size_t smem = sizeof(float) * n * n;
+  prim_chain_kernel<NPT, kHasLam><<<grid, block, smem, s>>>(dbar, unvis, lam, tot, deg, k, n);
   return cudaGetLastError();
 }
 

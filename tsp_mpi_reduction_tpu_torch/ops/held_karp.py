@@ -15,8 +15,8 @@ Two layouts, four impls (same names as the JAX package):
 - ``dense`` — the full ``[B, m, 2^m]`` table updated by plain PyTorch each
   step (predecessor lookup as a reshape+flip); parents recomputed in the
   backtrack;
-- ``fused`` — dense layout with the CUDA kernel ``relax_dense`` updating
-  only the popcount-c masks in place;
+- ``fused`` — dense layout with the CUDA kernel ``relax_dense_sweep``
+  running every cardinality in one tiled sweep, in place;
 - ``auto`` — ``fused`` on CUDA (a hand kernel always), ``compact`` on the
   CPU. ``jnp`` is accepted as an alias of ``compact``.
 
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .distance import distance_matrix
-from .held_karp_kernels import relax_dense, relax_dense_reference, relax_minplus, relax_minplus_reference
+from .held_karp_kernels import relax_dense_reference, relax_dense_sweep, relax_minplus, relax_minplus_reference
 
 
 @dataclass(frozen=True)
@@ -226,10 +226,10 @@ def _solve_one_dense(d: torch.Tensor, n: int, use_kernel: bool) -> Tuple[torch.T
     d_sub = d[:, 1:, 1:].contiguous()
     cost = torch.full((bsz, m, 1 << m), float("inf"), dtype=dtype, device=dev)
     cost[:, :, 0] = d[:, 0, 1:]
-    for c in range(1, m):
-        if use_kernel:
-            cost = relax_dense(cost, d_sub, c)
-        else:
+    if use_kernel:
+        relax_dense_sweep(cost, d_sub)
+    else:
+        for c in range(1, m):
             cost = relax_dense_reference(cost, d_sub, c)
 
     cols = torch.arange(m, device=dev)

@@ -94,7 +94,8 @@ def relax_minplus(g: torch.Tensor, d_t: torch.Tensor) -> Tuple[torch.Tensor, tor
 
 
 # ---------------------------------------------------------------------------
-# Dense layout: the [B, m, 2^m] table, one step per cardinality c.
+# Dense layout: the [B, m, 2^m] table; the plain version steps one
+# cardinality c at a time, the kernel sweeps all of them in tiles.
 # ---------------------------------------------------------------------------
 
 
@@ -110,7 +111,8 @@ def _dense_tables(m: int, device: str):
 def masks_by_popcount(m: int, device: str):
     """All masks over m bits as int32, grouped by popcount in ascending
     order, and ``offsets[c]`` where popcount c starts (``offsets[m+1]`` is
-    the end) — the dense kernel's index list of one cardinality."""
+    the end) — the sweep kernel's lists of high parts H (one launch per
+    popcount) and of low parts L (one tile level per popcount)."""
     by_c = [[] for _ in range(m + 1)]
     for mask in range(1 << m):
         by_c[bin(mask).count("1")].append(mask)
@@ -150,35 +152,107 @@ def relax_dense_reference(cost: torch.Tensor, d_sub: torch.Tensor, c: int) -> to
     return torch.where(upd, new, cost)
 
 
-def relax_dense(cost: torch.Tensor, d_sub: torch.Tensor, c: int) -> torch.Tensor:
-    """One dense Held-Karp step at cardinality ``c`` for a batch of blocks.
+def relax_dense_tiles_reference(cost: torch.Tensor, d_sub: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain mirror of the sweep kernel's tile schedule (tests only).
 
-    Updates ``cost`` ``[B, m, 2^m]`` IN PLACE (race-free: the step reads
-    only popcount c-1 masks and writes only popcount c masks) and returns
-    it. ``d_sub`` ``[B, m, m]``. No parents are kept; the backtrack
-    recomputes them. Replaces ``held_karp_pallas.relax_dense``.
+    Runs the whole DP the way ``relax_dense_sweep``'s kernel does and returns
+    a new table equal to the per-level loop of :func:`relax_dense_reference`
+    over c = 1 .. m-1. A mask splits into h = m - l high bits H and l low
+    bits L (l = m when m is smaller); for p = popcount(H) = 0 .. h, every
+    tile ``[m, 2^l]`` of that popcount takes the min over its high-bit
+    predecessors (tiles of popcount p-1) in a pre-pass, the H = 0 tile
+    loads the init row, then it sweeps popcount(L) = 1 .. l over its
+    low-bit predecessors, and writes its valid states (k outside M, M not
+    empty).
+    """
+    bsz, m, s = cost.shape
+    l = min(l, m)
+    h = m - l
+    dev = cost.device
+    out = cost.clone()
+    lows = torch.arange(1 << l, device=dev)
+    lpop = torch.stack([(lows >> b) & 1 for b in range(l)]).sum(dim=0)
+    highs, hoff = masks_by_popcount(h, str(dev))
+    ks = torch.arange(m, device=dev)
+    for p in range(h + 1):
+        hs = highs[hoff[p]:hoff[p + 1]].long()  # [T] tiles of this launch
+        idx = (hs[:, None] << l) | lows[None, :]  # [T, 2^l] their masks M
+        tile = torch.full((bsz, m, hs.shape[0], 1 << l), float("inf"), dtype=cost.dtype, device=dev)
+        for j in range(h):  # high bit j is city l + j
+            has = ((hs >> j) & 1).bool()[None, None, :, None]
+            pred = out[:, l + j][:, idx ^ (1 << (l + j))]  # [B, T, 2^l]
+            cand = pred[:, None] + d_sub[:, l + j, :, None, None]  # [B, m, T, 2^l]
+            tile = torch.where(has, torch.minimum(tile, cand), tile)
+        if p == 0:
+            tile[:, :, 0, 0] = out[:, :, 0]  # the init row, M = 0
+        for q in range(1, l + 1):
+            lq = lows[lpop == q]  # [Q]
+            for i in range(l):
+                has = ((lq >> i) & 1).bool()[None, None, None, :]
+                pred = tile[:, i][:, :, lq ^ (1 << i)]  # [B, T, Q]
+                cand = pred[:, None] + d_sub[:, i, :, None, None]  # [B, m, T, Q]
+                cur = tile[:, :, :, lq]
+                tile[:, :, :, lq] = torch.where(has, torch.minimum(cur, cand), cur)
+        valid = (((idx[None] >> ks[:, None, None]) & 1) == 0) & (idx[None] != 0)  # [m, T, 2^l]
+        out[:, :, idx] = torch.where(valid, tile, out[:, :, idx])
+    return out
+
+
+#: the sweep kernel's low bits, in float32 and float64: a tile [m, 2^9] in
+#: shared memory is 30 KB at m = 15 in float32 and 68 KB at m = 17 in
+#: float64, so six (float32) or three (float64) blocks of 128 threads share
+#: an SM; the fastest of l = 8, 9, 10 on the H100 at m = 15
+SWEEP_LOW_BITS = 9
+
+
+def sweep_low_bits(m: int) -> int:
+    """The l the sweep kernel uses for an m-city table."""
+    return min(SWEEP_LOW_BITS, m)
+
+
+def sweep_launches(m: int) -> int:
+    """Kernel launches of one :func:`relax_dense_sweep` on CUDA: one per
+    popcount of the high bits, h + 1 with h = m - l (0 when m < 2)."""
+    return m - sweep_low_bits(m) + 1 if m >= 2 else 0
+
+
+def relax_dense_sweep(cost: torch.Tensor, d_sub: torch.Tensor) -> torch.Tensor:
+    """The whole dense Held-Karp DP for a batch of blocks, in place.
+
+    ``cost`` ``[B, m, 2^m]`` holds the init row ``cost[:, :, 0]`` (+inf
+    elsewhere) and ends as the per-level loop of
+    :func:`relax_dense_reference` over c = 1 .. m-1 leaves it; entries that
+    are not states are left as they are. ``d_sub`` ``[B, m, m]``. Returns
+    ``cost``. No parents are kept; the backtrack recomputes them. Replaces
+    ``held_karp_pallas.relax_dense``, one call for all cardinalities.
+
+    On CUDA it launches the tiled sweep kernel :func:`sweep_launches` times
+    (l = :func:`sweep_low_bits`); a CPU tensor runs the per-level plain loop.
     """
     if cost.device.type == "cpu":
-        return cost.copy_(relax_dense_reference(cost, d_sub, c))
-    _check_cuda("relax_dense", cost.dtype, cost, d_sub)
+        for c in range(1, cost.shape[1]):
+            cost.copy_(relax_dense_reference(cost, d_sub, c))
+        return cost
+    _check_cuda("relax_dense_sweep", cost.dtype, cost, d_sub)
     if cost.ndim != 3 or d_sub.shape != (cost.shape[0], cost.shape[1], cost.shape[1]):
-        raise ValueError(f"relax_dense: cost {tuple(cost.shape)} / d_sub {tuple(d_sub.shape)}")
-    if d_sub.dtype != cost.dtype:
-        raise ValueError("relax_dense: cost and d_sub must share a dtype")
+        raise ValueError(f"relax_dense_sweep: cost {tuple(cost.shape)} / d_sub {tuple(d_sub.shape)}")
+    if d_sub.dtype != cost.dtype or d_sub.device != cost.device:
+        raise ValueError("relax_dense_sweep: cost and d_sub must share a dtype and a device")
     b, m, s = cost.shape
     if not 1 <= m <= MAX_M or s != 1 << m or b > _MAX_GRID_Y:
-        raise ValueError(f"relax_dense: need S = 2^m, m <= {MAX_M}, B <= {_MAX_GRID_Y}")
-    if not 1 <= c < m:
-        raise ValueError(f"relax_dense: cardinality {c} outside [1, {m - 1}]")
-    masks, offsets = masks_by_popcount(m, str(cost.device))
-    count = offsets[c + 1] - offsets[c]
-    if b:
-        lib = _build.library()
-        code = lib.hk_relax_dense(
-            cost.data_ptr(), d_sub.data_ptr(), masks[offsets[c]:].data_ptr(),
-            count, b, m, int(cost.dtype == torch.float64),
-            torch.cuda.current_stream(cost.device).cuda_stream,
+        raise ValueError(f"relax_dense_sweep: need S = 2^m, m <= {MAX_M}, B <= {_MAX_GRID_Y}")
+    if m < 2 or not b:
+        return cost
+    l = sweep_low_bits(m)
+    highs, hoff = masks_by_popcount(m - l, str(cost.device))
+    lows, _ = masks_by_popcount(l, str(cost.device))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cost.device).cuda_stream
+    for p in range(m - l + 1):
+        code = lib.hk_relax_dense_sweep(
+            cost.data_ptr(), d_sub.data_ptr(), highs[hoff[p]:].data_ptr(), hoff[p + 1] - hoff[p],
+            lows.data_ptr(), b, m, l, int(cost.dtype == torch.float64), stream,
         )
-        _build.check(code, "relax_dense")
+        _build.check(code, "relax_dense_sweep")
         LAUNCHES["relax_dense"] += 1
     return cost

@@ -78,6 +78,61 @@ def prim_chain_reference(
     return tot, deg
 
 
+def _float_keys(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 keys of float32 values (no
+    NaN), as int64: -0.0 becomes +0.0 first, then a < b iff key(a) < key(b)."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    return torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+
+
+def _key_floats(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_float_keys` (``-0.0`` comes back as ``+0.0``)."""
+    bits = torch.where(key >= 0x80000000, key ^ 0x80000000, key ^ 0xFFFFFFFF)
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def prim_chain_early_exit_reference(
+    dbar: torch.Tensor, unvis: torch.Tensor, n: int, lam: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of the kernel's schedule (tests only), float32.
+
+    The chain of :func:`prim_chain_reference`, except that a lane stops
+    (its state frozen) once every city of its U is in its tree, and the
+    argmin is taken as the kernel takes it: the least order-preserving key
+    of each candidate, the first city holding it, and ``wu`` read back from
+    the key. Equal to :func:`prim_chain_reference` bit for bit.
+    """
+    k = unvis.shape[0]
+    dev = unvis.device
+    big = float("inf")
+    cities = torch.arange(n, device=dev)[None, :]
+    start = unvis.to(torch.int32).argmax(dim=1)
+    intree = cities == start[:, None]
+    mind = torch.where(unvis, edge_rows(dbar, start, lam), big)
+    closest = start[:, None].expand(k, n)
+    deg = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    tot = torch.zeros(k, dtype=dbar.dtype, device=dev)
+    for _ in range(n - 1):
+        live = (unvis & ~intree).any(dim=1)  # lanes whose U is not yet spanned
+        if not bool(live.any()):
+            break
+        key = _float_keys(torch.where(intree, big, mind))
+        u = key.argmin(dim=1)  # first index of the least key
+        wu = _key_floats(key.gather(1, u[:, None])[:, 0])
+        fin = torch.isfinite(wu) & live
+        tot = torch.where(fin, tot + wu, tot)
+        par = closest.gather(1, u[:, None])
+        oh_u = (cities == u[:, None]) & live[:, None]
+        deg = deg + (oh_u.to(torch.int32) + (cities == par).to(torch.int32)) * fin[:, None].to(torch.int32)
+        intree = intree | oh_u
+        row = torch.where(unvis, edge_rows(dbar, u, lam), big)
+        better = (row < mind) & live[:, None]
+        closest = torch.where(better, u[:, None], closest)
+        mind = torch.where(live[:, None], torch.minimum(mind, row), mind)
+    return tot, deg
+
+
 def prim_chain(
     dbar: torch.Tensor, unvis: torch.Tensor, n: int, lam: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None, choices=["float64", "float32"])
     p.add_argument(
         "--impl", default="auto", choices=["auto", "compact", "dense", "fused", "jnp", "pallas"],
-        help="Held-Karp impl; auto is the relax_dense kernel on cuda",
+        help="Held-Karp impl; auto is the relax_dense_sweep kernel on cuda",
     )
     p.add_argument("--metrics", action="store_true")
     p.add_argument("--seed", type=int, default=0)
