@@ -8,10 +8,12 @@ Phases, each printing its own line; any failure exits non-zero:
 1. device and build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from ``kernels/csrc`` for sm_90a;
 2. kernel parity: each hand kernel against its plain PyTorch version,
-   exactly (``torch.equal``), f32 and f64, with inf entries and ties (the
-   dense sweep against the per-level plain loop at m in {2, 5, 9, 10, 11,
-   15, 17}); plus a check that ``argmin``/``argmax`` pick the first index
-   on CUDA;
+   exactly (``torch.equal``), f32 and f64, with inf entries and ties
+   (``relax_minplus`` at M in {1, 4, 9, 15, 16, 17}, J = 1, 130 and one
+   row past a whole tile, ``g`` aligned or one element off a 16-byte
+   boundary; the dense sweep against the per-level plain loop at m in {2,
+   5, 9, 10, 11, 15, 17}); plus a check that ``argmin``/``argmax`` pick the
+   first index on CUDA;
 3. oracle parity: the CLI's ``10 6 500 500`` cost, and the goldens'
    block solutions, fold costs and final tour in float64 under the
    ``fused`` and ``pallas`` impls; ``--ranks=4`` equal under fused/compact;
@@ -19,9 +21,11 @@ Phases, each printing its own line; any failure exits non-zero:
    1000x1000, float32, impl ``auto`` — phase times, the final line, the
    sweep's h + 1 launches, fused against plain compact on one distance
    tensor (exact), the sweep against the per-level plain loop at full size
-   in float32 and float64 (exact), per-kernel times from CUDA events
-   (eager and CUDA-graph replay; ``relax_dense`` per solve and per launch)
-   with the kernels' bounds, and each impl's wall time;
+   in float32 and float64 (exact), ``relax_minplus`` on the 14 compact
+   steps of the pallas path rebuilt from the finished table (exact),
+   per-kernel times from CUDA events (eager and CUDA-graph replay;
+   ``relax_dense`` per solve and per launch) with the kernels' bounds,
+   and each impl's wall time;
 5. ``prim_chain`` parity: the B&B Prim kernel against its plain version
    on the same CUDA tensors, bit for bit (``tot`` as int32 bits, ``deg``
    exactly), n in {5, 14, 33, 51, 96, 97, 100, 200}, k in {37, 300, 1024},
@@ -41,18 +45,21 @@ Phases, each printing its own line; any failure exits non-zero:
    kernels on the main path's recorded inputs (every launch, bit for bit
    against the plain versions, then timed eager and by CUDA-graph replay
    beside their bounds and plain versions; ``prim_chain`` also on
-   synthetic half-visited lanes), ``push_rows`` against the reference push
-   section;
+   synthetic half-visited lanes; ``push_rows`` beside its launch floor, an
+   empty kernel on the same grid, and with the children one parent
+   pushes), ``push_rows`` against the reference push section;
 8. ``push_rows`` parity: the kernel against its plain version on the same
-   CUDA tensors, the whole buffer bit for bit, n in {5, 14, 33, 51, 100,
-   200}, k in {1, 37, 1024}, nothing / some / everything pushed (then up
-   to row F-1), NaN, -0.0 and inf bit patterns in the float columns;
+   CUDA tensors, the whole buffer bit for bit, n in {5, 13, 14, 33, 51,
+   100, 128, 200}, k in {1, 11, 37, 1024}, nothing / some / everything
+   pushed (then up to row F-1) / one parent pushing all n children, NaN,
+   -0.0 and inf bit patterns in the float columns;
 9. one chunk of the kroA100 certified-gap campaign through the CLI (k =
    1024, capacity 2^19, node_ascent 6, re-sort every 16 steps, device
    loop, 300 steps) under the fused and the reference push: both equal
    the JAX package's numbers for the same call on the CPU (nodes,
-   iterations, cost, certified LB, every spill counter); ``prim_chain`` on
-   the recorded inputs of the chunk's first 20 steps, checked and timed;
+   iterations, cost, certified LB, every spill counter); ``push_rows`` on
+   the recorded inputs of every launch of the chunk, bit for bit, and
+   ``prim_chain`` on those of its first 20 steps, checked and timed;
 10. a spill-forcing proof (13 random cities, capacity at the device
     loop's 4*k*(n-1) floor): compacts on the card, exchanges with the host
     reservoir and proves, fused == reference == the JAX package's pinned
@@ -181,22 +188,31 @@ def phase_kernel_parity(errs):
     from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
 
     checked = 0
-    for m in (4, 9, 15, 17):
+    for m in (1, 4, 9, 15, 16, 17):
         for dt in (torch.float32, torch.float64):
-            rng = np.random.default_rng(m)
-            g = np.round(rng.uniform(0, 100, (3, 130, m)))  # rounded: many ties
-            g[rng.uniform(size=g.shape) < 0.2] = np.inf
-            g[:, 3] = np.inf  # an all-inf row: inf with parent 0
-            d_t = np.round(rng.uniform(0, 50, (3, m, m)))
-            gt = torch.tensor(g, dtype=dt, device="cuda")
-            dtt = torch.tensor(d_t, dtype=dt, device="cuda")
-            c_k, p_k = hkk.relax_minplus(gt, dtt)
-            c_p, p_p = hkk.relax_minplus_reference(gt, dtt)
-            torch.cuda.synchronize()
-            require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
-                    f"relax_minplus != plain at M={m} {dt}")
-            errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
-            checked += 1
+            # J = 1, 130, and one row past a whole tile (a ragged last tile);
+            # g aligned to 16 bytes or one element off
+            for j in (1, 130, hkk.minplus_tile_rows(m) + 1):
+                for offset in (0, 1):
+                    rng = np.random.default_rng(m * j)
+                    g = np.round(rng.uniform(0, 100, (3, j, m)))  # rounded: many ties
+                    g[rng.uniform(size=g.shape) < 0.2] = np.inf
+                    d_t = np.round(rng.uniform(0, 50, (3, m, m)))
+                    if j > 4:
+                        g[:, 3] = np.inf  # an all-inf row: inf with parent 0
+                        g[:, 4] = 7.0
+                        d_t[0] = 2.0  # block 0, row 4: every candidate ties, parent 0
+                    store = torch.empty(g.size + offset, dtype=dt, device="cuda")
+                    gt = store[offset:].view(g.shape)
+                    gt.copy_(torch.tensor(g, dtype=dt))
+                    dtt = torch.tensor(d_t, dtype=dt, device="cuda")
+                    c_k, p_k = hkk.relax_minplus(gt, dtt)
+                    c_p, p_p = hkk.relax_minplus_reference(gt, dtt)
+                    torch.cuda.synchronize()
+                    require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
+                            f"relax_minplus != plain at M={m} J={j} offset={offset} {dt}")
+                    errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
+                    checked += 1
     for m in (2, 5, 9, 10, 11, 15, 17):
         for dt in (torch.float32, torch.float64):
             rng = np.random.default_rng(m)
@@ -309,14 +325,6 @@ def phase_oracle():
     print(f"phase 3 ranks=4 (10x100): cost {got['fused'].cost:f} under fused == compact (float64)")
 
 
-def minplus_bound(bsz: int, j: int, m: int, elt: int):
-    """Bytes and operations of one compact step: g, d_t in; cost, int32
-    parent out; M adds and M-1 compares per output."""
-    nbytes = bsz * (elt * (2 * j * m + m * m) + 4 * j * m)
-    ops = bsz * j * m * (2 * m - 1)
-    return nbytes, ops
-
-
 def phase_full(smi, errs):
     import numpy as np
     import torch
@@ -328,7 +336,7 @@ def phase_full(smi, errs):
     from tsp_mpi_reduction_tpu_torch.utils import reporting
 
     n, nb, m = N_FULL, B_FULL, N_FULL - 1
-    dt, dt_name, elt = torch.float32, "float32", 4
+    dt = torch.float32
     dev = torch.device("cuda")
 
     # --- the main path: impl auto (relax_dense_sweep), counts reset just before
@@ -407,42 +415,15 @@ def phase_full(smi, errs):
     del d64, tab64, ref64
     torch.cuda.empty_cache()
 
-    # compact inputs of every step, rebuilt from the finished table
-    scatter_idx, prev_idx, member = held_karp._plan_tensors(n, str(dev))
-    j = prev_idx.shape[1]
-    inf_row = torch.full((nb, 1, m), math.inf, dtype=dt, device=dev)
-    table_c = torch.cat([tab.permute(0, 2, 1), inf_row], dim=1)  # [B, 2^m + 1, m]
+    # relax_minplus on the compact inputs of every step of the pallas path,
+    # rebuilt from the finished table: exact, then timed
+    gs, d_t = kt.minplus_inputs(tab, d_sub)
     del tab
-    cols = torch.arange(m, device=dev)
-    gs = [torch.where(member[s], table_c[:, prev_idx[s], cols],
-                      torch.tensor(math.inf, dtype=dt, device=dev)) for s in range(m - 1)]
-    del table_c
-    d_t = d_sub.transpose(1, 2).contiguous()
-    plain_minplus_ms = []
-    for g in gs:
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        c_p, p_p = hkk.relax_minplus_reference(g, d_t)
-        e1.record()
-        c_k, p_k = hkk.relax_minplus(g, d_t)
-        torch.cuda.synchronize()
-        plain_minplus_ms.append(e0.elapsed_time(e1))
-        require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p), "relax_minplus != plain at full size")
-        errs["relax_minplus"] = max(errs["relax_minplus"], max_abs_err(c_k, c_p))
-        del c_p, p_p, c_k, p_k
-
-    def minplus_all():
-        for g in gs:
-            hkk.relax_minplus(g, d_t)
-
-    minplus_ms = kt.cuda_ms(minplus_all, reps) / (m - 1)
-    minplus_dev_ms = kt.graph_ms(minplus_all, reps) / (m - 1)
-    mp_bytes, mp_ops = minplus_bound(nb, j, m, elt)
-    mp_bound, mp_by = kt.bound_ms(mp_bytes, mp_ops, dt_name)
+    mp = kt.time_minplus(gs, d_t, reps)
+    errs["relax_minplus"] = max(errs["relax_minplus"], mp["max_abs_err"])
     del gs
     torch.cuda.empty_cache()
 
-    plain_mp = sum(plain_minplus_ms) / len(plain_minplus_ms)
     per = dense["launches_per_solve"]
     print(f"phase 4 kernel relax_dense (relax_dense_sweep, l = {hkk.sweep_low_bits(m)}): "
           f"{dense['ms_per_solve']:.4f} ms/solve eager, {dense['device_ms_per_solve']:.4f} ms/solve by CUDA "
@@ -451,17 +432,17 @@ def phase_full(smi, errs):
           f"{dense['bound_ms_per_solve']:.4f} ms/solve ({dense['bound_by']}, every computed state written "
           f"once); plain per-level loop {dense['plain_ms_per_solve']:.4f} ms/solve; exact in float32 "
           f"and float64")
-    print(f"phase 4 kernel relax_minplus: {minplus_ms:.4f} ms/launch eager, {minplus_dev_ms:.4f} ms/launch "
-          f"by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
-          f"{launches_pallas['relax_minplus']} launches per solve, bound {mp_bound:.4f} ms ({mp_by}), "
-          f"plain {plain_mp:.4f} ms")
+    print(f"phase 4 kernel relax_minplus ({mp['what']}): {mp['ms']:.4f} ms/launch eager, "
+          f"{mp['device_ms']:.4f} ms/launch by CUDA graph replay (CUDA events, mean of {reps}x{m - 1}), "
+          f"{launches_pallas['relax_minplus']} launches per solve, bound {mp['bound_ms']:.4f} ms "
+          f"({mp['bound_by']}), plain {mp['plain_ms']:.4f} ms; exact on every step")
     print(f"phase 4 card: {smi}")
     return [
         {"name": "relax_minplus", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_minplus"], "launches": launches_pallas["relax_minplus"],
-         "max_abs_err": errs["relax_minplus"], "ms": minplus_ms, "device_ms": minplus_dev_ms,
-         "plain_ms": plain_mp,
-         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None, "per": "launch"},
+         "max_abs_err": errs["relax_minplus"], "ms": mp["ms"], "device_ms": mp["device_ms"],
+         "plain_ms": mp["plain_ms"], "bound_ms": mp["bound_ms"], "bound_by": mp["bound_by"],
+         "library_ms": None, "per": "launch"},
         # times and bound per solve: one relax_dense_sweep call, all cardinalities
         {"name": "relax_dense", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_dense"], "launches": launches_main["relax_dense"],
@@ -610,38 +591,6 @@ def phase_bnb_proofs():
           f"search {kern['wall_s']} s kernel vs {plain['wall_s']} s plain")
 
 
-def push_bound(calls, k: int, n: int):
-    """Bytes and operations one ``push_rows`` launch needs, averaged over
-    the recorded steps: the k parent rows and ``dest`` [k, n] read once,
-    the three float columns read only at the n_push pushed children (4 B
-    each, not charged per 32 B sector), the n_push pushed rows written
-    once; one operation per written word."""
-    cols = calls[0][1].shape[1]
-    n_push = sum(int(((c[2] >= 0) & (c[2] < c[0][0])).sum()) for c in calls) / len(calls)
-    nbytes = 4 * (k * cols + k * n) + 4 * 3 * n_push + 4 * n_push * cols
-    return nbytes, n_push * cols, n_push
-
-
-def keep_push(nodes, parents, dest, ccost, cbound, csum, n):
-    return (tuple(nodes.shape), parents.clone(), dest.clone(), ccost.clone(), cbound.clone(), csum.clone())
-
-
-def record_main_path(d, k: int, cap: int):
-    """Solve once more with recorders around ``push_rows`` and
-    ``prim_chain`` that keep a copy of every launch's inputs; returns both
-    lists (pushes: buffer shape, parents, dest, ccost, cbound, csum;
-    chains: dbar, unvis, n, lam)."""
-    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
-    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
-    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
-    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
-
-    with kt.recorded(ek, "push_rows", keep_push) as pushes, \
-            kt.recorded(prim_kernels, "prim_chain", kt.keep_prim) as chains:
-        bb.solve(d, k=k, capacity=cap, device="cuda")
-    return pushes, chains
-
-
 def prim_recorded(calls, what: str, errs, reps: int = 5) -> dict:
     """``prim_chain`` on a main path's recorded inputs: bit for bit against
     the plain chain on every launch, then timed (tools/kernel_times)."""
@@ -744,47 +693,37 @@ def phase_bnb_full(smi, errs):
           f"{syn['plain_ms']:.4f} ms; dependent steps max {syn['dependent_steps_max']}")
 
     # --- both B&B kernels on the main path's own inputs, launch by launch
-    calls, chains = record_main_path(d, k, cap)
+    chains, calls, _ = kt.record_bnb_calls(base_argv)
     require(len(chains) == launches["prim_chain"],
             f"recorded {len(chains)} prim_chain launches, want {launches['prim_chain']}")
     prim_row = prim_recorded(chains, "7 kernel prim_chain, recorded eil51 inputs", errs)
     del chains
     require(len(calls) == main["steps_run"], f"recorded {len(calls)} pushes, want {main['steps_run']}")
+    try:
+        kt.push_check(calls, n)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
+    push = kt.time_push(calls, n, "push_rows recorded eil51")
     scratch = torch.zeros(calls[0][0], dtype=torch.int32, device="cuda")
-    for call in calls:
-        got, want = scratch.clone(), scratch.clone()
-        ek.push_rows(got, *call[1:], n)
-        ek.push_rows_reference(want, *call[1:], n)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), "push_rows != plain on a recorded eil51 step")
-        errs["push_rows"] = max(errs["push_rows"], max_abs_err(got.double(), want.double()))
-    del got, want
-
-    def each(fn):
-        return lambda: [fn(call) for call in calls]
-
-    kernel_all = each(lambda c: ek.push_rows(scratch, *c[1:], n))
-    plain_all = each(lambda c: ek.push_rows_reference(scratch, *c[1:], n))
     ref_args = [reference_push_args(c) for c in calls]
 
     def reference_all():
         for a in ref_args:
             bb._reference_push(scratch, *a[:4], a[4], a[5], a[6], n)
 
-    kernel_all()
     reference_all()
     steps = len(calls)
-    push_eager_ms = kt.cuda_ms(kernel_all, 5) / steps
-    push_ms = kt.graph_ms(kernel_all, 5) / steps
-    plain_push_ms = kt.cuda_ms(plain_all, 2) / steps
     ref_eager_ms = kt.cuda_ms(reference_all, 5) / steps
     ref_push_ms = kt.graph_ms(reference_all, 5) / steps
-    nbytes, ops, mean_push = push_bound(calls, k, n)
-    pb_ms, pb_by = kt.bound_ms(nbytes, ops, "float32")
-    print(f"phase 7 kernel push_rows: {push_ms:.4f} ms/launch on the device (CUDA graph replay of the "
-          f"{steps} recorded eil51 steps, CUDA events, mean of 5), {push_eager_ms:.4f} ms/launch eager; "
-          f"{launches['push_rows']} launches on the main path, bound {pb_ms:.6f} ms ({pb_by}; mean "
-          f"n_push {mean_push:.1f}), plain {plain_push_ms:.4f} ms")
+    push_ms, push_eager_ms = push["device_ms"], push["ms"]
+    print(f"phase 7 kernel push_rows: {steps} recorded eil51 launches == plain bit for bit (whole buffer); "
+          f"{push_ms:.4f} ms/launch on the device (CUDA graph replay of the recorded steps, CUDA events, "
+          f"mean of 5), {push_eager_ms:.4f} ms/launch eager; launch floor {push['floor_ms']:.4f} ms (an "
+          f"empty kernel on the same grid, graph replay); {launches['push_rows']} launches on the main path, "
+          f"bound {push['bound_ms']:.6f} ms ({push['bound_by']}; mean n_push {push['mean_n_push']:.1f}), "
+          f"plain {push['plain_ms']:.4f} ms; children one parent pushes: largest "
+          f"{push['children_per_parent_max_max']:.0f} (mean of the launches' largest "
+          f"{push['children_per_parent_max_mean']:.1f}), mean {push['children_per_parent_mean']:.2f}")
     print(f"phase 7 push section per step: fused push_rows {push_ms:.4f} ms device / {push_eager_ms:.4f} "
           f"ms eager; reference (candidate block + compaction + index_copy_) {ref_push_ms:.4f} ms "
           f"device / {ref_eager_ms:.4f} ms eager")
@@ -799,8 +738,8 @@ def phase_bnb_full(smi, errs):
         {"name": "push_rows", "route": "cuda", "source": PUSH_SOURCE,
          "replaces": REPLACES["push_rows"], "launches": launches["push_rows"],
          "max_abs_err": errs["push_rows"], "ms": push_eager_ms, "device_ms": push_ms,
-         "plain_ms": plain_push_ms,
-         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None, "per": "launch"},
+         "plain_ms": push["plain_ms"], "bound_ms": push["bound_ms"], "bound_by": push["bound_by"],
+         "library_ms": None, "per": "launch", "floor_ms": push["floor_ms"]},
     ]
 
 
@@ -810,8 +749,9 @@ SPECIAL_BITS = (0x7FC00000, 0x7FC00123, 0x80000000, 0x7F800000, 0xFF800000)
 def push_inputs(n: int, k: int, case: str, seed: int):
     """A frontier buffer, k parent rows, dest and the float columns on the
     card from a numpy seed: nothing, some (in random order, some parked at
-    -1 or past F) or everything pushed (then ending at row F-1); the float
-    columns carry NaN, -0.0 and inf bit patterns."""
+    -1 or past F), everything pushed (then ending at row F-1), or parent 0
+    pushing all n children and the others about 10%; the float columns
+    carry NaN, -0.0 and inf bit patterns."""
     import numpy as np
     import torch
 
@@ -825,7 +765,9 @@ def push_inputs(n: int, k: int, case: str, seed: int):
     parents = rng.integers(-(2**31), 2**31, size=(k, cols), dtype=np.int64).astype(np.int32)
     parents[:, pw + w] = rng.integers(0, n + 3, size=k)
     push = {"some": rng.random((k, n)) < 0.3, "none": np.zeros((k, n), bool),
-            "all": np.ones((k, n), bool)}[case].reshape(-1)
+            "all": np.ones((k, n), bool), "one-full": rng.random((k, n)) < 0.1}[case]
+    push[0] |= case == "one-full"
+    push = push.reshape(-1)
     n_push = int(push.sum())
     rank = np.zeros(k * n, np.int64)
     rank[rng.permutation(np.flatnonzero(push))] = np.arange(n_push)
@@ -848,9 +790,9 @@ def phase_push_parity(errs):
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
 
     checked = 0
-    for n in (5, 14, 33, 51, 100, 200):
-        for k in (1, 37, 1024):
-            for case in ("none", "some", "all"):
+    for n in (5, 13, 14, 33, 51, 100, 128, 200):
+        for k in (1, 11, 37, 1024):
+            for case in ("none", "some", "all", "one-full"):
                 nodes, parents, dest, cc, cb, cs = push_inputs(n, k, case, seed=n * k + len(case))
                 want = ek.push_rows_reference(nodes.clone(), parents, dest, cc, cb, cs, n)
                 ek.push_rows(nodes, parents, dest, cc, cb, cs, n)
@@ -865,7 +807,8 @@ def phase_push_parity(errs):
                 errs["push_rows"] = max(errs["push_rows"], max_abs_err(nodes.double(), want.double()))
                 checked += 1
     print(f"phase 8 push_rows parity: {checked} whole-buffer bit-exact comparisons, n in 5..200, "
-          "k in {1, 37, 1024}, nothing / some / everything pushed (to row F-1), NaN/-0.0/inf bits")
+          "k in {1, 11, 37, 1024}, nothing / some / everything pushed (to row F-1) / one parent pushing "
+          "all n, NaN/-0.0/inf bits")
 
 
 SPILL_KEYS = ("spill_rounds", "spill_events", "spill_full_merges", "spill_bytes_to_host",
@@ -910,12 +853,22 @@ def phase_kroa100(smi, errs):
               f"ILS {out['setup_ils_s']}), search {out['wall_s']}; {out['nodes_per_sec']} nodes/s")
     require(runs["fused"]["steps_run"] == runs["reference"]["steps_run"],
             "kroA100: fused and reference expanded different numbers of steps")
-    # prim_chain on the inputs of the chunk's first steps (n = 100)
-    first = [a for a in KRO_ARGS if not a.startswith("--max-iters")]
-    chains, _ = kt.record_prim_calls(first + ["--backend=cuda", f"--max-iters={kt.KRO_STEPS}"],
-                                     kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP)
+    # push_rows on the inputs of every launch of the chunk, prim_chain on
+    # those of its first steps (n = 100)
+    chains, pushes, out = kt.record_bnb_calls(KRO_ARGS + ["--backend=cuda"], kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP)
     require(len(chains) == kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP,
             f"recorded {len(chains)} kroA100 prim_chain launches")
+    require(len(pushes) == out["steps_run"] == runs["fused"]["steps_run"],
+            f"recorded {len(pushes)} kroA100 push_rows launches for {out['steps_run']} steps")
+    try:
+        kt.push_check(pushes, 100)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
+    stats = kt.push_stats(pushes)
+    del pushes
+    print(f"phase 9 kernel push_rows: every one of the chunk's {out['steps_run']} recorded launches == plain "
+          f"bit for bit (whole buffer); children one parent pushes: largest "
+          f"{stats['children_per_parent_max_max']:.0f}, mean {stats['children_per_parent_mean']:.2f}")
     prim_recorded(chains, f"9 kernel prim_chain, recorded inputs of the first {kt.KRO_STEPS} "
                   "kroA100 steps", errs)
     print(f"phase 9 card: {smi}")

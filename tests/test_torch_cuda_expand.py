@@ -42,8 +42,12 @@ def push_inputs(n, k, case, device, seed):
     nodes = rng.integers(-(2**31), 2**31, size=(f_rows, cols), dtype=np.int64).astype(np.int32)
     parents = rng.integers(-(2**31), 2**31, size=(k, cols), dtype=np.int64).astype(np.int32)
     parents[:, pw + w] = rng.integers(0, n + 3, size=k)
-    push = {"mixed": rng.random((k, n)) < 0.3, "none": np.zeros((k, n), bool),
-            "all": np.ones((k, n), bool)}[case]
+    if case == "one-full":  # parent 0 pushes every child, the others about 10%
+        push = rng.random((k, n)) < 0.1
+        push[0] = True
+    else:
+        push = {"mixed": rng.random((k, n)) < 0.3, "none": np.zeros((k, n), bool),
+                "all": np.ones((k, n), bool)}[case]
     n_push = int(push.sum())
     rank = np.zeros(k * n, np.int64)
     rank[rng.permutation(np.flatnonzero(push.reshape(-1)))] = np.arange(n_push)
@@ -60,9 +64,9 @@ def push_inputs(n, k, case, device, seed):
             torch.as_tensor(dest, device=device), *floats)
 
 
-@pytest.mark.parametrize("n", [5, 14, 33, 51, 100, 200])
-@pytest.mark.parametrize("k", [1, 37, 1024])
-@pytest.mark.parametrize("case", ["mixed", "none", "all"])
+@pytest.mark.parametrize("n", [5, 13, 14, 33, 51, 100, 128, 200])
+@pytest.mark.parametrize("k", [1, 11, 37, 1024])
+@pytest.mark.parametrize("case", ["mixed", "none", "all", "one-full"])
 def test_push_rows_kernel_bit_exact(cuda, n, k, case):
     nodes, parents, dest, cc, cb, cs = push_inputs(n, k, case, cuda, seed=n * k)
     want = ek.push_rows_reference(nodes.clone(), parents, dest, cc, cb, cs, n)

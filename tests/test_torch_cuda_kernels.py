@@ -58,6 +58,41 @@ def test_relax_minplus_kernel_exact(cuda, m, dtype):
     assert torch.equal(got[1][:, 3], torch.zeros_like(got[1][:, 3]))  # all-inf row
 
 
+def _minplus_tile_case(m, j, dtype, device, offset):
+    """``g [3, J, M]`` and ``d_t``, rounded (ties), with +inf entries, an
+    all-inf row, a row whose candidates all tie, and ``g`` starting
+    ``offset`` elements into its storage (off a 16-byte boundary)."""
+    rng = np.random.default_rng(1000 * m + j)
+    g = np.round(rng.uniform(0, 20, (3, j, m)))
+    g[rng.uniform(size=g.shape) < 0.2] = np.inf
+    d_t = np.round(rng.uniform(0, 10, (3, m, m)))
+    if j > 2:
+        g[:, 1] = np.inf
+        g[:, 2] = 5.0
+        d_t[0] = 3.0
+    store = torch.empty(g.size + offset, dtype=dtype, device=device)
+    gt = store[offset:].view(g.shape)
+    gt.copy_(torch.as_tensor(g, dtype=dtype))
+    return gt, torch.as_tensor(d_t, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("m", [1, 4, 15, 16, 17])
+@pytest.mark.parametrize("rows", ["one", "ragged", "two-tiles"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_relax_minplus_kernel_tile_edges_exact(cuda, m, rows, offset, dtype):
+    """J = 1, J one row past a whole tile, two whole tiles; g aligned or
+    one element off."""
+    tj = hkk.minplus_tile_rows(m)
+    j = {"one": 1, "ragged": tj + 1, "two-tiles": 2 * tj}[rows]
+    g, d_t = _minplus_tile_case(m, j, dtype, cuda, offset)
+    assert g.is_contiguous() and (g.data_ptr() % 16 != 0) == (offset * g.element_size() % 16 != 0)
+    got = hkk.relax_minplus(g, d_t)
+    want = hkk.relax_minplus_reference(g, d_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def _dense_case(m, dtype, device, bsz):
     rng = np.random.default_rng(m)
     d_sub = np.round(rng.uniform(0, 50, (bsz, m, m)))  # rounded: many ties

@@ -115,6 +115,8 @@ def push_library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.push_rows_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.push_rows_launch.restype = i
+    lib.push_rows_floor_launch.argtypes = [i, i, vp]
+    lib.push_rows_floor_launch.restype = i
     lib.push_error_string.argtypes = [i]
     lib.push_error_string.restype = ctypes.c_char_p
     return lib

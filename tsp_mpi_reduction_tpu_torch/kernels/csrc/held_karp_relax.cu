@@ -25,8 +25,24 @@
 // What bounds them on the card: both are min-plus products over
 // bit-indexed tables with about 2 operations per value moved, far below the
 // ridge point, so their bound is memory traffic. There is no tensor-core
-// form of a min-plus product. relax_minplus keeps each thread's predecessor
-// values in registers and the block's distances in shared memory.
+// form of a min-plus product.
+//
+// relax_minplus (design): the [J, M] slab of block b is contiguous, so a
+// tile of TJ rows is one contiguous run of TJ*M elements. A block of
+// NT = P*M threads (P = floor(256 / M) rows a pass) copies its tile into
+// shared memory with 16-byte vector loads (scalar loads for the elements
+// before the first and after the last 16-byte boundary), at the same
+// address modulo 16 so the vector stores line up. Thread t then owns the
+// endpoint k = t % M, keeps the distance row d_t[b, k, :] in registers,
+// and computes output o = t + s*NT (row t / M + s*P, column k) for the
+// passes s = 0 .. kMinplusPasses-1, reading its row of g from shared memory
+// (the few rows a warp touches fall in distinct banks for every M).
+// Consecutive threads own consecutive outputs, so each warp's stores of
+// cost and parent are 32 consecutive elements of the contiguous [J, M]
+// output slab: coalesced without staging them in shared memory. The M
+// adds and strict-< compares of an output are those of the plain version.
+// M is a template parameter (1 .. kMaxM), so every loop over M unrolls
+// with no bound checks.
 //
 // The sweep (design): a mask is split into h = m - l high bits H (cities
 // l .. m-1) and l low bits L (cities 0 .. l-1). A tile is the 2^l masks
@@ -75,8 +91,15 @@
 namespace {
 
 constexpr int kMaxM = 17;  // n - 1 for the largest block, MAX_BLOCK_CITIES = 18
-constexpr int kThreads = 256;
 constexpr int kSweepThreads = 128;
+
+// relax_minplus: at most 256 threads a block, each computing one output in
+// each of kMinplusPasses passes over a tile (4080 float32 values, 16 KB, at
+// M = 15); both chosen by timing variants (tools/kernel_variants.py)
+constexpr int kMinplusMaxThreads = 256;
+constexpr int kMinplusPasses = 16;
+__host__ __device__ constexpr int minplus_rows_per_pass(int m) { return kMinplusMaxThreads / m; }
+__host__ __device__ constexpr int minplus_tile_rows(int m) { return minplus_rows_per_pass(m) * kMinplusPasses; }
 
 // The sweep: at most 9 low bits (a tile [kMaxM, 2^9] is 34 KB in float,
 // 68 KB in double), and per type the blocks an SM must hold at once, which
@@ -94,43 +117,95 @@ constexpr int kSdLd = 20;            // d_sub rows padded to 16-byte multiples
 __device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
 
-template <typename T>
-__global__ void relax_minplus_kernel(const T* __restrict__ g,
-                                     const T* __restrict__ d_t,
-                                     T* __restrict__ cost,
-                                     int32_t* __restrict__ parent,
-                                     int J, int M) {
-  __shared__ T sd[kMaxM * kMaxM];
+// One tile of relax_minplus: rows j0 .. j0 + TJ - 1 of block b = blockIdx.y,
+// j0 = blockIdx.x * TJ, on NT = P * M threads (the launcher's block size).
+template <typename T, int M>
+__global__ void __launch_bounds__(kMinplusMaxThreads)
+relax_minplus_kernel(const T* __restrict__ g, const T* __restrict__ d_t,
+                     T* __restrict__ cost, int32_t* __restrict__ parent, int J) {
+  constexpr int P = minplus_rows_per_pass(M);
+  constexpr int NT = P * M;
+  constexpr int TJ = minplus_tile_rows(M);
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte vector
+  __shared__ __align__(16) T gs[TJ * M + V];
+  const int t = threadIdx.x;
   const int b = blockIdx.y;
-  const T* dtb = d_t + (size_t)b * M * M;
-  for (int i = threadIdx.x; i < M * M; i += blockDim.x) sd[i] = dtb[i];
+  const int j0 = blockIdx.x * TJ;
+  const int rows = min(TJ, J - j0);
+  const int count = rows * M;
+  const size_t e0 = ((size_t)b * J + j0) * M;  // the tile's first element
+  const T* src = g + e0;
+
+  // the tile: element e at gs[sh + e], the same address modulo 16 as src[e]
+  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15u) / sizeof(T));
+  const int head = min((V - sh) % V, count);  // elements before the first 16-byte boundary
+  const int nvec = (count - head) / V;
+  const int tail = head + nvec * V;  // elements from here on follow the last one
+  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+  uint4* vdst = reinterpret_cast<uint4*>(gs + sh + head);
+  for (int v = t; v < nvec; v += NT) vdst[v] = __ldcs(vsrc + v);
+  if (t < head) gs[sh + t] = src[t];
+  if (tail + t < count) gs[sh + tail + t] = src[tail + t];  // fewer than V <= NT
+
+  // this thread's endpoint k and its distance row, in registers
+  const int k = t % M;
+  const T* dtk = d_t + ((size_t)b * M + k) * M;
+  T dk[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) dk[i] = dtk[i];
   __syncthreads();
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= J) return;
-  const size_t row = ((size_t)b * J + j) * M;
-  T gv[kMaxM];
+  // output o = t + s*NT is (row t/M + s*P, column k); consecutive threads
+  // own consecutive outputs of the contiguous cost and parent slabs
+  const int r0 = t / M;
+  T* cb = cost + e0;
+  int32_t* pb = parent + e0;
 #pragma unroll
-  for (int i = 0; i < kMaxM; ++i) {
-    if (i < M) gv[i] = g[row + i];
-  }
-  for (int k = 0; k < M; ++k) {
-    const T* dk = sd + k * M;
-    T best = gv[0] + dk[0];
-    int arg = 0;
+  for (int s = 0; s < kMinplusPasses; ++s) {
+    const int r = r0 + s * P;
+    if (r < rows) {
+      const T* gr = gs + sh + r * M;
+      T best = gr[0] + dk[0];
+      int arg = 0;
 #pragma unroll
-    for (int i = 1; i < kMaxM; ++i) {
-      if (i < M) {
-        const T v = gv[i] + dk[i];
+      for (int i = 1; i < M; ++i) {
+        const T v = gr[i] + dk[i];
         if (v < best) {
           best = v;
           arg = i;
         }
       }
+      __stcs(cb + t + s * NT, best);
+      __stcs(pb + t + s * NT, arg);
     }
-    cost[row + k] = best;
-    parent[row + k] = arg;
   }
+}
+
+template <typename T, int M>
+void launch_minplus_m(const T* g, const T* d_t, T* cost, int32_t* parent, int B, int J,
+                      cudaStream_t s) {
+  constexpr int TJ = minplus_tile_rows(M);
+  const dim3 grid((J + TJ - 1) / TJ, B);
+  relax_minplus_kernel<T, M><<<grid, minplus_rows_per_pass(M) * M, 0, s>>>(g, d_t, cost, parent, J);
+}
+
+template <typename T>
+cudaError_t launch_minplus(const T* g, const T* d_t, T* cost, int32_t* parent, int B, int J,
+                           int M, cudaStream_t s) {
+  switch (M) {
+#define HK_MINPLUS_CASE(m) \
+  case m:                  \
+    launch_minplus_m<T, m>(g, d_t, cost, parent, B, J, s); break;
+    HK_MINPLUS_CASE(1) HK_MINPLUS_CASE(2) HK_MINPLUS_CASE(3) HK_MINPLUS_CASE(4)
+    HK_MINPLUS_CASE(5) HK_MINPLUS_CASE(6) HK_MINPLUS_CASE(7) HK_MINPLUS_CASE(8)
+    HK_MINPLUS_CASE(9) HK_MINPLUS_CASE(10) HK_MINPLUS_CASE(11) HK_MINPLUS_CASE(12)
+    HK_MINPLUS_CASE(13) HK_MINPLUS_CASE(14) HK_MINPLUS_CASE(15) HK_MINPLUS_CASE(16)
+    HK_MINPLUS_CASE(17)
+#undef HK_MINPLUS_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // One launch of the sweep: every tile H = highs[blockIdx.x] (popcount p)
@@ -258,18 +333,14 @@ extern "C" {
 
 int hk_relax_minplus(const void* g, const void* d_t, void* cost, void* parent,
                      int B, int J, int M, int is_double, void* stream) {
-  const dim3 grid((J + kThreads - 1) / kThreads, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_double) {
-    relax_minplus_kernel<double><<<grid, kThreads, 0, s>>>(
-        static_cast<const double*>(g), static_cast<const double*>(d_t),
-        static_cast<double*>(cost), static_cast<int32_t*>(parent), J, M);
-  } else {
-    relax_minplus_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(d_t),
-        static_cast<float*>(cost), static_cast<int32_t*>(parent), J, M);
-  }
-  return static_cast<int>(cudaGetLastError());
+  int32_t* par = static_cast<int32_t*>(parent);
+  const cudaError_t err =
+      is_double ? launch_minplus<double>(static_cast<const double*>(g), static_cast<const double*>(d_t),
+                                         static_cast<double*>(cost), par, B, J, M, s)
+                : launch_minplus<float>(static_cast<const float*>(g), static_cast<const float*>(d_t),
+                                        static_cast<float*>(cost), par, B, J, M, s);
+  return static_cast<int>(err);
 }
 
 // One launch of the dense sweep: the `count` tiles listed at `highs` (all

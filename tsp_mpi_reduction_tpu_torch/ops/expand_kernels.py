@@ -125,6 +125,79 @@ def push_rows_reference(nodes: torch.Tensor, parents: torch.Tensor, dest: torch.
     return nodes
 
 
+#: the push_rows kernel's schedule: PUSH_SPLIT warps a (parent, chunk of
+#: 32 children), warp s storing the chunk's pushed children of rank s mod
+#: PUSH_SPLIT; 8 warps a block
+PUSH_SPLIT = 2
+PUSH_WARPS_PER_BLOCK = 8
+
+
+def push_blocks(k: int, n: int) -> int:
+    """CUDA blocks of one push_rows launch: k * ceil(n/32) * PUSH_SPLIT
+    warps, 8 a block."""
+    return -(-k * ((n + 31) // 32) * PUSH_SPLIT // PUSH_WARPS_PER_BLOCK)
+
+
+def push_rows_chunked_reference(nodes: torch.Tensor, parents: torch.Tensor, dest: torch.Tensor,
+                                ccost: torch.Tensor, cbound: torch.Tensor, csum: torch.Tensor,
+                                n: int) -> torch.Tensor:
+    """Plain mirror of the push_rows kernel's schedule (tests only; CPU).
+
+    Updates ``nodes`` in place as :func:`push_rows_reference` does, the way
+    the kernel does: block by block (:func:`push_blocks`), warp gw of k *
+    ceil(n/32) * PUSH_SPLIT takes task gw // PUSH_SPLIT, i.e. parent
+    task // chunks and children chunk*32 .. +31, and of them the pushed
+    ones of rank gw % PUSH_SPLIT mod PUSH_SPLIT; its lanes read the parent
+    row (column l and l + 32) and their child's ``dest``, a warp with no
+    child of its own leaves, its children's lanes read their three float
+    columns, and the warp stores each of its children's rows in ascending
+    lane order, built word by word in uint32 arithmetic.
+    """
+    _check(nodes, parents, dest, ccost, cbound, csum, n)
+    f_rows, cols = nodes.shape
+    k = parents.shape[0]
+    out = nodes.numpy()
+    par = parents.numpy().view(np.uint32)
+    dst_all = dest.numpy()
+    floats = [f.numpy().view(np.uint32) for f in (ccost, cbound, csum)]
+    pw, w = (n + PATH_PACK - 1) // PATH_PACK, (n + 31) // 32
+    dcol = pw + w
+    chunks = (n + 31) // 32
+    lanes = np.arange(32)
+    j = np.arange(64)  # column lane (lo) and lane + 32 (hi)
+    for blk in range(push_blocks(k, n)):
+        for gw in range(blk * PUSH_WARPS_PER_BLOCK, (blk + 1) * PUSH_WARPS_PER_BLOCK):
+            if gw >= k * chunks * PUSH_SPLIT:
+                break
+            task, part = divmod(gw, PUSH_SPLIT)
+            p, c0 = task // chunks, (task % chunks) * 32
+            c = c0 + lanes
+            my_dst = np.where(c < n, dst_all[p, np.minimum(c, n - 1)], -1)
+            pushed = (my_dst >= 0) & (my_dst < f_rows)
+            rank = np.cumsum(pushed) - pushed  # pushed lanes below each lane
+            pushed &= rank % PUSH_SPLIT == part
+            if not pushed.any():
+                continue
+            row = np.where(j < cols, par[p, np.minimum(j, cols - 1)], np.uint32(0))  # lo | hi
+            depth = int(row[dcol].view(np.int32))
+            dpos = min(depth, n - 1)
+            wsel = dpos >> 2 if dpos >= 0 else -1
+            shift = np.uint32(8 * (dpos & 3))
+            keep = ~(np.uint32(0xFF) << shift)
+            src = np.flatnonzero(pushed)  # ascending lanes
+            cu = (c0 + src).astype(np.uint32)[:, None]
+            vals = np.broadcast_to(row, (src.size, 64)).copy()
+            vals = np.where(j == wsel, (vals & keep) | (cu << shift), vals)
+            is_mask = (j >= pw) & (j < pw + w) & ((j - pw) == (cu >> np.uint32(5)).astype(np.int64))
+            vals = np.where(is_mask, vals | (np.uint32(1) << (cu & np.uint32(31))), vals)
+            vals[:, dcol] = np.uint32((depth + 1) & 0xFFFFFFFF)
+            for off, f in enumerate(floats, start=1):
+                vals[:, dcol + off] = f[p, c0 + src]
+            for q, lane in enumerate(src):
+                out[my_dst[lane]] = vals[q, :cols].view(np.int32)
+    return nodes
+
+
 def push_rows(nodes: torch.Tensor, parents: torch.Tensor, dest: torch.Tensor,
               ccost: torch.Tensor, cbound: torch.Tensor, csum: torch.Tensor,
               n: int) -> torch.Tensor:

@@ -93,6 +93,81 @@ def relax_minplus(g: torch.Tensor, d_t: torch.Tensor) -> Tuple[torch.Tensor, tor
     return cost, parent
 
 
+#: the relax_minplus kernel's schedule: at most 256 threads a block, P =
+#: 256 // M rows a pass, NT = P * M threads, 16 passes (outputs a thread) a
+#: tile of P * 16 rows
+MINPLUS_MAX_THREADS = 256
+MINPLUS_PASSES = 16
+
+
+def minplus_tile_rows(m: int) -> int:
+    """The rows of one relax_minplus tile (one CUDA block) for M = m."""
+    return (MINPLUS_MAX_THREADS // m) * MINPLUS_PASSES
+
+
+def minplus_copy_split(count: int, sh: int, v: int) -> Tuple[int, int, int]:
+    """How the kernel copies a tile's run of ``count`` elements whose first
+    lies ``sh`` elements past a 16-byte boundary, with vectors of ``v``
+    elements: ``head`` scalars, ``nvec`` vectors, then scalars from
+    ``tail`` to ``count``."""
+    head = min((v - sh) % v, count)
+    nvec = (count - head) // v
+    return head, nvec, head + nvec * v
+
+
+def relax_minplus_tiles_reference(g: torch.Tensor, d_t: torch.Tensor,
+                                  sh0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of the relax_minplus kernel's schedule (tests only).
+
+    Returns what :func:`relax_minplus_reference` returns, computed the way
+    the kernel is: block b's ``[J, M]`` slab cut into tiles of
+    :func:`minplus_tile_rows` rows; each tile's contiguous run copied in
+    head scalars, 16-byte vectors and tail scalars (:func:`minplus_copy_split`,
+    the run's offset from a 16-byte boundary taken from ``sh0``, that of
+    ``g``'s first element, plus the run's start), every element exactly
+    once; then thread t of NT computes output o = t + s*NT, row t // M +
+    s*P and column k = t % M, for each pass s, as M adds and a strict-<
+    scan over ascending m'.
+    """
+    bsz, j, m = g.shape
+    p = MINPLUS_MAX_THREADS // m
+    nt, tj = p * m, minplus_tile_rows(m)
+    v = 16 // g.element_size()
+    flat = g.reshape(bsz, j * m)
+    cost = torch.empty_like(flat)
+    parent = torch.empty(flat.shape, dtype=torch.int32, device=g.device)
+    t = torch.arange(nt, device=g.device)
+    ks, r0 = t % m, t // m
+    for b in range(bsz):
+        dk = d_t[b, ks]  # [NT, M]: each thread's distance row
+        for j0 in range(0, j, tj):
+            rows = min(tj, j - j0)
+            count = rows * m
+            e0 = j0 * m
+            sh = (sh0 + b * j * m + e0) % v
+            head, _, tail = minplus_copy_split(count, sh, v)
+            # NaN where the copy missed an element: it would reach the result
+            gs = torch.full((tj * m + v,), float("nan"), dtype=g.dtype, device=g.device)
+            gs[sh:sh + head] = flat[b, e0:e0 + head]
+            gs[sh + head:sh + tail] = flat[b, e0 + head:e0 + tail]  # the 16-byte vectors
+            gs[sh + tail:sh + count] = flat[b, e0 + tail:e0 + count]
+            for s in range(MINPLUS_PASSES):
+                r = r0 + s * p
+                ok = r < rows
+                gr = gs[sh + (r[ok] * m)[:, None] + torch.arange(m, device=g.device)[None, :]]
+                best = gr[:, 0] + dk[ok, 0]
+                arg = torch.zeros_like(best, dtype=torch.int32)
+                for i in range(1, m):
+                    val = gr[:, i] + dk[ok, i]
+                    lt = val < best
+                    best = torch.where(lt, val, best)
+                    arg = torch.where(lt, torch.tensor(i, dtype=torch.int32), arg)
+                o = e0 + t[ok] + s * nt
+                cost[b, o] = best
+                parent[b, o] = arg
+    return cost.reshape(g.shape), parent.reshape(g.shape)
+
+
 # ---------------------------------------------------------------------------
 # Dense layout: the [B, m, 2^m] table; the plain version steps one
 # cardinality c at a time, the kernel sweeps all of them in tiles.

@@ -1,4 +1,4 @@
-"""Device times of ``prim_chain`` and ``relax_dense`` on the main paths' own inputs.
+"""Device times of the port's four hand kernels on the main paths' own inputs.
 
     python -m tsp_mpi_reduction_tpu_torch.tools.kernel_times [--out FILE]
 
@@ -11,17 +11,25 @@ Needs one CUDA device. It measures, and prints as one JSON line:
   synthetic half-visited eil51 lanes; per launch: eager and CUDA-graph
   replay ms, the plain chain's ms on a sample, the byte bound, and the
   dependent steps the batch needs (max |U| - 1 over its lanes);
+- ``push_rows`` on the inputs of every launch of the same eil51 solve and
+  of the kroA100 chunk's first 20 steps: per launch eager and graph-replay
+  ms, the plain push's ms, the byte bound, the children one parent pushes
+  (largest and mean, per launch) and, where the kernel library has it, the
+  launch floor (graph replay of an empty kernel on push_rows' grid);
 - ``relax_dense``'s whole DP at the pipeline's full size (n = 16 cities
   per block, 1024 blocks, 1000x1000, float32): ms per solve and per
   launch, eager and by graph replay, the plain per-level loop's ms, and the
-  bound of the whole sweep.
+  bound of the whole sweep;
+- ``relax_minplus`` on the 14 compact steps of the same solve (the
+  ``--impl=pallas`` path), rebuilt from the finished dense table: ms per
+  launch, eager and by graph replay, the plain step's ms and the bound.
 
-The recorded inputs are checked bit for bit against the plain versions.
-The functions are shared with ``chip_smoke.py``. The module measures
-whatever ``tsp_mpi_reduction_tpu_torch`` it imports, so a copy dropped into
-an older checkout of the port times that checkout's kernels (the per-level
-``relax_dense`` there, ``relax_dense_sweep`` here): that is how two trees
-are compared within one call on one card.
+Every recorded or rebuilt input is checked bit for bit against the plain
+versions. The functions are shared with ``chip_smoke.py``. The module
+measures whatever ``tsp_mpi_reduction_tpu_torch`` it imports, so a copy
+dropped into an older checkout of the port times that checkout's kernels
+(the per-level ``relax_dense`` before ``relax_dense_sweep``): that is how
+two trees are compared within one call on one card.
 """
 
 from __future__ import annotations
@@ -111,6 +119,12 @@ def recorded(module, name: str, keep: Callable, limit: Optional[int] = None):
         setattr(module, name, real)
 
 
+def keep_push(nodes, parents, dest, ccost, cbound, csum, n):
+    """A recorded ``push_rows`` launch: the frontier's shape and copies of
+    the inputs (the frontier itself is written in place)."""
+    return (tuple(nodes.shape), parents.clone(), dest.clone(), ccost.clone(), cbound.clone(), csum.clone())
+
+
 def keep_prim(dbar, unvis, n, lam=None):
     """A recorded launch: ``dbar`` (the solve's bound table, never written,
     so shared by all launches), copies of ``unvis`` and ``lam``."""
@@ -129,14 +143,15 @@ def run_bnb_cli(argv: List[str]) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def record_prim_calls(argv: List[str], limit: Optional[int] = None):
-    """The ``prim_chain`` inputs of a B&B CLI run (its first ``limit``
-    launches) and the run's payload."""
-    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+def record_bnb_calls(argv: List[str], prim_limit: Optional[int] = None):
+    """The ``prim_chain`` inputs (its first ``prim_limit`` launches) and
+    the ``push_rows`` inputs of a B&B CLI run, and the run's payload."""
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels, prim_kernels
 
-    with recorded(prim_kernels, "prim_chain", keep_prim, limit) as calls:
+    with recorded(prim_kernels, "prim_chain", keep_prim, prim_limit) as chains, \
+            recorded(expand_kernels, "push_rows", keep_push) as pushes:
         out = run_bnb_cli(argv)
-    return calls, out
+    return chains, pushes, out
 
 
 def synthetic_prim_calls(k: int = 1024):
@@ -227,6 +242,153 @@ def time_prim(calls, what: str, reps: int = 5, plain_sample: int = 12) -> dict:
             "n_minus_1": calls[0][2] - 1, "mean_U": float(sizes.mean())}
 
 
+def push_bound(calls, k: int, n: int):
+    """Bytes and operations one ``push_rows`` launch needs, averaged over
+    the recorded steps: the k parent rows and ``dest`` [k, n] read once,
+    the three float columns read only at the n_push pushed children (4 B
+    each, not charged per 32 B sector), the n_push pushed rows written
+    once; one operation per written word. Returns (bytes, ops, n_push)."""
+    cols = calls[0][1].shape[1]
+    n_push = sum(int(((c[2] >= 0) & (c[2] < c[0][0])).sum()) for c in calls) / len(calls)
+    nbytes = 4 * (k * cols + k * n) + 4 * 3 * n_push + 4 * n_push * cols
+    return nbytes, n_push * cols, n_push
+
+
+def push_stats(calls) -> dict:
+    """The children one parent pushes, per recorded launch: the largest
+    and the mean over the k parents (and over the parents that push any),
+    then their mean and largest over the launches."""
+    per = []
+    for shape, _, dest, *_ in calls:
+        cnt = ((dest >= 0) & (dest < shape[0])).sum(dim=1).double()
+        busy = cnt[cnt > 0]
+        per.append((float(cnt.max()), float(cnt.mean()), float(busy.mean()) if busy.numel() else 0.0))
+    return {"children_per_parent_max_mean": sum(p[0] for p in per) / len(per),
+            "children_per_parent_max_max": max(p[0] for p in per),
+            "children_per_parent_mean": sum(p[1] for p in per) / len(per),
+            "children_per_pushing_parent_mean": sum(p[2] for p in per) / len(per)}
+
+
+def push_check(calls, n: int) -> None:
+    """Hold the kernel against the plain push on every recorded launch,
+    the whole frontier buffer bit for bit; raises on a difference."""
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    scratch = torch.zeros(calls[0][0], dtype=torch.int32, device="cuda")
+    for i, call in enumerate(calls):
+        got, want = scratch.clone(), scratch.clone()
+        ek.push_rows(got, *call[1:], n)
+        ek.push_rows_reference(want, *call[1:], n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"push_rows != plain on recorded launch {i} (n={n})")
+
+
+def push_floor_ms(k: int, n: int, reps: int, launches: int) -> Optional[float]:
+    """Graph-replay ms of an empty kernel on push_rows' grid for k parents
+    of n cities, per launch, or None where the library has no such kernel
+    (an older checkout)."""
+    from tsp_mpi_reduction_tpu_torch.kernels import _build
+
+    lib = _build.push_library()
+    if not hasattr(lib, "push_rows_floor_launch"):
+        return None
+
+    def floor_all():
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(launches):
+            code = lib.push_rows_floor_launch(k, n, stream)
+            if code != 0:
+                raise RuntimeError(f"push_rows_floor_launch: CUDA error {code}")
+
+    return graph_ms(floor_all, reps) / launches
+
+
+def time_push(calls, n: int, what: str, reps: int = 5) -> dict:
+    """Per-launch times of ``push_rows`` over the recorded ``calls`` into
+    one scratch frontier, beside the plain push, the bound and the floor."""
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+
+    scratch = torch.zeros(calls[0][0], dtype=torch.int32, device="cuda")
+    k = calls[0][1].shape[0]
+
+    def kernel_all():
+        for c in calls:
+            ek.push_rows(scratch, *c[1:], n)
+
+    def plain_all():
+        for c in calls:
+            ek.push_rows_reference(scratch, *c[1:], n)
+
+    kernel_all()
+    plain_all()
+    eager = cuda_ms(kernel_all, reps) / len(calls)
+    device = graph_ms(kernel_all, reps) / len(calls)
+    plain = cuda_ms(plain_all, 2) / len(calls)
+    nbytes, ops, mean_push = push_bound(calls, k, n)
+    b_ms, b_by = bound_ms(nbytes, ops, "float32")
+    return {"what": what, "launches": len(calls), "n": n, "k": k, "ms": eager, "device_ms": device,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "mean_n_push": mean_push,
+            "floor_ms": push_floor_ms(k, n, reps, len(calls)), **push_stats(calls)}
+
+
+def minplus_bound(bsz: int, j: int, m: int, elt: int):
+    """Bytes and operations of one compact step: g, d_t in; cost, int32
+    parent out; M adds and M-1 compares per output."""
+    nbytes = bsz * (elt * (2 * j * m + m * m) + 4 * j * m)
+    ops = bsz * j * m * (2 * m - 1)
+    return nbytes, ops
+
+
+def minplus_inputs(tab, d_sub):
+    """The compact step inputs ``g`` of every step of the ``--impl=pallas``
+    solve (m - 1 of them, each padded to the widest cardinality), rebuilt
+    from the finished dense table ``tab [B, m, 2^m]``, and ``d_t``."""
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+
+    nb, m, _ = tab.shape
+    dev, dt = tab.device, tab.dtype
+    _, prev_idx, member = held_karp._plan_tensors(m + 1, str(dev))
+    inf_row = torch.full((nb, 1, m), math.inf, dtype=dt, device=dev)
+    table_c = torch.cat([tab.permute(0, 2, 1), inf_row], dim=1)  # [B, 2^m + 1, m]
+    cols = torch.arange(m, device=dev)
+    inf = torch.tensor(math.inf, dtype=dt, device=dev)
+    gs = [torch.where(member[s], table_c[:, prev_idx[s], cols], inf) for s in range(m - 1)]
+    return gs, d_sub.transpose(1, 2).contiguous()
+
+
+def time_minplus(gs, d_t, reps: int = 5) -> dict:
+    """``relax_minplus`` on every compact step: bit for bit against the
+    plain step, then per launch eager and by graph replay."""
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+
+    plain = []
+    for g in gs:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        c_p, p_p = hkk.relax_minplus_reference(g, d_t)
+        e1.record()
+        c_k, p_k = hkk.relax_minplus(g, d_t)
+        torch.cuda.synchronize()
+        plain.append(e0.elapsed_time(e1))
+        if not (torch.equal(c_k, c_p) and torch.equal(p_k, p_p)):
+            raise RuntimeError("relax_minplus != plain step on the full-size compact inputs")
+        del c_p, p_p, c_k, p_k
+
+    def minplus_all():
+        for g in gs:
+            hkk.relax_minplus(g, d_t)
+
+    eager = cuda_ms(minplus_all, reps) / len(gs)
+    device = graph_ms(minplus_all, reps) / len(gs)
+    bsz, j, m = gs[0].shape
+    dt_name = str(gs[0].dtype).removeprefix("torch.")
+    b_ms, b_by = bound_ms(*minplus_bound(bsz, j, m, gs[0].element_size()), dt_name)
+    return {"what": f"relax_minplus m={m} J={j} B={bsz} {dt_name}", "launches": len(gs), "ms": eager,
+            "device_ms": device, "plain_ms": sum(plain) / len(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": 0.0}
+
+
 def dense_bound(bsz: int, m: int, elt: int):
     """Bytes and operations of the whole dense DP: every computed state
     (popcount 1..m-1, endpoint outside the mask) written once, the init row
@@ -304,15 +466,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     smi = card()
     print(smi, flush=True)
-    eil, _ = record_prim_calls(EIL51_ARGV)
-    kro, _ = record_prim_calls(KRO_ARGV + [f"--max-iters={KRO_STEPS}"], KRO_STEPS * KRO_CHAINS_PER_STEP)
+    eil, eil_push, _ = record_bnb_calls(EIL51_ARGV)
+    kro, kro_push, _ = record_bnb_calls(KRO_ARGV + [f"--max-iters={KRO_STEPS}"], KRO_STEPS * KRO_CHAINS_PER_STEP)
     lanes = prim_check(eil) + prim_check(kro)
     print(f"prim_chain == plain on {len(eil)} + {len(kro)} recorded launches ({lanes} lanes)", flush=True)
+    push_check(eil_push, 51)
+    push_check(kro_push, 100)
+    print(f"push_rows == plain on {len(eil_push)} + {len(kro_push)} recorded launches", flush=True)
     rows = [time_prim(eil, "prim_chain recorded eil51"), time_prim(kro, "prim_chain recorded kroA100 20 steps"),
-            time_prim(synthetic_prim_calls(), "prim_chain synthetic eil51 half-visited", reps=50)]
-    del eil, kro
+            time_prim(synthetic_prim_calls(), "prim_chain synthetic eil51 half-visited", reps=50),
+            time_push(eil_push, 51, "push_rows recorded eil51"),
+            time_push(kro_push, 100, "push_rows recorded kroA100 20 steps")]
+    del eil, kro, eil_push, kro_push
     torch.cuda.empty_cache()
-    rows.append(time_dense(*dense_inputs(*DENSE_FULL)))
+    d_sub, tab = dense_inputs(*DENSE_FULL)
+    rows.append(time_dense(d_sub, tab))  # leaves tab finished
+    gs, d_t = minplus_inputs(tab, d_sub)
+    del tab
+    rows.append(time_minplus(gs, d_t))
+    del gs
+    torch.cuda.empty_cache()
     for r in rows:
         print(json.dumps(r), flush=True)
     line = json.dumps({"card": smi, "kernel_times": rows})
