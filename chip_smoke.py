@@ -63,11 +63,24 @@ Phases, each printing its own line; any failure exits non-zero:
 10. a spill-forcing proof (13 random cities, capacity at the device
     loop's 4*k*(n-1) floor): compacts on the card, exchanges with the host
     reservoir and proves, fused == reference == the JAX package's pinned
-    numbers.
+    numbers; then the same proof driven by ``solve_slice`` in slices of
+    1000 iterations, each resuming the last one's snapshot, ends on the
+    uninterrupted proof's cost, tour and certified LB;
+11. the kroA100 campaign: two 300-step chunks of phase 9's configuration
+    through the port's chunked driver (``tools/bnb_chunked``), each a
+    fresh process that resumes the previous chunk's snapshot: chunk 1
+    equals phase 9's pins, chunk 2 the JAX package's numbers for the
+    resumed chunk on the CPU, the certified LB does not fall, and both
+    chunks launch ``prim_chain`` 7 times and ``push_rows`` once a step
+    (each chunk process resets the counts before its solve and reports
+    them after); the seconds of every save and restore and the snapshot's
+    bytes on disk, and a save of chunk 2's state split into its parts
+    (device-to-host copy and unpack, npz compression, atomic write).
 
-Each main path (phase 4's Held-Karp run, phase 7's eil51 and phase 9's
-kroA100 runs) runs with the kernels' launch counts reset just before and
-read just after; a kernel of the path that never launched fails the run.
+Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
+kroA100 runs and phase 11's chunks) runs with the kernels' launch counts
+reset just before and read just after; a kernel of the path that never
+launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
 the JSON every kernel's ``ms`` is its eager time by CUDA events (the
 host's launch gaps included) and ``device_ms`` the same launches replayed
@@ -122,6 +135,14 @@ KRO_PINNED = {"nodes_expanded": 303_204, "iterations": 300, "cost": 21282.0,
 # the JAX package's device-loop numbers on the CPU
 SPILL_KW = dict(capacity=384, k=8, bound="min-out", mst_prune=False, node_ascent=0, ils_rounds=0,
                 max_iters=2_000_000)
+#: the campaign's second chunk: the JAX package's solve(d, k=1024,
+#: capacity=1 << 19, node_ascent=6, reorder_every=16, device_loop=True,
+#: max_iters=300, resume_from=<its chunk-1 snapshot>) on the CPU
+KRO_CHUNK2_PINNED = {"nodes_expanded": 304_128, "iterations": 300, "cost": 21282.0,
+                     "lower_bound": 21060.5, "lb_raw": 21060.5, "proven_optimal": False,
+                     "spill_rounds": 5, "spill_events": 5, "spill_full_merges": 0,
+                     "spill_bytes_to_host": 239_271_648, "spill_bytes_to_device": 173_015_040}
+CAMPAIGN_DIR = ROOT / "build" / "chip_smoke_campaign"
 SPILL_PINNED = {"nodes_expanded": 26_900, "iterations": 3381, "cost": 3154.0,
                 "lower_bound": 3154.0, "proven_optimal": True, "spill_rounds": 14,
                 "spill_events": 14, "spill_full_merges": 0, "spill_bytes_to_host": 95_724,
@@ -886,6 +907,8 @@ def phase_spill(smi):
         ek.reset_launches()
         bb.reset_frontier_stats()
         res = bb.solve(d, step_kernel=kernel, device="cuda", **SPILL_KW)
+        if kernel == "fused":
+            whole = res
         stats = dict(bb.FRONTIER_STATS)
         out = {key: getattr(res, key) for key in SPILL_PINNED}
         pinned_fields(out, SPILL_PINNED, f"spill-forcing proof, {kernel} push")
@@ -899,7 +922,102 @@ def phase_spill(smi):
               f"{stats['compactions']} compactions, spill rounds/events {res.spill_rounds}/"
               f"{res.spill_events}, bytes {res.spill_bytes_to_host} down / {res.spill_bytes_to_device} "
               f"up, largest count {stats['peak_count']}; search {res.wall_seconds:.3f} s")
+
+    # the same proof in slices of 1000 iterations, each resuming the last
+    CAMPAIGN_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CAMPAIGN_DIR / "slices.npz")
+    for old in CAMPAIGN_DIR.glob("slices.npz*"):
+        old.unlink()
+    slice_kw = dict(SPILL_KW, max_iters=1000)
+    ek.reset_launches()
+    res, handle = bb.solve_slice(d, 600.0, checkpoint_path=path, device="cuda", **slice_kw)
+    slices, steps = 1, res.steps_run
+    while handle is not None:
+        require(slices < 20, "sliced spill proof: no proof in 20 slices")
+        res, handle = bb.solve_slice(d, 600.0, handle, device="cuda", **slice_kw)
+        slices += 1
+        steps += res.steps_run
+    require(slices >= 2 and res.proven_optimal and res.cost == whole.cost
+            and res.lower_bound == whole.lower_bound and (res.tour == whole.tour).all(),
+            f"sliced spill proof: {slices} slices, cost {res.cost} LB {res.lower_bound} tour "
+            f"{res.tour.tolist()} against {whole.cost} / {whole.lower_bound} / {whole.tour.tolist()}")
+    require(ek.LAUNCHES["push_rows"] == steps > 0,
+            f"sliced spill proof: {ek.LAUNCHES['push_rows']} push_rows launches for {steps} steps")
+    print(f"phase 10 sliced spill proof (solve_slice, 1000 iterations a slice): {slices} slices, "
+          f"{steps} steps, proved {res.cost} with certified LB {res.lower_bound} and the same tour "
+          f"as the uninterrupted proof; {ek.LAUNCHES['push_rows']} push_rows launches")
     print(f"phase 10 card: {smi}")
+
+
+def phase_campaign(smi):
+    """Phase 11: the kroA100 campaign through the chunked driver."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.resilience import checkpoint as ck
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    CAMPAIGN_DIR.mkdir(parents=True, exist_ok=True)
+    path = CAMPAIGN_DIR / "kroA100.npz"
+    for old in CAMPAIGN_DIR.glob("kroA100.npz*"):
+        old.unlink()
+    argv = [a for a in KRO_ARGS if not a.startswith(("--device-loop", "--max-iters"))]
+    cmd = [sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bnb_chunked", *argv,
+           "--chunk-iters=300", "--max-chunks=2", f"--checkpoint={path}", "--chunk-retries=0",
+           "--chunk-timeout=300", "--backend=cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=700, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"campaign: exit {r.returncode}: {r.stderr[-3000:]}")
+    lines = [json.loads(line) for line in r.stdout.strip().splitlines()]
+    require(len(lines) == 3 and lines[2].get("summary"), f"campaign printed {len(lines)} lines")
+    c1, c2, summary = lines
+    pinned_fields(c1, KRO_PINNED, "campaign chunk 1")
+    pinned_fields(c2, KRO_CHUNK2_PINNED, "campaign chunk 2")
+    require(c2["lower_bound"] >= c1["lower_bound"] and summary["lb_certified"] == c2["lb_certified"],
+            f"campaign: LB {c1['lower_bound']} -> {c2['lower_bound']}, summary {summary['lb_certified']}")
+    for i, c in enumerate((c1, c2), 1):
+        require(c["device"] != "cpu" and c["device_loop"] and c["step_kernel"] == "fused"
+                and c["prim_chain_launches"] == 7 * c["steps_run"] > 0
+                and c["push_rows_launches"] == c["steps_run"],
+                f"campaign chunk {i}: {c['prim_chain_launches']} prim_chain / {c['push_rows_launches']} "
+                f"push_rows launches for {c['steps_run']} steps on {c['device']}")
+        print(f"phase 11 campaign chunk {i} (fresh process): {c['nodes_expanded']} nodes, "
+              f"{c['steps_run']} steps, cost {c['cost']}, certified LB {c['lower_bound']} (raw "
+              f"{c['lb_raw']}), spill rounds {c['spill_rounds']}, bytes {c['spill_bytes_to_host']} down / "
+              f"{c['spill_bytes_to_device']} up; {c['prim_chain_launches']} prim_chain + "
+              f"{c['push_rows_launches']} push_rows launches; setup {c['setup_s']} s (ILS "
+              f"{c['setup_ils_s']}, restore {c['checkpoint_restore_s']}), search {c['wall_s']} s, "
+              f"saves {c['checkpoint_save_s']} s, snapshot {c['checkpoint_bytes']} bytes on disk")
+    print(f"phase 11 campaign: 2 chunks in {wall:.1f} s wall (driver), summary gap {summary['gap']} "
+          f"(cost {summary['cost']}, certified LB {summary['lb_certified']})")
+
+    # chunk 2's snapshot, restored on the card and saved again in parts
+    d = tsplib.resolve_instance("kroA100").distance_matrix()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr, inc, tour, rv, lb = bb.restore(str(path), expect_d=d, expect_bound="one-tree", device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = bb._ckpt_payload(fr, inc, tour, d=d, bound="one-tree", reservoir=rv, lb_floor=lb)
+    t_payload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = ck.npz_bytes(**payload)
+    t_npz = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.write_atomic(str(CAMPAIGN_DIR / "resave.npz"), blob, fingerprint=ck.instance_fingerprint(d))
+    t_write = time.perf_counter() - t0
+    logical = sum(v.nbytes for v in payload.values())
+    require(float(payload["lb_certified"]) == c2["lb_certified"]
+            and np.array_equal(payload["inc_tour"], np.asarray(tour.cpu())),
+            "campaign: the re-saved payload differs from the snapshot")
+    print(f"phase 11 save of chunk 2's state ({fr.nodes.shape[0]} rows, count {int(fr.count)}, "
+          f"reservoir {len(rv)} rows): restore {t_restore:.3f} s; save = device-to-host copy and unpack "
+          f"{t_payload:.3f} s + npz compression {t_npz:.3f} s ({logical} logical bytes -> {len(blob)}) + "
+          f"atomic write {t_write:.3f} s")
+    print(f"phase 11 card: {smi}")
 
 
 def main() -> int:
@@ -928,6 +1046,7 @@ def main() -> int:
         phase_push_parity(errs)
         phase_kroa100(smi, errs)
         phase_spill(smi)
+        phase_campaign(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

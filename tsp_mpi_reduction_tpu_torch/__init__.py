@@ -12,7 +12,9 @@ plain PyTorch functions on tensors with an explicit ``device``:
 - TSPLIB instances are solved exactly by single-device branch-and-bound
   (``models/branch_bound.py``, ``tools/bnb_solve.py``) whose per-node MST
   bound runs its Prim chain in a hand-written CUDA kernel
-  (``kernels/csrc/prim_chain.cu``).
+  (``kernels/csrc/prim_chain.cu``); its snapshots are the JAX package's
+  TSPCKPT1 files, and ``tools/bnb_chunked.py`` runs a campaign of
+  chunks, each a fresh process resuming the last snapshot.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--backend=cpu`` / ``device="cpu"``); there is no silent CPU fallback.
@@ -24,7 +26,9 @@ Layout (each module mirrors its namesake in ``tsp_mpi_reduction_tpu``):
     kernels/   CUDA C++ sources and their nvcc/ctypes build
     models/    single-rank pipeline, single-device rank emulation, B&B
     parallel/  the reference's reduce tree
-    tools/     the B&B driver
+    resilience/ the crash-safe checkpoint store, fault seams, retry, health
+    obs/       the metrics registry and span tracing
+    tools/     the B&B driver and the chunked campaign driver
     utils/     device selection, CLI, reporting, phase timing, state carry,
                TSPLIB instances
 """

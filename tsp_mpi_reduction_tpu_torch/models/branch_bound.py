@@ -39,8 +39,16 @@ P = ceil(n/4) path words, W = ceil(n/32) mask words)::
 Visited masks are int32 bit patterns here (the JAX package reads them as
 uint32): ``(w >> b) & 1`` gives the same bit for every b, bit 31 included.
 
+Checkpoints (:func:`save`, :func:`restore`) store the logical node
+fields in the JAX package's TSPCKPT1 format, through the port's own copy
+of its crash-safe store (``resilience/checkpoint.py``), so a snapshot
+written by either package resumes in the other. :func:`solve` takes
+``checkpoint_path``, ``checkpoint_every`` and ``resume_from``;
+:func:`solve_slice` and :class:`ResumeHandle` run a solve in preemptible
+slices.
+
 Not ported yet, each raising ``ValueError("... not ported yet")``:
-checkpoints and resume, ``ascent="device"`` and the Boruvka MST.
+``ascent="device"`` and the Boruvka MST.
 """
 
 from __future__ import annotations
@@ -53,8 +61,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import metrics as _obs_metrics
 from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
+from ..resilience import checkpoint as _ckpt_store
 
 INF = float("inf")
 
@@ -69,6 +79,14 @@ MAX_BNB_CITIES = 200
 #: "prim_chain" (the kernel's wrapper, which takes the plain chain only
 #: for CPU tensors)
 MST_KERNELS = ("auto", "prim", "prim_chain")
+
+#: the JAX package's frontier row layout version; the checkpoint header
+#: records it (diagnostics only: the payload stores logical fields)
+FRONTIER_LAYOUT_VERSION = 2
+
+#: the logical per-node fields, in packed-column order: the checkpoint
+#: format (save/restore serialize these, not the packed buffer)
+CKPT_NODE_FIELDS = ("path", "mask", "depth", "cost", "bound", "sum_min")
 
 #: the expansion step's push: "auto" (the fused ``push_rows`` kernel on a
 #: CUDA device, the reference push on the CPU), "reference" (the candidate
@@ -256,6 +274,8 @@ class BnBResult:
     mst_kernel: str = ""  # the resolved Prim chain: "prim" or "prim_chain"
     step_kernel: str = ""  # the resolved push: "reference" or "fused"
     device_loop: bool = False  # the resolved loop
+    checkpoint_save_s: Tuple[float, ...] = ()  # host seconds of each save
+    checkpoint_restore_s: float = 0.0  # host seconds of the restore (in setup_seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -910,28 +930,37 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
     return fr, inc_cost, inc_tour, int(popped), i, t_improved, expanded
 
 
-def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n: int) -> bool:
+def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n: int,
+                         source: str = "") -> bool:
     """The device loop's compaction floor ``capacity >= 4*k*(n-1)`` (one push
     batch of headroom per step): auto falls back to the host loop, an
-    explicit request raises (``branch_bound.py:1954-1969``)."""
+    explicit request raises (``branch_bound.py:1954-1969``). Re-run after
+    :func:`restore`: the snapshot's row count overrides the caller's
+    capacity."""
     if device_loop and capacity < 4 * k * (n - 1):
         if auto:
             return False
         raise ValueError(
             f"device_loop needs capacity >= 4*k*(n-1) = {4 * k * (n - 1)} "
-            f"(got {capacity}); lower k or raise capacity"
+            f"(got {capacity}{source}); lower k or raise capacity"
         )
     return device_loop
 
 
-def _dispatch_budget(remaining_units: int, int32_cap_units: int) -> int:
+def _dispatch_budget(remaining_units: int, int32_cap_units: int,
+                     until_ckpt_units: Optional[int] = None) -> int:
     """Step budget of one device-loop run (``branch_bound.py:1999-2038``):
-    the remaining iterations and the steps at which the int32 node counter
-    could overflow. The JAX package also caps a run by the clock, from a
-    measured step rate; the port's loop reads the device every step, so
-    :func:`_guarded_expand_steps` checks the deadline itself, on every
-    device."""
-    return max(min(remaining_units, int32_cap_units), 1)
+    the remaining iterations, the steps at which the int32 node counter
+    could overflow, and the steps until the next periodic checkpoint
+    (steps since the last save, not a modulo: runs that stop early would
+    drift off any modulo grid; None is no cap). The JAX package also caps
+    a run by the clock, from a measured step rate; the port's loop reads
+    the device every step, so :func:`_guarded_expand_steps` checks the
+    deadline itself, on every device."""
+    b = min(remaining_units, int32_cap_units)
+    if until_ckpt_units is not None:
+        b = min(b, until_ckpt_units)
+    return max(b, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1078,6 +1107,144 @@ def _count_like(count: torch.Tensor, value: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _norm_ckpt_path(path: str) -> str:
+    """``np.savez`` appends ".npz" when missing; normalize so save and
+    restore agree (and agree with the JAX package)."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _d_fingerprint(d) -> np.ndarray:
+    d = np.asarray(d, np.float64)
+    return np.asarray([d.shape[0], float(d.sum()), float(d.std())])
+
+
+def save(path: str, fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
+         reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None) -> None:
+    """Checkpoint the frontier, incumbent, instance fingerprint and any
+    host-spilled reservoir nodes (``branch_bound.py:3599-3648``).
+
+    The file is the JAX package's TSPCKPT1 image: an integrity header
+    (instance fingerprint, ``frontier_layout``) and a compressed ``.npz``
+    of the LOGICAL node fields, published atomically with rotation
+    (``resilience/checkpoint.write_atomic``). ``lb_floor``: the caller's
+    certified lower bound so far; the snapshot then records
+    ``lb_certified = max(floor, min bound over every open node)`` capped
+    at the incumbent, which keeps the reported LB monotone across a
+    chunked campaign. The port writes single-device snapshots only (no
+    ``num_ranks`` key).
+    """
+    payload = _ckpt_payload(fr, inc_cost, inc_tour, d=d, bound=bound, reservoir=reservoir,
+                            lb_floor=lb_floor)
+    _ckpt_store.write_atomic(
+        _norm_ckpt_path(path),
+        _ckpt_store.npz_bytes(**payload),
+        fingerprint=_ckpt_store.instance_fingerprint(d) if d is not None else None,
+        extra_header={"frontier_layout": FRONTIER_LAYOUT_VERSION},
+    )
+
+
+def _ckpt_payload(fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
+                  reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None) -> dict:
+    """The snapshot's array dict (``branch_bound.py:3651-3717``), key for
+    key, dtype for dtype and value for value the JAX package's: one
+    device-to-host copy of the whole packed buffer (live and dead rows),
+    unpacked on the host; the exact n comes from the closed incumbent
+    tour."""
+    n_exact = int(inc_tour.shape[-1]) - 1
+    payload = {
+        "inc_cost": inc_cost.cpu().numpy(),
+        "inc_tour": inc_tour.cpu().numpy(),
+        "count": fr.count.cpu().numpy(),
+        "overflow": fr.overflow.cpu().numpy(),
+        **_unpack_rows_np(fr.nodes.cpu().numpy(), n=n_exact),
+    }
+    if d is not None:
+        payload["d_fingerprint"] = _d_fingerprint(d)
+    if bound is not None:
+        payload["bound_mode"] = np.asarray(bound)
+    if lb_floor is not None:
+        # min over the open nodes, from the arrays already copied: the
+        # frontier's live prefix and the reservoir. After an overflow the
+        # open set no longer covers the search, so only the floor stands.
+        if bool(payload["overflow"]):
+            open_min = float("-inf")
+        else:
+            cnt = int(payload["count"])
+            mins = [payload["bound"][:cnt].min()] if cnt else []
+            if reservoir is not None and len(reservoir):
+                mins.append(reservoir.min_bound())
+            open_min = float(min(mins)) if mins else float("inf")
+        inc = float(payload["inc_cost"])
+        payload["lb_certified"] = np.asarray(min(max(float(lb_floor), open_min), inc))
+    if reservoir is not None and len(reservoir):
+        res_fields = _unpack_rows_np(np.concatenate(reservoir.chunks), n=n_exact)
+        for f in CKPT_NODE_FIELDS:
+            payload[f"res_{f}"] = res_fields[f]
+    return payload
+
+
+def restore(path: str, expect_d=None, expect_bound=None, expect_ranks: Optional[int] = None,
+            device="cuda") -> Tuple[Frontier, torch.Tensor, torch.Tensor, _Reservoir, float]:
+    """Load a snapshot onto ``device`` (``branch_bound.py:3720-3799``).
+
+    Refuses one written for another instance (the header's fingerprint,
+    then the payload's ``d_fingerprint``), another bound (the carried sums
+    are bound-specific), another rank count (``expect_ranks``: None for a
+    single device), or the pre-multi-word 1-D mask layout. A torn or
+    corrupt newest file is skipped for the newest valid one in the
+    rotation chain (``HEALTH.fallback_restores`` counts it).
+
+    Returns ``(frontier, inc_cost, inc_tour, reservoir, lb_certified)``:
+    the packed buffer rebuilt with :func:`_pack_rows_np`, the reservoir
+    holding any spilled nodes, and the saved certified-LB floor (-inf for
+    snapshots without one).
+    """
+    import io
+
+    header, payload, _src, _fallbacks = _ckpt_store.read_with_fallback(_norm_ckpt_path(path))
+    if (expect_d is not None and header is not None and header.get("fingerprint")
+            and header["fingerprint"] != _ckpt_store.instance_fingerprint(expect_d)):
+        raise ValueError(f"checkpoint {path!r} was written for a different instance "
+                         "(header fingerprint mismatch)")
+    z = np.load(io.BytesIO(payload))
+    saved_ranks = int(z["num_ranks"]) if "num_ranks" in z else None
+    if saved_ranks != expect_ranks:
+        def where(r):
+            return "a single device" if r is None else f"{r} ranks"
+
+        raise ValueError(f"checkpoint {path!r} was written for {where(saved_ranks)}; "
+                         f"cannot resume with {where(expect_ranks)}")
+    if z["mask"].ndim != (2 if expect_ranks is None else 3):
+        raise ValueError(f"checkpoint {path!r} uses the pre-multi-word mask layout ([F] uint32); "
+                         "it cannot be resumed by this version — rerun from scratch")
+    if expect_d is not None and "d_fingerprint" in z:
+        if not np.allclose(z["d_fingerprint"], _d_fingerprint(expect_d)):
+            raise ValueError(f"checkpoint {path!r} was written for a different instance "
+                             "(distance-matrix fingerprint mismatch)")
+    if expect_bound is not None:
+        # snapshots predating the bound_mode key could only be min-out
+        saved = str(z["bound_mode"]) if "bound_mode" in z else "min-out"
+        if saved != expect_bound:
+            raise ValueError(f"checkpoint {path!r} was written with bound={saved!r}; "
+                             f"resume with the same bound (got {expect_bound!r})")
+    fr = Frontier(
+        torch.as_tensor(_pack_rows_np(*(z[f] for f in CKPT_NODE_FIELDS)), device=device),
+        torch.as_tensor(z["count"], dtype=torch.int32, device=device),
+        torch.as_tensor(z["overflow"], dtype=torch.bool, device=device),
+    )
+    reservoir = _Reservoir()
+    if "res_depth" in z:
+        reservoir.chunks.append(_pack_rows_np(*(z[f"res_{f}"] for f in CKPT_NODE_FIELDS)))
+    lb = float(z["lb_certified"]) if "lb_certified" in z else -np.inf
+    return (fr, torch.as_tensor(z["inc_cost"], dtype=torch.float32, device=device),
+            torch.as_tensor(z["inc_tour"], dtype=torch.int32, device=device), reservoir, lb)
+
+
+# ---------------------------------------------------------------------------
 # The solve
 # ---------------------------------------------------------------------------
 
@@ -1172,14 +1339,22 @@ def solve(
     overflow. ``reorder_every`` re-sorts the stack best-bound-first every
     that many steps. ``step_kernel`` and ``mst_kernel`` "auto" pick the
     hand kernels on a CUDA device and the plain versions on the CPU.
-    Checkpoints, resume and ``ascent="device"`` raise ``ValueError``.
+
+    ``checkpoint_path``: where :func:`save` writes; every
+    ``checkpoint_every`` iterations (0: never), after the reservoir
+    exchange of that round, and always when the solve stops unproven.
+    The device loop's runs stop at the save step. ``resume_from``: a
+    snapshot of this instance and bound (either package's) to continue
+    from; the ILS is skipped, the snapshot's rows fix the capacity
+    (rows - k*n), a non-empty reservoir or a count inside the spill band
+    is exchanged before the first step, and the snapshot's certified LB
+    floors the reported ``lower_bound``. ``ascent="device"`` raises
+    ``ValueError``.
     """
     t_setup = time.perf_counter()
     n = d.shape[0]
     if not 3 <= n <= MAX_BNB_CITIES:
         raise ValueError(f"B&B engine supports 3 <= n <= {MAX_BNB_CITIES} cities, got {n}")
-    if checkpoint_path or checkpoint_every or resume_from:
-        _not_ported("checkpoint/resume")
     if ascent != "host":
         _not_ported(f"ascent={ascent!r}")
     device = torch.device(device)
@@ -1197,16 +1372,38 @@ def solve(
     min_out_np = bd.min_out.cpu().numpy().astype(np.float64)
     integral = bd.integral
 
-    t_ils = time.perf_counter()
-    inc_tour_np = _initial_incumbent(d, ils_rounds, device)
-    ils_s = time.perf_counter() - t_ils
-    inc_cost = torch.tensor(tour_cost(np.asarray(d, np.float64), inc_tour_np),
-                            dtype=torch.float32, device=device)
-    inc_tour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device)
-    fr = make_root_frontier(n, capacity, min_out_np, device=device, pad_rows=k * n)
-    headroom = _spill_headroom(capacity, inner_steps, k, n)
+    ils_s = 0.0
     spill_stats = SpillStats()
-    reservoir = _Reservoir(stats=spill_stats)
+    lb_floor = -np.inf  # the certified LB carried across resumed chunks
+    restore_s = 0.0
+    save_s = []
+    if resume_from:
+        t_restore = time.perf_counter()
+        fr, inc_cost, inc_tour, reservoir, lb_floor = restore(
+            resume_from, expect_d=d, expect_bound=bound, device=device)
+        restore_s = time.perf_counter() - t_restore
+        reservoir.stats = spill_stats
+        # the restored rows fix the LOGICAL capacity (rows minus the k*n
+        # push padding): the caller's argument must not disarm the spill
+        # trigger, and the device loop's floor is checked against it
+        capacity = max(int(fr.nodes.shape[0]) - k * n, 1)
+        if len(reservoir) or int(fr.count) > capacity - _spill_headroom(capacity, inner_steps, k, n):
+            # the reservoir may hold the best open nodes, and a snapshot
+            # written with a smaller k can restore a count inside the spill
+            # band; the exchange (take <= capacity // 2) sheds that overhang
+            fr = reservoir.exchange(fr, float(inc_cost), integral, capacity)
+        device_loop = _resolve_device_loop(device_loop, auto_loop, capacity, k, n,
+                                           source=f" from checkpoint {resume_from!r}")
+    else:
+        t_ils = time.perf_counter()
+        inc_tour_np = _initial_incumbent(d, ils_rounds, device)
+        ils_s = time.perf_counter() - t_ils
+        inc_cost = torch.tensor(tour_cost(np.asarray(d, np.float64), inc_tour_np),
+                                dtype=torch.float32, device=device)
+        inc_tour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device)
+        fr = make_root_frontier(n, capacity, min_out_np, device=device, pad_rows=k * n)
+        reservoir = _Reservoir(stats=spill_stats)
+    headroom = _spill_headroom(capacity, inner_steps, k, n)
 
     step_kw = dict(use_mst=mst_prune, node_ascent=node_ascent, mst_kernel=mst_kernel,
                    push_order=push_order, push_block=push_block, step_kernel=step_kernel)
@@ -1219,11 +1416,22 @@ def solve(
     last_inc = float(inc_cost)
     last_pruned = last_inc  # reservoir GC high-water mark
     nodes = it = steps_run = 0
-    last_reorder = 0
+    last_reorder = last_ckpt = 0
     deadline = None if time_limit_s is None else t0 + time_limit_s
+    periodic = bool(checkpoint_every and checkpoint_path)
+    # the certified floor of every save: both terms are fixed before the loop
+    lbf = float(max(lb_floor, bd.root_lb))
+
+    def timed_save():
+        t_save = time.perf_counter()
+        save(checkpoint_path, fr, inc_cost, inc_tour, d=d, bound=bound, reservoir=reservoir,
+             lb_floor=lbf)
+        save_s.append(time.perf_counter() - t_save)
+
     while it < max_iters:
         if device_loop:
-            budget = _dispatch_budget(max_iters - it, (2**31 - 1) // max(k, 1))
+            budget = _dispatch_budget(max_iters - it, (2**31 - 1) // max(k, 1),
+                                      checkpoint_every - (it - last_ckpt) if periodic else None)
             fr, inc_cost, inc_tour, popped, steps, t_improved, expanded = _guarded_expand_steps(
                 fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, deadline, **step_kw
             )
@@ -1259,6 +1467,11 @@ def solve(
         if reorder_every and not device_loop and it - last_reorder >= reorder_every:
             fr = _reorder_frontier(fr, rows=capacity)
             last_reorder = it
+        # save AFTER the exchange: a snapshot taken before it could resume
+        # into an overflow
+        if periodic and it - last_ckpt >= checkpoint_every:
+            timed_save()
+            last_ckpt = it
         if cnt == 0:
             break
         if time_limit_s is not None and time.perf_counter() - t0 > time_limit_s:
@@ -1269,8 +1482,12 @@ def solve(
     count = int(fr.count)
     overflow = bool(fr.overflow)
     proven = count == 0 and len(reservoir) == 0 and not overflow
+    if checkpoint_path and not proven:
+        # a solve that stops early always leaves a resumable snapshot
+        timed_save()
     lb_raw = _final_lower_bound(proven, float(inc_cost), bd.root_lb,
                                 [fr.bound[:count].cpu().numpy()], reservoir, overflow=overflow)
+    _obs_metrics.fold_bnb_solve(nodes, wall, spill_stats)
     return BnBResult(
         cost=float(inc_cost),
         tour=inc_tour.cpu().numpy(),
@@ -1281,7 +1498,9 @@ def solve(
         nodes_per_sec=nodes / wall if wall > 0 else 0.0,
         time_to_best=t_best,
         root_lower_bound=bd.root_lb,
-        lower_bound=min(lb_raw, float(inc_cost)),
+        # both are certified, so their max is: the LB never regresses
+        # across resumed chunks
+        lower_bound=min(max(lb_raw, lb_floor), float(inc_cost)),
         setup_seconds=setup_s,
         ascent_seconds=ascent_s,
         ils_seconds=ils_s,
@@ -1295,4 +1514,68 @@ def solve(
         mst_kernel=mst_kernel,
         step_kernel=step_kernel,
         device_loop=device_loop,
+        checkpoint_save_s=tuple(save_s),
+        checkpoint_restore_s=restore_s,
+    )
+
+
+@dataclass
+class ResumeHandle:
+    """Continuation token of a sliced :func:`solve` (``branch_bound.py:2485-2518``).
+
+    A handle means the search stopped UNPROVEN with a resumable snapshot at
+    ``checkpoint_path`` (a solve with a checkpoint path always saves one
+    when it stops early). Passing it back to :func:`solve_slice` continues
+    the search: frontier, incumbent, reservoir and certified-LB floor
+    restore bit for bit, and the ILS is skipped. ``first_lower_bound`` is
+    the root bound of the first slice, so :meth:`gap_progress` measures
+    how much of the certification gap the slices have closed.
+    """
+
+    checkpoint_path: str
+    slices: int
+    elapsed_s: float
+    incumbent: float
+    lower_bound: float
+    first_lower_bound: float
+
+    def gap_progress(self) -> float:
+        """Fraction of the certification gap closed so far, in [0, 1]."""
+        span = self.incumbent - self.first_lower_bound
+        if not np.isfinite(span) or span <= 0:
+            return 0.0
+        return float(min(max((self.lower_bound - self.first_lower_bound) / span, 0.0), 1.0))
+
+
+def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = None, *,
+                checkpoint_path: Optional[str] = None,
+                **solve_kw) -> Tuple[BnBResult, Optional[ResumeHandle]]:
+    """At most ``slice_s`` seconds of :func:`solve`, preemptibly
+    (``branch_bound.py:2521-2565``).
+
+    The first slice takes ``checkpoint_path`` (where the snapshot lives
+    between slices); later slices take the returned handle. Returns
+    ``(result, handle)``: ``handle`` None means the search PROVED
+    optimality; otherwise ``result`` is the best so far and ``handle``
+    resumes where this slice stopped. ``solve_kw`` goes to :func:`solve`
+    unchanged and must be the same for every slice (``max_iters`` there
+    caps each slice's iterations).
+    """
+    path = handle.checkpoint_path if handle is not None else checkpoint_path
+    if not path:
+        raise ValueError("solve_slice needs a checkpoint_path for its first slice")
+    t0 = time.perf_counter()
+    res = solve(d, time_limit_s=max(float(slice_s), 1e-3), checkpoint_path=path,
+                resume_from=path if handle is not None else None, **solve_kw)
+    elapsed = time.perf_counter() - t0
+    if res.proven_optimal:
+        return res, None
+    return res, ResumeHandle(
+        checkpoint_path=path,
+        slices=(handle.slices if handle is not None else 0) + 1,
+        elapsed_s=(handle.elapsed_s if handle is not None else 0.0) + elapsed,
+        incumbent=float(res.cost),
+        lower_bound=float(res.lower_bound),
+        first_lower_bound=(handle.first_lower_bound if handle is not None
+                           else float(res.root_lower_bound)),
     )

@@ -2,29 +2,38 @@
 
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve burma14 [--backend=auto|cuda|cpu]
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve eil51 --k=1024 --capacity=262144
+    python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve kroA100 --max-iters=300 \
+        --checkpoint=run.npz [--resume=run.npz] [--checkpoint-every=N]
 
 Counterpart of ``tools/bnb_solve.py``, single device. The instance is an
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
-computes (the host reservoir's ``spill_*`` counters included), ``null``
-for the telemetry blocks it does not port yet, the resolved
-``mst_kernel``, ``step_kernel`` and ``device_loop``, and the launches of
-the ``prim_chain`` and ``push_rows`` kernels in the solve. On a GPU the
+computes (the host reservoir's ``spill_*`` counters and the ``health``
+block included), ``null`` for the telemetry blocks it does not port yet,
+the resolved ``mst_kernel``, ``step_kernel`` and ``device_loop``, the
+launches of the ``prim_chain`` and ``push_rows`` kernels in the solve, and
+the host seconds of the snapshot's saves and restore. On a GPU the
 defaults run the device loop with both kernels. ``--backend=auto`` and
-``cuda`` need a GPU (exit 2 without one).
+``cuda`` need a GPU (exit 2 without one). ``--checkpoint`` /
+``--resume`` read and write the TSPCKPT1 snapshots of the JAX package's
+driver, so a chunk of either package resumes in the other. The solve
+runs inside a ``bnb.solve`` span that attaches under
+``TSP_TRACE_PARENT`` (the chunked driver sets it per chunk).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
 
-def result_payload(res, inst, args, device, launches: dict) -> dict:
+def result_payload(res, inst, args, device, launches: dict, health: dict,
+                   ckpt_bytes: Optional[int]) -> dict:
     """The one-line JSON payload (schema of the JAX driver's
-    ``result_payload``, single device)."""
+    ``result_payload``, single device, plus the port's own keys)."""
     opt = inst.known_optimum
     return {
         "instance": inst.name,
@@ -64,7 +73,7 @@ def result_payload(res, inst, args, device, launches: dict) -> dict:
         "spill_full_merges": res.spill_full_merges,
         "spill_bytes_to_host": res.spill_bytes_to_host,
         "spill_bytes_to_device": res.spill_bytes_to_device,
-        "health": None,
+        "health": health,
         "compile_cache": None,
         "series": None,
         "anomalies": None,
@@ -74,6 +83,9 @@ def result_payload(res, inst, args, device, launches: dict) -> dict:
         "steps_run": res.steps_run,
         "prim_chain_launches": launches["prim_chain"],
         "push_rows_launches": launches["push_rows"],
+        "checkpoint_save_s": [round(t, 4) for t in res.checkpoint_save_s],
+        "checkpoint_restore_s": round(res.checkpoint_restore_s, 4),
+        "checkpoint_bytes": ckpt_bytes,
         "device": device,
     }
 
@@ -88,6 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inner-steps", type=int, default=32)
     ap.add_argument("--time-limit", type=float, default=None)
     ap.add_argument("--max-iters", type=int, default=200_000)
+    ap.add_argument("--checkpoint", default=None,
+                    help="snapshot path: written every --checkpoint-every iterations and "
+                    "whenever the solve stops unproven")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", default=None, help="snapshot to continue from (either package's)")
     ap.add_argument("--bound", default="one-tree", choices=["one-tree", "min-out"])
     ap.add_argument("--node-ascent", type=int, default=2,
                     help="per-node mini-ascent steps on the MST bound (0 disables)")
@@ -114,7 +131,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     from ..models import branch_bound as bb
+    from ..obs import tracing
     from ..ops import expand_kernels, prim_kernels
+    from ..resilience.health import HEALTH
     from ..utils import tsplib
     from ..utils.backend import resolve_device
 
@@ -135,31 +154,37 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     prim_kernels.reset_launches()
     expand_kernels.reset_launches()
-    res = bb.solve(
-        d,
-        capacity=args.capacity,
-        k=args.k,
-        inner_steps=args.inner_steps,
-        time_limit_s=args.time_limit,
-        max_iters=args.max_iters,
-        bound=args.bound,
-        node_ascent=args.node_ascent,
-        ils_rounds=args.ils_rounds,
-        mst_kernel=args.mst_kernel,
-        push_order=args.push_order,
-        push_block=args.push_block,
-        step_kernel=args.step_kernel,
-        device_loop={"auto": None, "on": True, "off": False}[args.device_loop],
-        reorder_every=args.reorder_every,
-        device=device,
-    )
+    with tracing.span("bnb.solve", parent=tracing.parent_from_env(), instance=inst.name, ranks=1):
+        res = bb.solve(
+            d,
+            capacity=args.capacity,
+            k=args.k,
+            inner_steps=args.inner_steps,
+            time_limit_s=args.time_limit,
+            max_iters=args.max_iters,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            resume_from=args.resume,
+            bound=args.bound,
+            node_ascent=args.node_ascent,
+            ils_rounds=args.ils_rounds,
+            mst_kernel=args.mst_kernel,
+            push_order=args.push_order,
+            push_block=args.push_block,
+            step_kernel=args.step_kernel,
+            device_loop={"auto": None, "on": True, "off": False}[args.device_loop],
+            reorder_every=args.reorder_every,
+            device=device,
+        )
     name = device.type
     if device.type == "cuda":
         import torch
 
         name = torch.cuda.get_device_name(device)
     launches = {**prim_kernels.LAUNCHES, **expand_kernels.LAUNCHES}
-    print(json.dumps(result_payload(res, inst, args, name, launches)))
+    ckpt = args.checkpoint and bb._norm_ckpt_path(args.checkpoint)
+    ckpt_bytes = os.path.getsize(ckpt) if ckpt and os.path.exists(ckpt) else None
+    print(json.dumps(result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes)))
     return 0
 
 
