@@ -75,10 +75,31 @@ Phases, each printing its own line; any failure exits non-zero:
     (each chunk process resets the counts before its solve and reports
     them after); the seconds of every save and restore and the snapshot's
     bytes on disk, and a save of chunk 2's state split into its parts
-    (device-to-host copy and unpack, npz compression, atomic write).
+    (device-to-host copy and unpack, npz compression, atomic write); chunk
+    2 reads the root ascent from the memo chunk 1 wrote
+    (``ascent_memo_hits`` >= 1), and each chunk's ascent seconds print;
+12. the pipeline's options at phase 4's size: the sequential, tree and
+    coordinate folds of phase 4's block tours (each a closed tour of all
+    16,384 cities; the coordinate tree fold equals the gather tree fold id
+    for id and in cost, in float64 and float32) with their seconds;
+    ``--improve`` through the CLI (no dearer than the unimproved cost; at
+    ``10 6 500 500 --dtype=float64`` the JAX package's cost); ``--trace``
+    (the trace parses and holds the pipeline's CPU ranges; its device
+    kernel events and the device-busy share of the traced window);
+    ``--backend=native 10 6 500 500`` (the oracle's cost); a ``--quick``
+    port sweep (8 rows under the CSV header);
+13. the B&B options at phase 7's size (eil51, k = 1024, capacity 2^18):
+    ``--mst-kernel=boruvka`` through the CLI proves 426 in the JAX
+    package's node count with 0 ``prim_chain`` and one ``push_rows`` launch
+    a step; ``ascent="device"`` proves 426 from the root bound 423 (its
+    ascent seconds beside a host ascent's); the step profile's components
+    (``tools/step_profile``) under ``prim_chain`` and ``boruvka``; a
+    ``--trace``-style capture of 20 steps (its ``bnb_step`` ranges and the
+    device-busy share of the steps' window).
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
-kroA100 runs and phase 11's chunks) runs with the kernels' launch counts
+kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run and phase
+13's Boruvka run) runs with the kernels' launch counts
 reset just before and read just after; a kernel of the path that never
 launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
@@ -98,6 +119,7 @@ import io
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -143,6 +165,14 @@ KRO_CHUNK2_PINNED = {"nodes_expanded": 304_128, "iterations": 300, "cost": 21282
                      "spill_rounds": 5, "spill_events": 5, "spill_full_merges": 0,
                      "spill_bytes_to_host": 239_271_648, "spill_bytes_to_device": 173_015_040}
 CAMPAIGN_DIR = ROOT / "build" / "chip_smoke_campaign"
+OPTIONS_DIR = ROOT / "build" / "chip_smoke_options"
+#: the JAX package's ``10 6 500 500 --backend=cpu --dtype=float64 --improve``
+#: (its CLI on the CPU, in a fresh process)
+IMPROVED_10_6_COST = "3536.044960"
+#: eil51 at k = 1024, capacity 2^18 under the Boruvka MST: the JAX package's
+#: solve(d, k=1024, capacity=1 << 18, device_loop=True, mst_kernel="boruvka")
+#: on the CPU (Prim's is BNB_FULL_NODES: the trees differ under ties)
+BORUVKA_FULL_NODES = 152_861
 SPILL_PINNED = {"nodes_expanded": 26_900, "iterations": 3381, "cost": 3154.0,
                 "lower_bound": 3154.0, "proven_optimal": True, "spill_rounds": 14,
                 "spill_events": 14, "spill_full_merges": 0, "spill_bytes_to_host": 95_724,
@@ -458,7 +488,7 @@ def phase_full(smi, errs):
           f"{launches_pallas['relax_minplus']} launches per solve, bound {mp['bound_ms']:.4f} ms "
           f"({mp['bound_by']}), plain {mp['plain_ms']:.4f} ms; exact on every step")
     print(f"phase 4 card: {smi}")
-    return [
+    return res.phase_seconds, [
         {"name": "relax_minplus", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["relax_minplus"], "launches": launches_pallas["relax_minplus"],
          "max_abs_err": errs["relax_minplus"], "ms": mp["ms"], "device_ms": mp["device_ms"],
@@ -962,6 +992,8 @@ def phase_campaign(smi):
     path = CAMPAIGN_DIR / "kroA100.npz"
     for old in CAMPAIGN_DIR.glob("kroA100.npz*"):
         old.unlink()
+    # the chunks' root-ascent memo (bnb_chunked's default: beside the snapshot)
+    shutil.rmtree(CAMPAIGN_DIR / "compile_cache", ignore_errors=True)
     argv = [a for a in KRO_ARGS if not a.startswith(("--device-loop", "--max-iters"))]
     cmd = [sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bnb_chunked", *argv,
            "--chunk-iters=300", "--max-chunks=2", f"--checkpoint={path}", "--chunk-retries=0",
@@ -977,6 +1009,8 @@ def phase_campaign(smi):
     pinned_fields(c2, KRO_CHUNK2_PINNED, "campaign chunk 2")
     require(c2["lower_bound"] >= c1["lower_bound"] and summary["lb_certified"] == c2["lb_certified"],
             f"campaign: LB {c1['lower_bound']} -> {c2['lower_bound']}, summary {summary['lb_certified']}")
+    require(c1["compile_cache"]["ascent_memo_hits"] == 0 and c2["compile_cache"]["ascent_memo_hits"] >= 1,
+            f"campaign: ascent memo {c1['compile_cache']} in chunk 1, {c2['compile_cache']} in chunk 2")
     for i, c in enumerate((c1, c2), 1):
         require(c["device"] != "cpu" and c["device_loop"] and c["step_kernel"] == "fused"
                 and c["prim_chain_launches"] == 7 * c["steps_run"] > 0
@@ -987,8 +1021,9 @@ def phase_campaign(smi):
               f"{c['steps_run']} steps, cost {c['cost']}, certified LB {c['lower_bound']} (raw "
               f"{c['lb_raw']}), spill rounds {c['spill_rounds']}, bytes {c['spill_bytes_to_host']} down / "
               f"{c['spill_bytes_to_device']} up; {c['prim_chain_launches']} prim_chain + "
-              f"{c['push_rows_launches']} push_rows launches; setup {c['setup_s']} s (ILS "
-              f"{c['setup_ils_s']}, restore {c['checkpoint_restore_s']}), search {c['wall_s']} s, "
+              f"{c['push_rows_launches']} push_rows launches; setup {c['setup_s']} s (ascent "
+              f"{c['setup_ascent_s']}, ascent memo {c['compile_cache']}, ILS {c['setup_ils_s']}, "
+              f"restore {c['checkpoint_restore_s']}), search {c['wall_s']} s, "
               f"saves {c['checkpoint_save_s']} s, snapshot {c['checkpoint_bytes']} bytes on disk")
     print(f"phase 11 campaign: 2 chunks in {wall:.1f} s wall (driver), summary gap {summary['gap']} "
           f"(cost {summary['cost']}, certified LB {summary['lb_certified']})")
@@ -1020,6 +1055,244 @@ def phase_campaign(smi):
     print(f"phase 11 card: {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: the options of both CLIs at full size
+# ---------------------------------------------------------------------------
+
+
+def trace_stats(path, window_prefix=None) -> dict:
+    """A Chrome trace's CPU ranges, device kernel events and the device-busy
+    share: the union of the kernel intervals over the window (every event
+    of the trace, or the ranges named ``window_prefix*``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    # a record_function range appears twice: on the host (user_annotation)
+    # and on the device's timeline (gpu_user_annotation); count the host's
+    win = [e for e in events if window_prefix is None
+           or (e.get("cat") == "user_annotation" and e.get("name", "").startswith(window_prefix))]
+    lo = min(e["ts"] for e in win)
+    hi = max(e["ts"] + e["dur"] for e in win)
+    busy, end = 0.0, lo
+    for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"cpu_ops": len(cpu_ops), "kernels": len(kernels), "ranges": len(win),
+            "window_ms": (hi - lo) / 1000.0, "busy_share": busy / (hi - lo) if hi > lo else 0.0,
+            "names": {e.get("name", "") for e in cpu_ops}}
+
+
+def cli_line(argv):
+    """The pipeline CLI in this process -> (exit code, last stdout line, seconds)."""
+    from tsp_mpi_reduction_tpu_torch.utils import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, lines[-1] if lines else "", time.perf_counter() - t0
+
+
+def first_tree_difference(tours, costs, dist, xy):
+    """The first (round, pair) where the coordinate merge and the gather
+    merge of the tree fold disagree, with both results."""
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.ops import merge as mg
+
+    b, l = tours.shape
+    cur = mg.PaddedTour(tours, torch.full((b,), l, dtype=torch.int32, device=tours.device), costs)
+    rnd = 0
+    while cur.ids.shape[0] > 1:
+        m, p = cur.ids.shape
+        pairs, pad = m // 2, p - 1
+        left = mg.PaddedTour(torch.nn.functional.pad(cur.ids[0:2 * pairs:2], (0, pad)),
+                             cur.length[0:2 * pairs:2], cur.cost[0:2 * pairs:2])
+        right = mg.PaddedTour(cur.ids[1:2 * pairs:2], cur.length[1:2 * pairs:2], cur.cost[1:2 * pairs:2])
+        g = mg.merge_tours(left, right, dist)
+        x = mg.merge_tours_xy(left, right, xy)
+        bad = ((g.ids != x.ids).any(dim=1) | (g.cost != x.cost)).nonzero()
+        if bad.numel():
+            i = int(bad[0, 0])
+            return (f"round {rnd} pair {i}: gather cost {float(g.cost[i])!r}, coordinate cost "
+                    f"{float(x.cost[i])!r}, ids equal {bool(torch.equal(g.ids[i], x.ids[i]))}")
+        if m % 2:
+            g = mg.PaddedTour(torch.cat([g.ids, torch.nn.functional.pad(cur.ids[-1:], (0, pad))]),
+                              torch.cat([g.length, cur.length[-1:]]), torch.cat([g.cost, cur.cost[-1:]]))
+        cur, rnd = g, rnd + 1
+    return "no merge differs"
+
+
+def phase_pipeline_options(smi, full_phases):
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import merge as mg
+    from tsp_mpi_reduction_tpu_torch.ops.distance import distance_matrix
+    from tsp_mpi_reduction_tpu_torch.ops.generator import generate_instance
+    from tsp_mpi_reduction_tpu_torch.ops.held_karp import solve_blocks_from_dists
+    from tsp_mpi_reduction_tpu_torch.tools import sweep
+    from tsp_mpi_reduction_tpu_torch.utils import profiling
+
+    n, nb = N_FULL, B_FULL
+    dev = torch.device("cuda")
+    size = [str(n), str(nb), str(GRID_FULL), str(GRID_FULL)]
+    OPTIONS_DIR.mkdir(parents=True, exist_ok=True)
+
+    # --- the three folds of phase 4's block tours
+    _, xy = generate_instance(n, nb, GRID_FULL, GRID_FULL)
+    diffs = []
+    for dt in (torch.float32, torch.float64):
+        xy_t = torch.as_tensor(xy.reshape(-1, 2), device=dev).to(dt)
+        dist = distance_matrix(xy_t)
+        costs, local = solve_blocks_from_dists(block_distance_slices(dist, nb, n), dt)
+        tours = local + (torch.arange(nb, dtype=torch.int32, device=dev) * n)[:, None]
+        folds, secs = {}, {}
+        for name, fn, ctx in (("sequential", mg.fold_tours, dist), ("tree", mg.fold_tours_tree, dist),
+                              ("tree_xy", mg.fold_tours_tree_xy, xy_t)):
+            folds[name], secs[name] = wall_s(lambda: fn(tours, costs, ctx))
+            ids, length, cost = folds[name]
+            t = ids[: int(length)].cpu().numpy()
+            require(int(length) == n * nb + 1 and t[0] == t[-1]
+                    and np.array_equal(np.sort(t[:-1]), np.arange(n * nb)) and math.isfinite(float(cost)),
+                    f"{name} fold ({dt}) is not a closed tour over all {n * nb} cities")
+        tree, txy = folds["tree"], folds["tree_xy"]
+        same = torch.equal(tree[0], txy[0]) and torch.equal(tree[2].view(-1), txy[2].view(-1))
+        where = "" if same else "; first differing merge: " + first_tree_difference(tours, costs, dist, xy_t)
+        if not same:
+            diffs.append(f"{dt}{where}")
+        print(f"phase 12 folds ({dt}, {nb} blocks of {n}): sequential {secs['sequential']:.3f} s (cost "
+              f"{float(folds['sequential'][2]):f}), tree {secs['tree']:.3f} s (cost {float(tree[2]):f}), "
+              f"tree_xy {secs['tree_xy']:.3f} s (cost {float(txy[2]):f}); phase 4's merge_fold "
+              f"{full_phases['merge_fold']:.3f} s; tree_xy == tree id for id and in cost: {same}{where}")
+        del dist, folds
+        torch.cuda.empty_cache()
+    require(not diffs, "the coordinate tree fold differs from the gather tree fold: " + "; ".join(diffs))
+
+    # --- --improve through the CLI, the main path's kernels counted
+    rc, plain, plain_s = cli_line(size)
+    hkk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rc2, improved, improve_s = cli_line(size + ["--improve"])
+    launches = dict(hkk.LAUNCHES)
+    cost_of = lambda line: float(line.rsplit(" ", 1)[-1])  # noqa: E731
+    require(rc == rc2 == 0 and cost_of(improved) <= cost_of(plain),
+            f"--improve: {improved!r} against {plain!r}")
+    require(launches["relax_dense"] == hkk.sweep_launches(n - 1),
+            f"--improve run launched {launches}")
+    rc, small, _ = cli_line(["10", "6", "500", "500", "--dtype=float64", "--improve"])
+    require(rc == 0 and small.endswith(f" for 60 cities and the trip cost {IMPROVED_10_6_COST}"),
+            f"--improve 10 6 500 500 float64: {small!r}, want the JAX package's {IMPROVED_10_6_COST}")
+    print(f"phase 12 --improve (full size, float32): {improved} in {improve_s:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; unimproved {plain} in {plain_s:.3f} s; "
+          f"launches {launches}; 10 6 500 500 float64: {small}")
+
+    # --- --trace through the CLI
+    tdir = OPTIONS_DIR / "trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    rc, traced, trace_s = cli_line(size + [f"--trace={tdir}"])
+    tfile = tdir / profiling.TRACE_FILE
+    require(rc == 0 and tfile.exists(), f"--trace: exit {rc}, {tfile} missing")
+    st = trace_stats(tfile)
+    require(st["cpu_ops"] > 0 and any(nm.startswith("aten::") for nm in st["names"]),
+            f"--trace: no CPU ranges in {tfile}")
+    print(f"phase 12 --trace (full size): {traced} in {trace_s:.3f} s; {tfile.stat().st_size} bytes, "
+          f"{st['cpu_ops']} CPU op ranges, {st['kernels']} device kernel events, device busy "
+          f"{st['busy_share']:.4f} of the traced window ({st['window_ms']:.1f} ms)")
+
+    # --- --backend=native and the quick sweep
+    rc, native_line, native_s = cli_line(["10", "6", "500", "500", "--backend=native"])
+    require(rc == 0 and native_line.endswith(" for 60 cities and the trip cost 3720.557435"),
+            f"--backend=native: exit {rc} {native_line!r}")
+    print(f"phase 12 --backend=native 10 6 500 500: {native_line} ({native_s:.3f} s, build included)")
+    out = OPTIONS_DIR / "sweep_quick.csv"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = sweep.main(["--quick", f"--out={out}", "--force"])
+    lines = out.read_text().splitlines()
+    require(rc == 0 and lines[0] == "numCities,numBlocks,numProcs,time,cost" and len(lines) == 9,
+            f"quick sweep: exit {rc}, {len(lines)} lines")
+    print(f"phase 12 quick sweep: 8 rows in {time.perf_counter() - t0:.2f} s: " + " | ".join(lines[1:]))
+    print(f"phase 12 card: {smi}")
+
+
+def phase_bnb_options(smi):
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.ops.one_tree import held_karp_potentials_np
+    from tsp_mpi_reduction_tpu_torch.tools import step_profile
+    from tsp_mpi_reduction_tpu_torch.utils import profiling, tsplib
+
+    name, k, cap = BNB_FULL
+    d = tsplib.embedded(name).distance_matrix()
+
+    # --- the Boruvka MST through the CLI, counts reset just before
+    prim_kernels.reset_launches()
+    ek.reset_launches()
+    out = run_bnb_cli([name, "--backend=cuda", f"--k={k}", f"--capacity={cap}", "--mst-kernel=boruvka"])
+    launches = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
+    require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST and out["mst_kernel"] == "boruvka"
+            and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
+            f"eil51 boruvka: cost {out['cost']} proven={out['proven_optimal']} kernel {out['mst_kernel']}")
+    require(launches["prim_chain"] == out["prim_chain_launches"] == 0
+            and launches["push_rows"] == out["push_rows_launches"] == out["steps_run"] > 0,
+            f"eil51 boruvka: launches {launches} for {out['steps_run']} steps")
+    require(out["nodes_expanded"] == BORUVKA_FULL_NODES,
+            f"eil51 boruvka: {out['nodes_expanded']} nodes, want the JAX package's {BORUVKA_FULL_NODES}")
+    print(f"phase 13 eil51 --mst-kernel=boruvka (k={k}, capacity={cap}, device loop, fused push): proved "
+          f"{out['cost']} in {out['nodes_expanded']} nodes, {out['steps_run']} steps, {launches['prim_chain']} "
+          f"prim_chain + {launches['push_rows']} push_rows launches; search {out['wall_s']} s, "
+          f"{out['nodes_per_sec']} nodes/s, setup {out['setup_s']} s")
+
+    # --- the device ascent
+    t0 = time.perf_counter()
+    held_karp_potentials_np(d, steps=400)
+    host_s = time.perf_counter() - t0
+    res = bb.solve(d, k=k, capacity=cap, ascent="device", device="cuda")
+    require(res.proven_optimal and res.cost == BNB_FULL_COST and res.root_lower_bound == BNB_FULL_ROOT_LB,
+            f"eil51 ascent=device: cost {res.cost} proven={res.proven_optimal} root LB {res.root_lower_bound}")
+    print(f"phase 13 eil51 ascent=device: proved {res.cost} from root LB {res.root_lower_bound} in "
+          f"{res.nodes_expanded} nodes; setup_ascent_s {res.ascent_seconds:.3f} (400 float32 steps on the "
+          f"card) against a host float64 ascent of {host_s:.3f} s; search {res.wall_seconds:.3f} s")
+
+    # --- the step profile under both MST kernels
+    prof = step_profile.profile(name, k=k, node_ascent=2, device="cuda")
+    comps = prof["components"]
+    require(comps["full_boruvka"]["prim_chain_launches_per_unit"] == 0
+            and comps["full_prim_chain"]["prim_chain_launches_per_unit"] == 3,
+            "step profile: prim_chain launches per step "
+            f"{comps['full_prim_chain']['prim_chain_launches_per_unit']} / "
+            f"{comps['full_boruvka']['prim_chain_launches_per_unit']}")
+    print(f"phase 13 step profile ({name}, k={k}, node_ascent 2, warm count {prof['warm_count']}, "
+          f"{prof['method']}): " + ", ".join(
+              f"{c} {v['ms_per_unit']:.4f} ms/{v['unit']}" for c, v in comps.items()))
+    fine = step_profile.profile(name, k=k, node_ascent=2, device="cuda",
+                                components=step_profile.FINE_COMPONENTS)
+    print("phase 13 step profile --fine: " + ", ".join(
+        f"{c} {v['ms_per_unit']:.4f} ms/step" for c, v in fine["components"].items()))
+
+    # --- a trace of 20 steps
+    tdir = OPTIONS_DIR / "bnb_trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    with profiling.device_trace(str(tdir), "cuda"):
+        res = bb.solve(d, k=k, capacity=cap, max_iters=20, device="cuda")
+    st = trace_stats(tdir / profiling.TRACE_FILE, window_prefix="bnb_step#")
+    require(st["ranges"] == res.steps_run == 20, f"trace: {st['ranges']} bnb_step ranges, {res.steps_run} steps")
+    print(f"phase 13 trace of {res.steps_run} eil51 steps: {st['ranges']} bnb_step ranges over "
+          f"{st['window_ms']:.2f} ms, {st['kernels']} device kernel events in the trace, device busy "
+          f"{st['busy_share']:.4f} of the steps' window")
+    print(f"phase 13 card: {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1039,7 +1312,7 @@ def main() -> int:
         smi = phase_build()
         phase_kernel_parity(errs)
         phase_oracle()
-        kernels = phase_full(smi, errs)
+        full_phases, kernels = phase_full(smi, errs)
         phase_prim_parity(errs)
         phase_bnb_proofs()
         kernels += phase_bnb_full(smi, errs)
@@ -1047,6 +1320,8 @@ def main() -> int:
         phase_kroa100(smi, errs)
         phase_spill(smi)
         phase_campaign(smi)
+        phase_pipeline_options(smi, full_phases)
+        phase_bnb_options(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

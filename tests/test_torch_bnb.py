@@ -298,9 +298,10 @@ def test_solve_non_integral_cost_and_proof():
     ids=["checkpoint", "resume", "ascent", "boruvka"],
 )
 def test_later_slices_raise_not_ported(kw, tmp_path):
-    """The options no slice has ported raise; checkpoints and resume are
-    ported: a stopped solve leaves a snapshot, and resuming from a path
-    that holds none raises the store's error, not "not ported"."""
+    """Options that earlier slices refused now run: checkpoints and resume
+    (a stopped solve leaves a snapshot, and resuming from a path that holds
+    none raises the store's error, not "not ported"), the device ascent and
+    the Boruvka MST (each proves burma14)."""
     from tsp_mpi_reduction_tpu_torch.resilience.checkpoint import CheckpointError
 
     kw = {key: str(tmp_path / v) if key.endswith(("_path", "_from")) else v for key, v in kw.items()}
@@ -312,8 +313,8 @@ def test_later_slices_raise_not_ported(kw, tmp_path):
         with pytest.raises(CheckpointError, match="no valid checkpoint"):
             tbb.solve(_dist("burma14"), **call)
     else:
-        with pytest.raises(ValueError, match="not ported yet"):
-            tbb.solve(_dist("burma14"), **call)
+        res = tbb.solve(_dist("burma14"), **call)
+        assert res.proven_optimal and res.cost == 3323.0
 
 
 def test_cli_proves_burma14_on_cpu(capsys):
@@ -330,7 +331,8 @@ def test_cli_proves_burma14_on_cpu(capsys):
         assert out[key] == 0
     assert out["device"] == "cpu" and out["time_to_proof_s"] is not None
     assert {"retries", "fallback_restores", "faults_injected"} <= out["health"].keys()
-    for key in ("compile_cache", "series", "anomalies", "rank_series", "obs"):
+    assert set(out["compile_cache"]) == {"ascent_memo_hits", "ascent_memo_misses"}
+    for key in ("series", "anomalies", "rank_series", "obs"):
         assert out[key] is None
 
 

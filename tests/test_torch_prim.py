@@ -186,5 +186,10 @@ def test_mst_kernel_names_resolve(mst_kernel):
 
 @pytest.mark.parametrize("bad", ["boruvka", "prim_pallas", "nope"])
 def test_unported_or_unknown_mst_kernel_raises(bad):
+    """Unknown names raise; boruvka, refused until it was ported, now
+    resolves to itself on either device."""
+    if bad == "boruvka":
+        assert tbb._resolve_mst_kernel(bad, "cpu") == tbb._resolve_mst_kernel(bad, "cuda") == "boruvka"
+        return
     with pytest.raises(ValueError):
         tbb._resolve_mst_kernel(bad, "cpu")

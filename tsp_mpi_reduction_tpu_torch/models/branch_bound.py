@@ -47,8 +47,11 @@ written by either package resumes in the other. :func:`solve` takes
 :func:`solve_slice` and :class:`ResumeHandle` run a solve in preemptible
 slices.
 
-Not ported yet, each raising ``ValueError("... not ported yet")``:
-``ascent="device"`` and the Boruvka MST.
+The MST bound's kernel is selectable (``MST_KERNELS``): the Prim chain
+(plain or the ``prim_chain`` kernel) or Boruvka's log-depth rounds
+(:func:`_mst_conn_boruvka`, plain torch ops). The root ascent runs on the
+host in float64 (memoized, ``perf/ascent_memo.py``) or, with
+``ascent="device"``, on the solve's device in float32.
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ import numpy as np
 import torch
 
 from ..obs import metrics as _obs_metrics
+from ..obs import tracing as _obs_tracing
 from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
+from ..perf import ascent_memo as _ascent_memo
 from ..resilience import checkpoint as _ckpt_store
 
 INF = float("inf")
@@ -74,11 +79,15 @@ PATH_PACK = 4
 #: ceil(200/32) = 7 mask words; the Prim kernel's register arrays
 MAX_BNB_CITIES = 200
 
-#: the MST bound's Prim chain: "auto" (the CUDA kernel on a CUDA device,
-#: the plain chain on the CPU), "prim" (the plain torch chain) or
+#: the MST bound's kernel: "auto" (the Prim chain's CUDA kernel on a CUDA
+#: device, the plain chain on the CPU), "prim" (the plain torch chain),
 #: "prim_chain" (the kernel's wrapper, which takes the plain chain only
-#: for CPU tensors)
-MST_KERNELS = ("auto", "prim", "prim_chain")
+#: for CPU tensors) or "boruvka" (log-depth rounds in plain torch ops)
+MST_KERNELS = ("auto", "prim", "prim_chain", "boruvka")
+
+#: where the root ascent runs: "host" (float64 numpy, memoized) or
+#: "device" (float32 torch ops on the solve's device)
+ASCENTS = ("host", "device")
 
 #: the JAX package's frontier row layout version; the checkpoint header
 #: records it (diagnostics only: the payload stores logical fields)
@@ -455,6 +464,11 @@ def _bound_setup(d, bound: str, ascent_steps: int = 400, node_ascent: int = 0,
     """Bound tables for a metric and bound mode, in float64 numpy on the
     host, handed to ``device`` as float32 (``branch_bound.py:652-781``).
 
+    ``ascent``: "host" runs the float64 root ascent on the host through the
+    memo (``perf/ascent_memo.py``); "device" runs it in float32 on
+    ``device`` (``ops.one_tree.held_karp_potentials``) and continues from
+    its potentials in float64.
+
     "min-out": pi = 0. "one-tree": Held-Karp ascent potentials pi; weights
     become the min reduced outgoing edge - 2*pi, with a per-child
     adjustment pi[child] - pi[0]; ``dbar`` feeds the per-node MST bound.
@@ -467,12 +481,23 @@ def _bound_setup(d, bound: str, ascent_steps: int = 400, node_ascent: int = 0,
     d64 = np.asarray(d, np.float64)
     integral = _is_integral(d64)
     eye = np.eye(n, dtype=bool)
+    if ascent not in ASCENTS:
+        raise ValueError(f"ascent must be one of {ASCENTS}, got {ascent!r}")
     if bound == "one-tree":
-        if ascent != "host":
-            raise ValueError(f"ascent={ascent!r} is not ported yet (the port runs the host ascent)")
-        from ..ops.one_tree import held_karp_potentials_np
+        if ascent == "host":
+            # deterministic in (d, steps): a memo hit is the same bytes
+            pi64 = _ascent_memo.ascent_memo_get(d64, bound, ascent_steps)
+            if pi64 is None:
+                from ..ops.one_tree import held_karp_potentials_np
 
-        pi64, _ = held_karp_potentials_np(d64, steps=ascent_steps)
+                pi64, _ = held_karp_potentials_np(d64, steps=ascent_steps)
+                _ascent_memo.ascent_memo_put(d64, bound, ascent_steps, pi64)
+        else:
+            from ..ops.one_tree import held_karp_potentials
+
+            d32 = torch.as_tensor(d64, dtype=torch.float32, device=device)
+            pi_dev, _ = held_karp_potentials(d32, steps=ascent_steps)
+            pi64 = pi_dev.cpu().numpy().astype(np.float64)
     elif bound == "min-out":
         pi64 = np.zeros(n)
     else:
@@ -573,14 +598,8 @@ def _conn_edges(dbar, unvis, cur, n, lam=None):
     return conn, bump
 
 
-def _not_ported(what: str):
-    raise ValueError(f"{what} is not ported yet")
-
-
 def _resolve_mst_kernel(mst_kernel: str, device) -> str:
     """``auto`` -> the kernel on a CUDA device, the plain chain on the CPU."""
-    if mst_kernel == "boruvka":
-        _not_ported("mst_kernel='boruvka'")
     if mst_kernel not in MST_KERNELS:
         raise ValueError(f"unknown mst_kernel {mst_kernel!r} (expected one of {MST_KERNELS}; "
                          "the JAX package's prim_pallas is prim_chain here)")
@@ -589,9 +608,76 @@ def _resolve_mst_kernel(mst_kernel: str, device) -> str:
     return mst_kernel
 
 
+def _mst_conn_boruvka(dbar, unvis, cur, n, lam=None):
+    """Log-depth Boruvka MST(U) + connection edges -> (value, degrees)
+    (``branch_bound.py:883-986``), in plain torch ops on ``[k, n, n]``.
+
+    ceil(log2 n) rounds; in each, every vertex finds its cheapest edge to
+    another component (first index on ties, i.e. the least partner), every
+    component keeps the lexicographic minimum (weight, canonical edge id
+    ``min*n + max``) over its members, an edge both endpoint components
+    chose is counted once (by the smaller root), and the components
+    contract by hooking each root onto its partner, breaking 2-cycles
+    toward the smaller root, then ceil(log2 n) pointer jumps. Every MST
+    has the same total, so the value equals Prim's (bit for bit on the
+    integral grid, where float32 sums of grid multiples are exact); the
+    degrees can differ from Prim's when ties admit several MSTs.
+    """
+    k = unvis.shape[0]
+    dev = dbar.device
+    slots = torch.arange(n, device=dev)[None, :]  # [1, n] root slots
+    sentinel = n * n
+
+    w = dbar[None, :, :].expand(k, n, n)
+    if lam is not None:
+        w = w + lam[:, :, None] + lam[:, None, :]
+    pair_ok = unvis[:, :, None] & unvis[:, None, :] & ~torch.eye(n, dtype=torch.bool, device=dev)[None]
+    wm = torch.where(pair_ok, w, INF)
+
+    comp = slots.expand(k, n)  # component label (its root slot) per vertex
+    deg = torch.zeros((k, n), dtype=torch.int32, device=dev)
+    total = torch.zeros(k, dtype=dbar.dtype, device=dev)
+    rounds = int(np.ceil(np.log2(max(n, 2))))  # components at least halve
+    for _ in range(rounds):
+        wr = torch.where(comp[:, :, None] != comp[:, None, :], wm, INF)
+        wv = wr.amin(dim=2)  # cheapest crossing edge per vertex
+        pu = wr.argmin(dim=2)  # its partner: the least one on ties
+        eid = torch.where(slots < pu, slots * n + pu, pu * n + slots)
+        eid = torch.where(torch.isfinite(wv), eid, sentinel)
+        # per component (root slot c), the lex-min (weight, edge id) of its members
+        member = comp[:, None, :] == slots[:, :, None]  # [k, root, v]
+        mw = torch.where(member, wv[:, None, :], INF).amin(dim=2)
+        elig = member & (wv[:, None, :] == mw[:, :, None])
+        me = torch.where(elig, eid[:, None, :], sentinel).amin(dim=2)
+        has = torch.isfinite(mw) & (me < sentinel)
+        a = torch.where(has, me // n, 0)
+        b = torch.where(has, me % n, 0)
+        partner = torch.where(has, comp.gather(1, a) + comp.gather(1, b) - slots, slots)
+        # an edge chosen from both sides is counted by the smaller root
+        dup = has & (me.gather(1, partner) == me) & (partner < slots)
+        add = has & ~dup
+        total = total + torch.where(add, mw, 0.0).sum(dim=1)
+        a_oh = (slots[:, None, :] == a[:, :, None]) & add[:, :, None]
+        b_oh = (slots[:, None, :] == b[:, :, None]) & add[:, :, None]
+        deg = deg + a_oh.sum(dim=1, dtype=torch.int32) + b_oh.sum(dim=1, dtype=torch.int32)
+        # contract: hook roots onto partners, the smaller root owns a 2-cycle
+        hook = torch.where(has, partner, slots)
+        hp = hook.gather(1, hook)
+        star = torch.where((hp == slots) & (slots < hook), slots, hook)
+        for _ in range(rounds):
+            star = star.gather(1, star)
+        comp = star.gather(1, comp)
+
+    conn, bump = _conn_edges(dbar, unvis, cur, n, lam)
+    # a lane whose U has 0 or 1 vertices: MST 0 and an infinite connection
+    return total + conn, deg + bump
+
+
 def _mst_conn(dbar, unvis, cur, n, lam=None, mst_kernel: str = "prim"):
     """MST(U) + connection edges -> (value, degrees): the Prim chain (plain
-    or the ``prim_chain`` kernel) plus :func:`_conn_edges`."""
+    or the ``prim_chain`` kernel) or Boruvka, plus :func:`_conn_edges`."""
+    if mst_kernel == "boruvka":
+        return _mst_conn_boruvka(dbar, unvis, cur, n, lam)
     chain = prim_kernels.prim_chain if mst_kernel == "prim_chain" else prim_kernels.prim_chain_reference
     tot, deg = chain(dbar, unvis, n, lam)
     conn, bump = _conn_edges(dbar, unvis, cur, n, lam)
@@ -641,47 +727,30 @@ def _batched_mst_bound(dbar, pi, unvis, cur, p_cost, n, node_ascent=0, ascent_st
 # ---------------------------------------------------------------------------
 
 
-def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
-                 use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim",
-                 push_order: str = "best-first", push_block: int = 0,
-                 step_kernel: str = "reference"):
-    """Pop <= k nodes, re-bound, expand, prune, push
-    (``branch_bound.py:1108-1411``).
+class _Popped(NamedTuple):
+    """What the pop stage of a step hands to the push: the popped rows, the
+    children's columns and flags, and the updated incumbent."""
 
-    ``step_kernel``: "reference" (build the ``[k*n, C]`` candidate block,
-    compact it, write it at the stack top) or "fused" (``push_rows`` builds
-    and stores only the pushed rows; the hand kernel on a CUDA device).
-    Both share every screen, flag and destination, so the live prefix is
-    bit-identical; only dead rows past the count can differ.
+    p: torch.Tensor  # [k, P + W + 4] the popped rows, a copy
+    take: torch.Tensor  # 0-d number of popped nodes
+    ccost: torch.Tensor  # [k, n] child prefix costs
+    cbound: torch.Tensor  # [k, n] child bounds
+    child_sum: torch.Tensor  # [k, n] child carried weight sums
+    push: torch.Tensor  # [k, n] children to push
+    inc_cost: torch.Tensor
+    inc_tour: torch.Tensor
 
-    Returns ``(frontier', inc_cost', inc_tour', popped)``. The frontier's
-    node buffer is updated IN PLACE (the JAX step donates it); count and
-    overflow are new 0-d tensors. Nothing here waits for the device
-    (no host scalar becomes a device tensor, no data-dependent shape),
-    except the ``n_push`` read that a ``push_block`` cap needs.
-    """
+
+def _pop_stage(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
+               use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim") -> _Popped:
+    """Pop <= k nodes, re-prune and re-bound them, evaluate all k*n children,
+    take completions into the incumbent, and flag the children to push
+    (``branch_bound.py:1108-1290``)."""
     nodes = fr.nodes
-    f_phys = nodes.shape[0]
-    if f_phys <= k * n:
-        raise ValueError(
-            f"frontier buffer has {f_phys} rows but the push block needs "
-            f"k*n = {k * n} (+>=1 logical slot); lower k or raise capacity"
-        )
-    if push_order not in ("best-first", "natural"):
-        raise ValueError(f"unknown push_order {push_order!r} (expected best-first|natural)")
-    if push_block < 0:
-        raise ValueError(f"push_block must be >= 0, got {push_block}")
-    if step_kernel not in ("reference", "fused"):
-        raise ValueError(f"unknown step_kernel {step_kernel!r} (expected reference|fused)")
-    if step_kernel == "fused" and push_block:
-        raise ValueError("push_block is a reference-kernel knob; "
-                         "step_kernel='fused' writes pushed rows only")
     dev = nodes.device
     integral = bd.integral
-    f_cap = f_phys - k * n
     w = (n + 31) // 32
     pw = _path_words(n)
-    kn = k * n
     lanes = torch.arange(k, dtype=torch.int32, device=dev)
     take = torch.clamp(fr.count, max=k)
     idx = torch.clamp(fr.count - 1 - lanes, min=0)
@@ -741,29 +810,79 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     else:
         push = feasible & ~is_complete & (cbound < new_inc_cost)
     child_sum = p_sum[:, None] - bd.min_out[None, :]
+    return _Popped(p, take, ccost, cbound, child_sum, push, new_inc_cost, new_inc_tour)
 
+
+def _push_rank(push: torch.Tensor, cbound: torch.Tensor, push_order: str) -> torch.Tensor:
+    """Each pushed child's slot above the stack base, flat ``[k*n]``
+    (``branch_bound.py:1296-1330``): "natural" keeps parent-major order;
+    "best-first" orders children DESC by bound within each parent and
+    parents DESC by their best child, with stable sorts as jnp's, so the
+    best child lands on top."""
+    k, n = push.shape
+    dev = push.device
     flat_push = push.reshape(-1)
     if push_order == "natural":
-        rank = torch.cumsum(flat_push.to(torch.int32), 0) - 1
-    else:
-        # two-level best-first order: children DESC by bound within each
-        # parent, parents DESC by their best child; stable sorts, as jnp's
-        keys = torch.where(push, cbound, -INF)
-        child_ord = torch.argsort(-keys, dim=1, stable=True)
-        best_child = torch.where(push, cbound, INF).amin(dim=1)
-        parent_key = torch.where(torch.isfinite(best_child), best_child, -INF)
-        parent_ord = torch.argsort(-parent_key, stable=True)
-        ar_k = torch.arange(k, dtype=torch.int64, device=dev)
-        inv_parent = torch.empty(k, dtype=torch.int64, device=dev)
-        inv_parent[parent_ord] = ar_k
-        inv_child = torch.empty((k, n), dtype=torch.int64, device=dev)
-        inv_child.scatter_(1, child_ord, torch.arange(n, device=dev).expand(k, n).contiguous())
-        prio = (inv_parent[:, None] * n + inv_child).reshape(-1)  # a permutation of [kn]
-        flags_in_order = torch.empty(kn, dtype=torch.int64, device=dev)
-        flags_in_order[prio] = flat_push.to(torch.int64)
-        rank = torch.cumsum(flags_in_order, 0)[prio] - 1
+        return torch.cumsum(flat_push.to(torch.int32), 0) - 1
+    keys = torch.where(push, cbound, -INF)
+    child_ord = torch.argsort(-keys, dim=1, stable=True)
+    best_child = torch.where(push, cbound, INF).amin(dim=1)
+    parent_key = torch.where(torch.isfinite(best_child), best_child, -INF)
+    parent_ord = torch.argsort(-parent_key, stable=True)
+    ar_k = torch.arange(k, dtype=torch.int64, device=dev)
+    inv_parent = torch.empty(k, dtype=torch.int64, device=dev)
+    inv_parent[parent_ord] = ar_k
+    inv_child = torch.empty((k, n), dtype=torch.int64, device=dev)
+    inv_child.scatter_(1, child_ord, torch.arange(n, device=dev).expand(k, n).contiguous())
+    prio = (inv_parent[:, None] * n + inv_child).reshape(-1)  # a permutation of [kn]
+    flags_in_order = torch.empty(k * n, dtype=torch.int64, device=dev)
+    flags_in_order[prio] = flat_push.to(torch.int64)
+    return torch.cumsum(flags_in_order, 0)[prio] - 1
+
+
+def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
+                 use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim",
+                 push_order: str = "best-first", push_block: int = 0,
+                 step_kernel: str = "reference"):
+    """Pop <= k nodes, re-bound, expand, prune, push
+    (``branch_bound.py:1108-1411``): :func:`_pop_stage`, :func:`_push_rank`,
+    then the push.
+
+    ``step_kernel``: "reference" (build the ``[k*n, C]`` candidate block,
+    compact it, write it at the stack top) or "fused" (``push_rows`` builds
+    and stores only the pushed rows; the hand kernel on a CUDA device).
+    Both share every screen, flag and destination, so the live prefix is
+    bit-identical; only dead rows past the count can differ.
+
+    Returns ``(frontier', inc_cost', inc_tour', popped)``. The frontier's
+    node buffer is updated IN PLACE (the JAX step donates it); count and
+    overflow are new 0-d tensors. Nothing here waits for the device
+    (no host scalar becomes a device tensor, no data-dependent shape),
+    except the ``n_push`` read that a ``push_block`` cap needs.
+    """
+    nodes = fr.nodes
+    f_phys = nodes.shape[0]
+    if f_phys <= k * n:
+        raise ValueError(
+            f"frontier buffer has {f_phys} rows but the push block needs "
+            f"k*n = {k * n} (+>=1 logical slot); lower k or raise capacity"
+        )
+    if push_order not in ("best-first", "natural"):
+        raise ValueError(f"unknown push_order {push_order!r} (expected best-first|natural)")
+    if push_block < 0:
+        raise ValueError(f"push_block must be >= 0, got {push_block}")
+    if step_kernel not in ("reference", "fused"):
+        raise ValueError(f"unknown step_kernel {step_kernel!r} (expected reference|fused)")
+    if step_kernel == "fused" and push_block:
+        raise ValueError("push_block is a reference-kernel knob; "
+                         "step_kernel='fused' writes pushed rows only")
+    f_cap = f_phys - k * n
+    kn = k * n
+    pop = _pop_stage(fr, inc_cost, inc_tour, d, bd, k, n, use_mst, node_ascent, mst_kernel)
+    rank = _push_rank(pop.push, pop.cbound, push_order)
+    flat_push = pop.push.reshape(-1)
     n_push = flat_push.sum().to(torch.int32)
-    base = fr.count - take
+    base = fr.count - pop.take
 
     if step_kernel == "fused":
         # the fused push: destination rows from the same rank as the
@@ -771,14 +890,15 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
         # ``p`` is the gathered copy of the popped rows, since the
         # destinations start at count - take, the slots they came from
         dest = torch.where(flat_push, base + rank, f_phys).to(torch.int32).reshape(k, n)
-        expand_kernels.push_rows(nodes, p, dest, ccost, cbound, child_sum, n)
+        expand_kernels.push_rows(nodes, pop.p, dest, pop.ccost, pop.cbound, pop.child_sum, n)
     else:
-        _reference_push(nodes, p, ccost, cbound, child_sum, flat_push, rank, base, n, push_block)
+        _reference_push(nodes, pop.p, pop.ccost, pop.cbound, pop.child_sum, flat_push, rank, base, n,
+                        push_block)
 
     new_count = base + n_push
     overflow = fr.overflow | (new_count > f_cap) | (base > f_phys - kn)
     new_count = torch.clamp(new_count, max=f_cap)
-    return Frontier(nodes, new_count, overflow), new_inc_cost, new_inc_tour, take
+    return Frontier(nodes, new_count, overflow), pop.inc_cost, pop.inc_tour, pop.take
 
 
 def _reference_push(nodes, parents, ccost, cbound, child_sum, flat_push, rank, base, n: int,
@@ -802,14 +922,17 @@ def _reference_push(nodes, parents, ccost, cbound, child_sum, flat_push, rank, b
 
 
 def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
-                 inner_steps: int, **step_kw):
+                 inner_steps: int, step0: int = 0, step_ann=_obs_tracing._null_annotation,
+                 **step_kw):
     """Up to ``inner_steps`` expansion steps, stopping when the frontier is
-    empty (one count read per step). Returns (frontier, inc_cost,
-    inc_tour, popped, steps run)."""
+    empty (one count read per step). ``step_ann(step0 + i)`` wraps step i
+    (a profiler range while a trace is captured). Returns (frontier,
+    inc_cost, inc_tour, popped, steps run)."""
     popped = torch.zeros((), dtype=torch.int64, device=fr.nodes.device)
     steps = 0
     while steps < inner_steps and _read_count(fr)[0] > 0:
-        fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
+        with step_ann(step0 + steps):
+            fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
         popped = popped + take
         steps += 1
     return fr, inc_cost, inc_tour, int(popped), steps
@@ -881,7 +1004,8 @@ def _compact_frontier(fr: Frontier, inc_cost, integral: bool,
 
 def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
                           max_steps: int, reorder_every: int = 0, step0: int = 0,
-                          deadline: Optional[float] = None, **step_kw):
+                          deadline: Optional[float] = None,
+                          step_ann=_obs_tracing._null_annotation, **step_kw):
     """Up to ``max_steps`` expansion steps with a per-step capacity guard
     (``branch_bound.py:1617-1702``): compact when the count passes
     ``f_cap - headroom``, and when compaction cannot get below that line,
@@ -899,7 +1023,8 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
     ``(frontier, inc_cost, inc_tour, popped, steps, t_improved, expanded)``;
     ``t_improved`` is the ``perf_counter`` time of the last incumbent
     improvement, None if none; ``expanded`` counts the steps that expanded
-    (all but a final stop on a full stack).
+    (all but a final stop on a full stack). ``step_ann(step0 + i)`` wraps
+    step i (a profiler range while a trace is captured).
     """
     dev = fr.nodes.device
     f_cap = max(fr.nodes.shape[0] - k * n, 1)
@@ -919,7 +1044,8 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
         i += 1
         if not full:
             ic_before = inc_cost
-            fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
+            with step_ann(step0 + i - 1):
+                fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
             popped = popped + take
             expanded += 1
             cnt, overflow, improved = _read_count(fr, inc_cost < ic_before)
@@ -1348,15 +1474,13 @@ def solve(
     from; the ILS is skipped, the snapshot's rows fix the capacity
     (rows - k*n), a non-empty reservoir or a count inside the spill band
     is exchanged before the first step, and the snapshot's certified LB
-    floors the reported ``lower_bound``. ``ascent="device"`` raises
-    ``ValueError``.
+    floors the reported ``lower_bound``. ``ascent``: where the root
+    ascent runs ("host" or "device", :func:`_bound_setup`).
     """
     t_setup = time.perf_counter()
     n = d.shape[0]
     if not 3 <= n <= MAX_BNB_CITIES:
         raise ValueError(f"B&B engine supports 3 <= n <= {MAX_BNB_CITIES} cities, got {n}")
-    if ascent != "host":
-        _not_ported(f"ascent={ascent!r}")
     device = torch.device(device)
     mst_kernel = _resolve_mst_kernel(mst_kernel, device)
     step_kernel = _resolve_step_kernel(step_kernel, device)
@@ -1367,7 +1491,7 @@ def solve(
 
     d32 = torch.as_tensor(np.asarray(d, np.float32), device=device)
     t_asc = time.perf_counter()
-    bd = _bound_setup(d, bound, node_ascent=node_ascent, device=device)
+    bd = _bound_setup(d, bound, node_ascent=node_ascent, ascent=ascent, device=device)
     ascent_s = time.perf_counter() - t_asc
     min_out_np = bd.min_out.cpu().numpy().astype(np.float64)
     integral = bd.integral
@@ -1422,6 +1546,10 @@ def solve(
     # the certified floor of every save: both terms are fixed before the loop
     lbf = float(max(lb_floor, bd.root_lb))
 
+    # the profiler step range, resolved once (a shared nullcontext unless a
+    # device_trace capture runs around this solve)
+    step_ann = _obs_tracing.step_annotation_factory()
+
     def timed_save():
         t_save = time.perf_counter()
         save(checkpoint_path, fr, inc_cost, inc_tour, d=d, bound=bound, reservoir=reservoir,
@@ -1433,7 +1561,8 @@ def solve(
             budget = _dispatch_budget(max_iters - it, (2**31 - 1) // max(k, 1),
                                       checkpoint_every - (it - last_ckpt) if periodic else None)
             fr, inc_cost, inc_tour, popped, steps, t_improved, expanded = _guarded_expand_steps(
-                fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, deadline, **step_kw
+                fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, deadline,
+                step_ann=step_ann, **step_kw
             )
             nodes += popped
             steps_run += expanded
@@ -1445,7 +1574,7 @@ def solve(
                 break  # exactness already lost (only if the guard was bypassed)
         else:
             fr, inc_cost, inc_tour, popped, steps = _expand_loop(
-                fr, inc_cost, inc_tour, d32, bd, k, n, inner, **step_kw
+                fr, inc_cost, inc_tour, d32, bd, k, n, inner, it, step_ann, **step_kw
             )
             nodes += popped
             steps_run += steps

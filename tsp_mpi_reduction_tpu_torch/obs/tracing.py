@@ -28,10 +28,10 @@ When no sink is configured (the default) every entry point is a cheap
 no-op — :func:`span` yields a shared null span, :func:`add_event` returns
 immediately — so production paths pay one attribute check.
 
-Counterpart of ``tsp_mpi_reduction_tpu/obs/tracing.py`` without its
-profiler step annotations: those wrap an expansion dispatch in a device
-profiler's step marker while a device trace is being captured, and the
-port has no such capture yet (it comes with the CLI's ``--trace``).
+Counterpart of ``tsp_mpi_reduction_tpu/obs/tracing.py``. Its profiler
+step annotations (:func:`step_annotation_factory`) are
+``torch.profiler.record_function("bnb_step")`` ranges here, present only
+while a ``utils.profiling.device_trace`` capture runs.
 """
 
 from __future__ import annotations
@@ -410,6 +410,36 @@ def emit_span(
         }
     )
     return (trace_id, span_id)
+
+
+# -- profiler step annotations ---------------------------------------------------
+
+#: shared reusable null context (nullcontext instances are re-enterable);
+#: the untraced hot path must not allocate one per step
+_NULL_CTX = contextlib.nullcontext()
+
+
+def _null_annotation(step: int):
+    return _NULL_CTX
+
+
+def step_annotation(step: int):
+    """A ``bnb_step`` profiler range for one B&B expansion step, active ONLY
+    while a ``device_trace`` capture is running (and obs is enabled)."""
+    return step_annotation_factory()(step)
+
+
+def step_annotation_factory():
+    """Resolve the per-step annotation ONCE per solve: the capture wraps the
+    whole call, so its state cannot change inside a solve. Untraced, every
+    step pays one call that returns a shared nullcontext."""
+    from ..utils import profiling
+
+    if not (profiling.trace_active() and _obs_enabled()):
+        return _null_annotation
+    import torch
+
+    return lambda step: torch.profiler.record_function(f"bnb_step#{int(step)}")
 
 
 # -- reconstruction ------------------------------------------------------------

@@ -27,13 +27,18 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .distance import edge_length
+
 
 class PaddedTour(NamedTuple):
-    """A closed tour in a fixed-size buffer.
+    """A closed tour in a fixed-size buffer, or a batch of them.
 
-    ids:    [P] int32 global city ids; entries past ``length`` are 0.
-    length: 0-dim int32, valid entries INCLUDING the closing duplicate.
-    cost:   0-dim float, the accumulated (formulaic) tour cost.
+    ids:    [..., P] int32 global city ids; entries past ``length`` are 0.
+    length: [...] int32, valid entries INCLUDING the closing duplicate.
+    cost:   [...] float, the accumulated (formulaic) tour cost.
+
+    Every operator below takes any leading batch shape (none for one tour):
+    the tree fold merges a round's pairs as one batch.
     """
 
     ids: torch.Tensor
@@ -41,32 +46,37 @@ class PaddedTour(NamedTuple):
     cost: torch.Tensor
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx[...]]``: one index per batch entry of ``x`` ``[..., P]``."""
+    return x.gather(-1, idx[..., None])[..., 0]
+
+
 def _tour_edges(t1: PaddedTour, t2: PaddedTour):
     """Edge endpoint ids (a, b) of tour 1 and (r1, r2) of tour 2 as int64,
     with the successor of the last valid lane (and of padding) at 0."""
-    i1 = torch.arange(t1.ids.shape[0], device=t1.ids.device)
-    i2 = torch.arange(t2.ids.shape[0], device=t2.ids.device)
-    nxt1 = torch.where(i1 + 1 >= t1.length, 0, i1 + 1)
-    nxt2 = torch.where(i2 + 1 >= t2.length, 0, i2 + 1)
+    i1 = torch.arange(t1.ids.shape[-1], device=t1.ids.device)
+    i2 = torch.arange(t2.ids.shape[-1], device=t2.ids.device)
+    nxt1 = torch.where(i1 + 1 >= t1.length[..., None], 0, i1 + 1)
+    nxt2 = torch.where(i2 + 1 >= t2.length[..., None], 0, i2 + 1)
     ids1, ids2 = t1.ids.long(), t2.ids.long()
-    return ids1, ids1[nxt1], ids2, ids2[nxt2]
+    return ids1, ids1.gather(-1, nxt1), ids2, ids2.gather(-1, nxt2)
 
 
 def _merge_from_sc(t1: PaddedTour, t2: PaddedTour, sc: torch.Tensor) -> PaddedTour:
-    """Mask invalid lanes of the ``[P1, P2]`` swap costs, take the first
-    minimum in i-major order, splice, and apply the formulaic cost."""
-    p1, p2 = t1.ids.shape[0], t2.ids.shape[0]
+    """Mask invalid lanes of the ``[..., P1, P2]`` swap costs, take the
+    first minimum in i-major order, splice, and apply the formulaic cost."""
+    p1, p2 = t1.ids.shape[-1], t2.ids.shape[-1]
     dev = sc.device
     i1 = torch.arange(p1, device=dev)
     i2 = torch.arange(p2, device=dev)
-    valid = (i1[:, None] < t1.length) & (i2[None, :] < t2.length)
+    valid = (i1[:, None] < t1.length[..., None, None]) & (i2[None, :] < t2.length[..., None, None])
     sc = torch.where(valid, sc, torch.tensor(float("inf"), dtype=sc.dtype, device=dev))
 
-    flat_sc = sc.reshape(-1)
-    flat = flat_sc.argmin()  # first minimum in i-major, j-minor order
+    flat_sc = sc.flatten(-2)
+    flat = flat_sc.argmin(dim=-1)  # first minimum in i-major, j-minor order
     i_star = flat // p2
     j_star = flat - i_star * p2
-    best_swap = flat_sc[flat]
+    best_swap = _take(flat_sc, flat)
 
     out, out_len = _splice(t1.ids, t1.length, t2.ids, t2.length, i_star, j_star)
     return PaddedTour(out, out_len, (t1.cost + t2.cost) + best_swap)
@@ -83,7 +93,30 @@ def merge_tours(t1: PaddedTour, t2: PaddedTour, dist: torch.Tensor) -> PaddedTou
     # ((d(a, r2) + d(b, r1)) - d(a, b)) - d(r1, r2)
     d_ab = dist[a, b]
     d_r = dist[r1, r2]
-    sc = (dist[a[:, None], r2[None, :]] + dist[b[:, None], r1[None, :]] - d_ab[:, None]) - d_r[None, :]
+    sc = (dist[a[..., :, None], r2[..., None, :]] + dist[b[..., :, None], r1[..., None, :]]
+          - d_ab[..., :, None]) - d_r[..., None, :]
+    return _merge_from_sc(t1, t2, sc)
+
+
+def merge_tours_xy(t1: PaddedTour, t2: PaddedTour, xy: torch.Tensor) -> PaddedTour:
+    """:func:`merge_tours` with the swap costs computed from the ``[N, 2]``
+    coordinates ``xy`` (in the cost dtype) instead of gathered from a
+    resident ``[N, N]`` matrix: each tour's coordinates are gathered once
+    and the four distance blocks are broadcast norms.
+
+    ``edge_length`` squares, adds and takes the root as separate
+    elementwise ops, as :func:`ops.distance.distance_matrix` does, so every
+    distance equals the matrix entry bit for bit and the merge equals
+    :func:`merge_tours` on that matrix.
+    """
+    a, b, r1, r2 = _tour_edges(t1, t2)
+    xa, xb = xy[a], xy[b]  # [..., P1, 2]: one row gather per tour position
+    x1, x2 = xy[r1], xy[r2]  # [..., P2, 2]
+    d_ab = edge_length(xa, xb)
+    d_r = edge_length(x1, x2)
+    sc = (edge_length(xa[..., :, None, :], x2[..., None, :, :])
+          + edge_length(xb[..., :, None, :], x1[..., None, :, :])
+          - d_ab[..., :, None]) - d_r[..., None, :]
     return _merge_from_sc(t1, t2, sc)
 
 
@@ -98,33 +131,32 @@ def _splice(ids1, len1, ids2, len2, i_star, j_star) -> Tuple[torch.Tensor, torch
     - If the value is absent the reference spins forever (quirk #6); the
       positional index is used instead.
     """
-    p1, p2 = ids1.shape[0], ids2.shape[0]
+    p1, p2 = ids1.shape[-1], ids2.shape[-1]
     dev = ids1.device
     i1 = torch.arange(p1, device=dev)
     i2 = torch.arange(p2, device=dev)
     l2p = len2 - 1  # tour 2 with its closing duplicate popped
-    vj = ids2[j_star]
-    match2 = (ids2 == vj) & (i2 < l2p)
-    first = match2.to(torch.int32).argmax()  # CUDA has no argmax over bool
-    p2_rot = torch.where(match2.any(), first, torch.where(j_star >= l2p, 0, j_star))
-    a_id = ids1[i_star]
-    b_id = ids1[torch.where(i_star + 1 >= len1, 0, i_star + 1)]
+    vj = _take(ids2, j_star)
+    match2 = (ids2 == vj[..., None]) & (i2 < l2p[..., None])
+    first = match2.to(torch.int32).argmax(dim=-1)  # CUDA has no argmax over bool
+    p2_rot = torch.where(match2.any(dim=-1), first, torch.where(j_star >= l2p, 0, j_star))
+    a_id = _take(ids1, i_star)
+    b_id = _take(ids1, torch.where(i_star + 1 >= len1, 0, i_star + 1))
 
-    match = ((ids1 == a_id) | (ids1 == b_id)) & (i1 < len1)
-    q = match.to(torch.int32).argmax()  # first matching position
+    match = ((ids1 == a_id[..., None]) | (ids1 == b_id[..., None])) & (i1 < len1[..., None])
+    q = match.to(torch.int32).argmax(dim=-1)  # first matching position
 
     out_len = len1 + l2p
     # tour-2 positions walk backwards from the right-edge head:
     # rr[u] = ids2[(p2_rot - u) mod l2p], a floor modulo (p2_rot - u < 0)
-    u = i1 - q - 1
-    src2 = torch.remainder(p2_rot - u, torch.clamp(l2p, min=1))
-    from_t1_head = i1 <= q
-    from_t2 = (~from_t1_head) & (i1 <= q + l2p)
-    idx1 = torch.where(from_t1_head, i1, torch.clamp(i1 - l2p, min=0))
-    out = torch.where(
-        from_t2, ids2[torch.clamp(src2, 0, p2 - 1)], ids1[torch.clamp(idx1, 0, p1 - 1)]
-    )
-    out = torch.where(i1 < out_len, out, 0).to(torch.int32)
+    u = i1 - q[..., None] - 1
+    src2 = torch.remainder(p2_rot[..., None] - u, torch.clamp(l2p, min=1)[..., None])
+    from_t1_head = i1 <= q[..., None]
+    from_t2 = (~from_t1_head) & (i1 <= (q + l2p)[..., None])
+    idx1 = torch.where(from_t1_head, i1, torch.clamp(i1 - l2p[..., None], min=0))
+    out = torch.where(from_t2, ids2.gather(-1, torch.clamp(src2, 0, p2 - 1)),
+                      ids1.gather(-1, torch.clamp(idx1, 0, p1 - 1)))
+    out = torch.where(i1 < out_len[..., None], out, 0).to(torch.int32)
     return out, out_len.to(torch.int32)
 
 
@@ -165,3 +197,55 @@ def fold_tours(
     for i in range(1, b):
         acc = merge_tours(acc, PaddedTour(tours[i], length, costs[i]), dist)
     return acc.ids, acc.length, acc.cost
+
+
+def fold_tours_tree(
+    tours: torch.Tensor, costs: torch.Tensor, dist: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tree-shaped fold: ceil(log2 B) rounds, each merging the pairs
+    (2i, 2i+1) of the surviving tours as ONE batched merge.
+
+    The alternative to :func:`fold_tours`'s B-1 dependent merges. A round's
+    buffers are sized for its merged tours (``P_left + P_right - 1``), so
+    early rounds stay small; an odd tour is carried to the next round
+    unmerged. The merge is not associative, so the result differs from the
+    sequential fold's: the reference folds sequentially inside a rank
+    (tsp.cpp:348-352) and by a binary tree across ranks (tsp.cpp:52-134).
+    Byte parity with the oracle needs :func:`fold_tours`.
+
+    Args and returns as :func:`fold_tours`, except that the ids buffer is
+    sized ``2^ceil(log2 B) * (L-1) + 1``; slice it by the returned length.
+    """
+    return _fold_tree(tours, costs, dist, merge_tours)
+
+
+def fold_tours_tree_xy(
+    tours: torch.Tensor, costs: torch.Tensor, xy: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`fold_tours_tree` on :func:`merge_tours_xy`: swap costs from
+    the ``[N, 2]`` coordinates ``xy`` (cost dtype), no ``[N, N]`` matrix."""
+    return _fold_tree(tours, costs, xy, merge_tours_xy)
+
+
+def _fold_tree(tours, costs, ctx, merge_fn):
+    """The rounds of the tree fold; the surviving tours are one stacked
+    ``PaddedTour`` of shape ``[m, P]``."""
+    tours = tours.to(torch.int32)
+    b, l = tours.shape
+    cur = PaddedTour(tours, torch.full((b,), l, dtype=torch.int32, device=tours.device), costs)
+    while cur.ids.shape[0] > 1:
+        m, p = cur.ids.shape
+        pairs = m // 2
+        out_cap = 2 * p - 1
+        pad = out_cap - p
+        left = PaddedTour(torch.nn.functional.pad(cur.ids[0 : 2 * pairs : 2], (0, pad)),
+                          cur.length[0 : 2 * pairs : 2], cur.cost[0 : 2 * pairs : 2])
+        right = PaddedTour(cur.ids[1 : 2 * pairs : 2], cur.length[1 : 2 * pairs : 2],
+                           cur.cost[1 : 2 * pairs : 2])
+        merged = merge_fn(left, right, ctx)
+        if m % 2:
+            odd = torch.nn.functional.pad(cur.ids[-1:], (0, pad))
+            merged = PaddedTour(torch.cat([merged.ids, odd]), torch.cat([merged.length, cur.length[-1:]]),
+                                torch.cat([merged.cost, cur.cost[-1:]]))
+        cur = merged
+    return cur.ids[0], cur.length[0], cur.cost[0]

@@ -1,8 +1,11 @@
-"""Held-Karp 1-tree lower bound, host float64 half.
+"""Held-Karp 1-tree lower bound: the device ascent and the host float64 half.
 
-Counterpart of ``tsp_mpi_reduction_tpu/ops/one_tree.py:120-217``: plain
-numpy, the functions the branch-and-bound setup runs by default
-(``ascent="host"``). For node potentials pi the reduced costs
+Counterpart of ``tsp_mpi_reduction_tpu/ops/one_tree.py``. The host half
+(``*_np``, plain numpy) is what the branch-and-bound setup runs by default
+(``ascent="host"``); :func:`held_karp_potentials` is the same ascent in
+torch ops on the solve's device (``ascent="device"``, float32 there), with
+the JAX package's float adds and first-index ties, and no host read
+inside its loop. For node potentials pi the reduced costs
 ``dbar[i,j] = d[i,j] + pi[i] + pi[j]`` give, for every tour,
 ``tour_d = tour_dbar - 2*sum(pi)``, and every tour is a 1-tree, so
 
@@ -15,7 +18,77 @@ the potentials and re-evaluates the root bound with ``one_tree_value_np``.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+import torch
+
+INF = float("inf")
+
+
+def mst_cost_degrees(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prim's MST of a dense symmetric ``[m, m]`` matrix (+inf on the
+    diagonal and on forbidden edges), rooted at vertex 0 -> (0-d cost in
+    ``d``'s dtype, int32 degrees ``[m]``); ties to the first index, the
+    cost accumulated in step order (``one_tree.py:32-64``)."""
+    m = d.shape[0]
+    ar = torch.arange(m, device=d.device)
+    in_tree = ar == 0
+    mindist = d[0]
+    closest = torch.zeros(m, dtype=torch.int64, device=d.device)
+    deg = torch.zeros(m, dtype=torch.int32, device=d.device)
+    cost = torch.zeros((), dtype=d.dtype, device=d.device)
+    for _ in range(m - 1):
+        cand = torch.where(in_tree, INF, mindist)
+        u = cand.argmin()
+        deg = deg + (ar == u).to(torch.int32) + (ar == closest[u]).to(torch.int32)
+        in_tree = in_tree | (ar == u)
+        du = d[u]
+        better = ~in_tree & (du < mindist)
+        mindist = torch.where(better, du, mindist)
+        closest = torch.where(better, u, closest)
+        cost = cost + cand[u]
+    return cost, deg
+
+
+def one_tree_cost_degrees(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-tree value and degrees: the MST over vertices 1..n-1 plus the two
+    cheapest edges at vertex 0 (``lax.top_k``'s order: ascending value,
+    lower index first on ties). ``d`` ``[n, n]`` with an inf diagonal."""
+    n = d.shape[0]
+    mst_cost, mst_deg = mst_cost_degrees(d[1:, 1:])
+    row = d[0, 1:]
+    i1 = row.argmin()
+    i2 = torch.where(torch.arange(n - 1, device=d.device) == i1, INF, row).argmin()
+    ar = torch.arange(n, device=d.device)
+    deg = torch.cat([torch.full((1,), 2, dtype=torch.int32, device=d.device), mst_deg])
+    deg = deg + (ar == i1 + 1).to(torch.int32) + (ar == i2 + 1).to(torch.int32)
+    return mst_cost + (row[i1] + row[i2]), deg
+
+
+def held_karp_potentials(d: torch.Tensor, steps: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Subgradient ascent on the 1-tree bound on ``d``'s device and dtype
+    -> (pi, best_bound), the twin of :func:`held_karp_potentials_np`: step
+    ``t0 * decay^i`` with ``t0 = max(w0, 1) / (2n)`` and a decay that
+    shrinks the step by 1e-3 over the horizon; the best (pi, w) seen is
+    kept. Every step stays on the device: no host read in the loop."""
+    n = d.shape[0]
+    if n < 3:
+        raise ValueError(f"1-tree bound needs n >= 3 cities, got {n}")
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=d.device), INF, d)
+    pi = torch.zeros(n, dtype=d.dtype, device=d.device)
+    best_pi = pi
+    best_w = torch.tensor(-INF, dtype=d.dtype, device=d.device)
+    w0, _ = one_tree_cost_degrees(d)
+    t0 = torch.clamp(w0, min=1.0) / (2.0 * n)
+    decay = torch.tensor(1e-3, dtype=d.dtype, device=d.device) ** (1.0 / max(steps, 1))
+    for i in range(steps):
+        w, deg = one_tree_cost_degrees(d + (pi[:, None] + pi[None, :]))
+        w = w - 2.0 * pi.sum()
+        best_pi = torch.where(w > best_w, pi, best_pi)
+        best_w = torch.maximum(best_w, w)
+        pi = pi + (t0 * decay**i) * (deg - 2).to(d.dtype)
+    return best_pi, best_w
 
 
 def one_tree_np(d64, pi64):

@@ -20,7 +20,11 @@ line. The campaign opens a ``bnb.campaign`` span and one
 ``bnb.solve`` span under its attempt through ``TSP_TRACE_PARENT``, so a
 campaign traced to ``TSP_TRACE`` is one span tree. Unlike the JAX
 driver's, the summary carries no compile-cache block: the port's kernels
-are built once into ``build/torch_ext/`` and loaded by every chunk.
+are built once into ``build/torch_ext/`` and loaded by every chunk. The
+chunks share one root-ascent memo directory (``TSP_COMPILE_CACHE``, by
+default ``compile_cache/`` beside the checkpoint), so chunk 2 onwards
+reads the ascent's potentials instead of running it; each chunk's line
+carries the memo's hits and misses.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import tempfile
 import time
 
 from ..obs import tracing as _tracing
+from ..perf import ascent_memo as _memo
 from ..resilience import checkpoint as _ck
 
 #: the directory that holds the package, for the chunks' ``python -m``
@@ -132,6 +137,12 @@ def main(argv=None) -> int:
     child_env = dict(os.environ)
     child_env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_ROOT, child_env.get("PYTHONPATH")) if p)
+    # every chunk shares one memo dir: chunk 1 writes the root ascent's
+    # potentials, later chunks read them (a campaign-local dir next to the
+    # checkpoint unless TSP_COMPILE_CACHE says otherwise, "off" included)
+    if _memo.ENV_VAR not in child_env:
+        child_env[_memo.ENV_VAR] = os.path.join(os.path.dirname(os.path.abspath(ckpt_real)) or ".",
+                                                "compile_cache")
     # one campaign = one span tree: the root opens here (under a caller's
     # TSP_TRACE_PARENT, if any), each chunk attempt is a child span, and
     # each chunk process's bnb.solve span attaches under its attempt

@@ -8,8 +8,10 @@
 Counterpart of ``tools/bnb_solve.py``, single device. The instance is an
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
-computes (the host reservoir's ``spill_*`` counters and the ``health``
-block included), ``null`` for the telemetry blocks it does not port yet,
+computes (the host reservoir's ``spill_*`` counters, the ``health``
+block, and a ``compile_cache`` block that holds the root-ascent memo's
+``ascent_memo_hits``/``ascent_memo_misses``), ``null`` for the telemetry
+blocks it does not port yet,
 the resolved ``mst_kernel``, ``step_kernel`` and ``device_loop``, the
 launches of the ``prim_chain`` and ``push_rows`` kernels in the solve, and
 the host seconds of the snapshot's saves and restore. On a GPU the
@@ -18,7 +20,9 @@ defaults run the device loop with both kernels. ``--backend=auto`` and
 ``--resume`` read and write the TSPCKPT1 snapshots of the JAX package's
 driver, so a chunk of either package resumes in the other. The solve
 runs inside a ``bnb.solve`` span that attaches under
-``TSP_TRACE_PARENT`` (the chunked driver sets it per chunk).
+``TSP_TRACE_PARENT`` (the chunked driver sets it per chunk). This tool
+turns the memo's disk tier on (``perf/ascent_memo.py``,
+``TSP_COMPILE_CACHE``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import List, Optional
 
 
 def result_payload(res, inst, args, device, launches: dict, health: dict,
-                   ckpt_bytes: Optional[int]) -> dict:
+                   ckpt_bytes: Optional[int], memo: dict) -> dict:
     """The one-line JSON payload (schema of the JAX driver's
     ``result_payload``, single device, plus the port's own keys)."""
     opt = inst.known_optimum
@@ -74,7 +78,7 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
         "spill_bytes_to_host": res.spill_bytes_to_host,
         "spill_bytes_to_device": res.spill_bytes_to_device,
         "health": health,
-        "compile_cache": None,
+        "compile_cache": memo,
         "series": None,
         "anomalies": None,
         "rank_series": None,
@@ -108,9 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bound", default="one-tree", choices=["one-tree", "min-out"])
     ap.add_argument("--node-ascent", type=int, default=2,
                     help="per-node mini-ascent steps on the MST bound (0 disables)")
-    ap.add_argument("--mst-kernel", default="auto", choices=["auto", "prim", "prim_chain"],
-                    help="Prim chain of the MST bound: auto (the prim_chain CUDA kernel "
-                    "on cuda, the plain chain on cpu), prim (plain torch) or prim_chain")
+    ap.add_argument("--mst-kernel", default="auto", choices=["auto", "prim", "prim_chain", "boruvka"],
+                    help="MST bound kernel: auto (the prim_chain CUDA kernel on cuda, the plain "
+                    "chain on cpu), prim (plain torch), prim_chain, or boruvka (log-depth "
+                    "rounds in plain torch ops); all certify the same bound value")
     ap.add_argument("--step-kernel", default="auto", choices=["auto", "reference", "fused"],
                     help="the expansion step's push: auto (the push_rows CUDA kernel on cuda, "
                     "the reference push on cpu), reference (the candidate block) or fused")
@@ -133,6 +138,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..models import branch_bound as bb
     from ..obs import tracing
     from ..ops import expand_kernels, prim_kernels
+    from ..perf import ascent_memo
     from ..resilience.health import HEALTH
     from ..utils import tsplib
     from ..utils.backend import resolve_device
@@ -152,6 +158,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     d = inst.distance_matrix()
 
+    ascent_memo.enable()
     prim_kernels.reset_launches()
     expand_kernels.reset_launches()
     with tracing.span("bnb.solve", parent=tracing.parent_from_env(), instance=inst.name, ranks=1):
@@ -184,7 +191,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     launches = {**prim_kernels.LAUNCHES, **expand_kernels.LAUNCHES}
     ckpt = args.checkpoint and bb._norm_ckpt_path(args.checkpoint)
     ckpt_bytes = os.path.getsize(ckpt) if ckpt and os.path.exists(ckpt) else None
-    print(json.dumps(result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes)))
+    print(json.dumps(result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes,
+                                    ascent_memo.STATS.snapshot())))
     return 0
 
 

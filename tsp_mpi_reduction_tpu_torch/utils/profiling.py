@@ -5,6 +5,7 @@ The reference's only observability is one timer around everything
 phase. PyTorch returns before the device finishes, so each phase ends by
 synchronising the timer's device — the counterpart of JAX's
 ``block_until_ready`` — and a phase's time includes its device work.
+:func:`device_trace` is the ``--trace`` capture (``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import os
 from typing import Dict, Iterator, Optional
 
 import torch
@@ -55,3 +57,45 @@ class PhaseTimer:
         """Accumulate an externally measured duration into a phase."""
         with self._lock:
             self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+
+
+#: is a :func:`device_trace` capture running? (``obs.tracing``'s step
+#: annotations exist exactly when there is a profiler to consume them)
+_TRACE_ACTIVE = False
+
+#: the Chrome/Perfetto trace file of a capture, under its ``trace_dir``
+TRACE_FILE = "trace.json"
+
+
+def trace_active() -> bool:
+    return _TRACE_ACTIVE
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
+    """``torch.profiler`` capture of the block, exported as a Chrome/Perfetto
+    trace JSON to ``trace_dir/trace.json``; a no-op for None.
+
+    CPU activity always, CUDA activity too when ``device`` is a CUDA device
+    (default: whenever CUDA is available). While it runs, the B&B loops
+    wrap every expansion step in a ``bnb_step#<i>`` range
+    (``obs.tracing.step_annotation_factory``).
+    """
+    global _TRACE_ACTIVE
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available() if device is None else torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    _TRACE_ACTIVE = True
+    try:
+        with profile(activities=activities) as prof:
+            yield
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        _TRACE_ACTIVE = False
+    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
