@@ -96,10 +96,30 @@ Phases, each printing its own line; any failure exits non-zero:
     (``tools/step_profile``) under ``prim_chain`` and ``boruvka``; a
     ``--trace``-style capture of 20 steps (its ``bnb_step`` ranges and the
     device-busy share of the steps' window).
+14. the ``serve`` entry point: an in-process ``SolveService`` at the JAX
+    defaults but ``max_batch = 64`` and ``warm_shapes = (16,)`` answers,
+    through ``run_jsonl``, A: 64 requests of 16 random cities (exact
+    Held-Karp flushes), C: 4 of 1024 (the blocked rung: one flush of 64
+    blocks, the merge fold, 6 polish rounds), D: berlin52 and 40 random
+    cities (the certified B&B rung in 0.25 s preemptible slices), E: 4 of
+    200 with a 0.1 ms deadline (greedy), all sent at once, then B: A again,
+    translated and permuted (all cache hits). No errors, no rung failures,
+    every request on its tier, every tour valid; A's tours and costs equal
+    the plain ``dense`` impl's; ``relax_dense_sweep``, ``prim_chain`` and
+    ``push_rows`` launched by the traffic (``launches_serve`` in the
+    kernels line). Then ``python -m
+    tsp_mpi_reduction_tpu_torch serve --in R --out S --stats --warm 16`` in
+    a fresh process on 10 of the requests answers as the service did.
+    Prints A's requests/s, latency quantiles per tier, the flushes, the
+    B&B slices with their save seconds, the cache hit rate and the
+    launches; then a lone 1024-city request split into flush, fold and
+    polish, and C's four requests at once without the other traffic,
+    under the interpreter's switch interval and one 20x shorter.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
-kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run and phase
-13's Boruvka run) runs with the kernels' launch counts
+kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
+13's Boruvka run and phase 14's request traffic) runs with the kernels'
+launch counts
 reset just before and read just after; a kernel of the path that never
 launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
@@ -166,6 +186,16 @@ KRO_CHUNK2_PINNED = {"nodes_expanded": 304_128, "iterations": 300, "cost": 21282
                      "spill_bytes_to_host": 239_271_648, "spill_bytes_to_device": 173_015_040}
 CAMPAIGN_DIR = ROOT / "build" / "chip_smoke_campaign"
 OPTIONS_DIR = ROOT / "build" / "chip_smoke_options"
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+#: phase 14's traffic: group -> (requests, cities, deadline ms); D is
+#: berlin52 (its TSPLIB coordinates) and one random instance of 40 cities
+SERVE_GROUPS = {"A": (64, 16, 5000.0), "C": (4, 1024, 20_000.0), "D": (2, 40, 60_000.0),
+                "E": (4, 200, 0.1)}
+SERVE_SEED = 14
+SERVE_SHIFT = (37.5, -12.25)
+#: the tier each group must be answered on, and its cache provenance
+SERVE_EXPECT = {"A": ("pipeline", "miss"), "B": ("pipeline", "hit"), "C": ("pipeline", "miss"),
+                "D": ("bnb", "miss"), "E": ("greedy", "miss")}
 #: the JAX package's ``10 6 500 500 --backend=cpu --dtype=float64 --improve``
 #: (its CLI on the CPU, in a fresh process)
 IMPROVED_10_6_COST = "3536.044960"
@@ -1293,9 +1323,279 @@ def phase_bnb_options(smi):
     print(f"phase 13 card: {smi}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 14: the serve entry point
+# ---------------------------------------------------------------------------
+
+
+def serve_requests():
+    """Phase 14's requests: the first stream (A, C, D, E) and B, A's
+    instances translated by SERVE_SHIFT with their cities permuted; the
+    permutations come back to check B's relabelled tours."""
+    import numpy as np
+
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    rng = np.random.default_rng(SERVE_SEED)
+    first, perms = [], []
+    for group, (count, n, deadline) in SERVE_GROUPS.items():
+        for i in range(count):
+            if group == "D" and i == 0:
+                xy = tsplib.embedded("berlin52").coords.astype(np.float64)
+            else:
+                xy = rng.uniform(0, 1000, (n, 2))
+            first.append({"id": f"{group}{i}", "xy": xy.tolist(), "deadline_ms": deadline})
+    second = []
+    for req in first[:SERVE_GROUPS["A"][0]]:
+        xy = np.asarray(req["xy"])
+        perm = rng.permutation(xy.shape[0])
+        perms.append(perm)
+        second.append({"id": "B" + req["id"][1:], "xy": (xy[perm] + np.asarray(SERVE_SHIFT)).tolist(),
+                       "deadline_ms": req["deadline_ms"]})
+    return first, second, perms
+
+
+class _TimedSink:
+    """A JSONL sink that stamps the time each response line is written."""
+
+    def __init__(self):
+        self.lines, self.stamps = [], []
+
+    def write(self, text):
+        now = time.perf_counter()
+        for line in text.splitlines():
+            self.lines.append(line)
+            self.stamps.append(now)
+
+    def flush(self):
+        pass
+
+
+def _quantile(values, q):
+    import numpy as np
+
+    return float(np.quantile(np.asarray(values, np.float64), q)) if values else float("nan")
+
+
+def phase_serve(smi):
+    import numpy as np
     import torch
 
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.ops.distance import distance_matrix_np
+    from tsp_mpi_reduction_tpu_torch.serve import canonical as canon
+    from tsp_mpi_reduction_tpu_torch.serve.service import ServiceConfig, SolveService, run_jsonl
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    first, second, perms = serve_requests()
+    by_id = {r["id"]: r for r in first + second}
+    t0 = time.perf_counter()
+    svc = SolveService(ServiceConfig(max_batch=64, warm_shapes=(16,), device="cuda"))
+    warm_s = time.perf_counter() - t0
+    # --- the traffic, counts reset just before and read just after
+    hkk.reset_launches()
+    prim_kernels.reset_launches()
+    ek.reset_launches()
+    sink = _TimedSink()
+    t_start = time.perf_counter()
+    try:
+        run_jsonl((json.dumps(r) for r in first), sink, service=svc)
+        t_first = time.perf_counter() - t_start
+        run_jsonl((json.dumps(r) for r in second), sink, service=svc)
+        wall = time.perf_counter() - t_start
+        stats = json.loads(svc.stats_json())
+        slices = list(svc.scheduler.bnb_slice_log)
+        launches = {**hkk.LAUNCHES, **prim_kernels.LAUNCHES, **ek.LAUNCHES}
+    finally:
+        svc.close()
+    # one more 1024-city request, alone on a fresh service (the first one's
+    # SLO meter now sheds the pipeline tier): the blocked rung's time
+    # without the other request threads
+    with SolveService(ServiceConfig(max_batch=64, device="cuda")) as solo:
+        alone = solo.handle({"id": "C-alone", "deadline_ms": SERVE_GROUPS["C"][2],
+                             "xy": np.random.default_rng(SERVE_SEED + 1).uniform(
+                                 0, 1000, (SERVE_GROUPS["C"][1], 2)).tolist()})
+        split = solo.timer.snapshot()
+    require(alone.get("tier") == "pipeline", f"serve: the lone C request answered {alone}")
+    # C's requests again at once on a fresh service, without the other
+    # traffic: the request threads' contention alone, under the
+    # interpreter's switch interval and one 20x shorter (the threads hand
+    # the interpreter lock over at every torch call)
+    crowd = {}
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    for interval in (sys.getswitchinterval(), sys.getswitchinterval() / 20):
+        reqs = [{"id": f"C{i}", "deadline_ms": SERVE_GROUPS["C"][2],
+                 "xy": rng.uniform(0, 1000, (SERVE_GROUPS["C"][1], 2)).tolist()}
+                for i in range(SERVE_GROUPS["C"][0])]
+        before_interval = sys.getswitchinterval()
+        sys.setswitchinterval(interval)
+        try:
+            with SolveService(ServiceConfig(max_batch=64, device="cuda")) as solo:
+                out = _TimedSink()
+                run_jsonl((json.dumps(r) for r in reqs), out, service=solo)
+                polish_s = solo.timer.snapshot().get("serve.polish", 0.0)
+        finally:
+            sys.setswitchinterval(before_interval)
+        got = [json.loads(line) for line in out.lines]
+        require(all(g.get("tier") == "pipeline" for g in got), f"serve: C at once answered {got[:1]}")
+        crowd[interval] = ([g["latency_ms"] for g in got], polish_s)
+    resp = [json.loads(line) for line in sink.lines]
+    require([r.get("id") for r in resp] == [r["id"] for r in first + second],
+            f"serve: responses out of input order: {[r.get('id') for r in resp][:8]}...")
+
+    # --- every request answered on its tier with a valid tour
+    require(stats["errors"] == 0 and not any("error" in r for r in resp),
+            f"serve: errors {stats['errors']}: {[r for r in resp if 'error' in r][:2]}")
+    require(all(v == 0 for v in stats["rung_failures"].values()),
+            f"serve: rung failures {stats['rung_failures']}")
+    for r in resp:
+        group = r["id"][0]
+        tier, cache = SERVE_EXPECT[group]
+        n = len(by_id[r["id"]]["xy"])
+        require(r["tier"] == tier and r["cache"] == cache and r["n"] == n,
+                f"serve: {r['id']} on {r['tier']}/{r['cache']}, want {tier}/{cache}")
+        tour = r["tour"]
+        require(tour[0] == tour[-1] and sorted(tour[:-1]) == list(range(n)),
+                f"serve: {r['id']} is not a closed tour of its {n} cities")
+        require(r["cost"] == canon.tour_length_np(np.asarray(tour), np.asarray(by_id[r["id"]]["xy"])),
+                f"serve: {r['id']} cost is not its tour's length")
+        if group in "AB":
+            require(r["certified_gap"] == 0.0, f"serve: {r['id']} gap {r['certified_gap']}")
+        if group == "E":
+            require(r["deadline_missed"] is True, f"serve: {r['id']} met a 0.1 ms deadline")
+    resp_of = {r["id"]: r for r in resp}
+
+    # --- B: each hit relabels A's tour into its own city order
+    for i, perm in enumerate(perms):
+        a, b = resp_of[f"A{i}"], resp_of[f"B{i}"]
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0])
+        require(b["tour"] == [int(inv[c]) for c in a["tour"]] and abs(b["cost"] - a["cost"]) <= 1e-9 * a["cost"],
+                f"serve: B{i} is not A{i}'s tour relabelled ({b['cost']} vs {a['cost']})")
+    require(stats["cache"]["hits"] == len(second), f"serve: {stats['cache']['hits']} hits, want {len(second)}")
+
+    # --- D: proven, or a certified gap with LB <= cost
+    for i in range(SERVE_GROUPS["D"][0]):
+        r = resp_of[f"D{i}"]
+        require(r["certified_gap"] is not None and r["certified_gap"] >= 0.0,
+                f"serve: D{i} carries no certificate ({r['certified_gap']})")
+    berlin = resp_of["D0"]
+    dr = tsplib.embedded("berlin52").distance_matrix()
+    bt = np.asarray(berlin["tour"])
+    berlin_rounded = float(dr[bt[:-1], bt[1:]].sum())
+    # the Euclidean optimum (7544.366) is TSPLIB's optimal tour: 7542 rounded
+    require(berlin["certified_gap"] > 0.0 or berlin_rounded == 7542.0,
+            f"serve: berlin52 proven at {berlin['cost']}, its tour {berlin_rounded} under TSPLIB's distances")
+
+    # --- A against the plain dense impl on the same float32 matrices
+    a_ids = [f"A{i}" for i in range(SERVE_GROUPS["A"][0])]
+    stack = np.stack([distance_matrix_np(np.asarray(by_id[i]["xy"])) for i in a_ids])
+    dev_stack = torch.as_tensor(stack, dtype=torch.float32, device="cuda")
+    with held_karp.use_impl("dense"):
+        pc, pt = held_karp.solve_blocks_from_dists(dev_stack, torch.float32)
+    kc, kt_ = held_karp.solve_blocks_from_dists(dev_stack, torch.float32)
+    require(torch.equal(pc, kc) and torch.equal(pt, kt_),
+            "serve: relax_dense_sweep != plain dense on A's [64, 16, 16] stack")
+    pt = pt.cpu().numpy()
+    for i, rid in enumerate(a_ids):
+        r = resp_of[rid]
+        require(r["tour"] == pt[i].tolist()
+                and r["cost"] == canon.tour_length_np(pt[i], np.asarray(by_id[rid]["xy"])),
+                f"serve: {rid} differs from the plain dense impl's tour")
+    for name in ("relax_dense", "prim_chain", "push_rows"):
+        require(launches[name] > 0, f"serve: {name} never launched by the traffic ({launches})")
+
+    # --- the numbers
+    a_last = max(sink.stamps[i] for i, r in enumerate(resp) if r["id"][0] == "A")
+    a_rps = SERVE_GROUPS["A"][0] / (a_last - t_start)
+    sched = stats["scheduler"]
+    print(f"phase 14 serve: {len(first)} + {len(second)} requests in {wall:.2f} s (first stream "
+          f"{t_first:.2f} s), warm-up {warm_s:.3f} s ({sched['precompiled_buckets']} buckets); A "
+          f"{a_rps:.1f} requests/s; errors 0, rung failures 0, tiers {stats['tiers']}")
+    for group in "ABCDE":
+        lat = [r["latency_ms"] for r in resp if r["id"][0] == group]
+        print(f"phase 14 {group} ({len(lat)} x n={resp_of[group + '0']['n']}, tier "
+              f"{resp_of[group + '0']['tier']}): latency_ms p50 {_quantile(lat, 0.5):.3f} p99 "
+              f"{_quantile(lat, 0.99):.3f} max {max(lat):.3f}")
+    for tier in ("pipeline", "bnb", "greedy"):
+        lat = [r["latency_ms"] for r in resp if r["tier"] == tier]
+        print(f"phase 14 tier {tier}: {len(lat)} answers, latency_ms p50 {_quantile(lat, 0.5):.3f} "
+              f"p99 {_quantile(lat, 0.99):.3f}")
+    print(f"phase 14 C alone (n={alone['n']}, tier {alone['tier']}): latency {alone['latency_ms']:.1f} ms = flush "
+          f"{split.get('serve.batch_solve', 0.0):.4f} s + fold {split.get('serve.fold', 0.0):.4f} s + polish "
+          f"{split.get('serve.polish', 0.0):.4f} s + the rest; the {SERVE_GROUPS['C'][0]} at once: fold "
+          f"{stats['phases_s'].get('serve.fold', 0.0):.3f} s, polish {stats['phases_s'].get('serve.polish', 0.0):.3f} s "
+          f"summed over the {SERVE_GROUPS['C'][0]} request threads")
+    for interval, (lat, polish_s) in crowd.items():
+        print(f"phase 14 C at once, alone on a fresh service (switch interval {interval * 1e3:.3f} ms): "
+              f"latency_ms p50 {_quantile(lat, 0.5):.1f} max {max(lat):.1f}; polish {polish_s:.3f} s summed "
+              f"over the {len(lat)} request threads")
+    print(f"phase 14 HK flushes: {sched['batches']} batches, {sched['blocks_solved']} blocks in "
+          f"{sched['padded_blocks']} lanes, occupancy {sched['batch_occupancy']:.4f}, mean "
+          f"{sched['mean_batch_blocks']:.2f} blocks, flushes full/wait/admit {sched['full_flushes']}/"
+          f"{sched['wait_flushes']}/{sched['admit_flushes']}; serve.batch_solve "
+          f"{stats['phases_s'].get('serve.batch_solve', 0.0):.4f} s; queue age p50/p99 "
+          f"{stats['admission']['queue_age_s']['p50']}/{stats['admission']['queue_age_s']['p99']} s")
+    saves = [sl["save_s"] for sl in slices if sl["save_s"] > 0]
+    walls = [sl["seconds"] for sl in slices]
+    print(f"phase 14 B&B: {sched['bnb_jobs']} jobs, {sched['bnb_slices']} slices, "
+          f"{sched['bnb_preemptions']} preemptions, {sched['bnb_resumes']} resumes; slice seconds p50 "
+          f"{_quantile(walls, 0.5):.3f} max {max(walls) if walls else float('nan'):.3f}; per-slice save "
+          f"seconds ({len(saves)} saves) p50 {_quantile(saves, 0.5):.4f} max "
+          f"{max(saves) if saves else float('nan'):.4f} sum {sum(saves):.3f}")
+    for i in range(SERVE_GROUPS["D"][0]):
+        r = resp_of[f"D{i}"]
+        print(f"phase 14 D{i} (n={r['n']}): cost {r['cost']:.4f}, certified gap {r['certified_gap']}, "
+              f"latency {r['latency_ms']:.1f} ms" + (f"; the tour under TSPLIB's rounded distances "
+                                                     f"{berlin_rounded:.1f} (optimum 7542)" if i == 0 else ""))
+    print(f"phase 14 cache: hit rate {stats['cache']['hit_rate']:.4f} ({stats['cache']['hits']} hits, "
+          f"{stats['cache']['misses']} misses); canonical sorts saved {stats['cache']['canonical_sorts_saved']}")
+    print(f"phase 14 launches by the traffic: relax_dense {launches['relax_dense']}, relax_minplus "
+          f"{launches['relax_minplus']}, prim_chain {launches['prim_chain']}, push_rows "
+          f"{launches['push_rows']}; A == plain dense bit for bit ({len(a_ids)} tours and costs; kernel == "
+          f"plain on the {list(dev_stack.shape)} stack)")
+
+    # --- the CLI in a fresh process on 10 of the requests
+    pick = [f"A{i}" for i in range(7)] + ["C0", "E0", "E1"]
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    req_path, out_path = SERVE_DIR / "requests.jsonl", SERVE_DIR / "responses.jsonl"
+    req_path.write_text("".join(json.dumps(by_id[i]) + "\n" for i in pick))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch", "serve", "--in", str(req_path),
+                        "--out", str(out_path), "--stats", "--warm", "16"],
+                       capture_output=True, text=True, cwd=str(ROOT), timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"serve CLI: exit {r.returncode}: {r.stderr[-2000:]}")
+    got = [json.loads(line) for line in out_path.read_text().splitlines()]
+    cli_stats = json.loads(r.stderr.strip().splitlines()[-1])
+    require([g["id"] for g in got] == pick, f"serve CLI: ids {[g['id'] for g in got]}")
+    for g in got:
+        want = resp_of[g["id"]]
+        for f in ("n", "tier", "cost", "tour", "certified_gap", "cache"):
+            require(g[f] == want[f], f"serve CLI: {g['id']} {f} {g[f]!r} != in-process {want[f]!r}")
+    require(cli_stats["errors"] == 0 and all(v == 0 for v in cli_stats["rung_failures"].values()),
+            f"serve CLI stats: {cli_stats['errors']} errors, {cli_stats['rung_failures']}")
+    print(f"phase 14 CLI (fresh process, --warm 16, {len(pick)} requests): exit 0 in {cli_s:.2f} s, "
+          f"answers == in-process; warm-up {cli_stats['scheduler']['precompile_seconds']} s, "
+          f"{cli_stats['scheduler']['batches']} flushes, tiers {cli_stats['tiers']}")
+    print(f"phase 14 card: {smi}")
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
+    ap.add_argument("--phases", default=None, metavar="LIST",
+                    help="comma-separated phases to run after phase 1 (default: all); a partial run "
+                    "prints no result line")
+    args = ap.parse_args(argv)
+    only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
@@ -1308,20 +1608,42 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     errs = {"relax_minplus": 0.0, "relax_dense": 0.0, "prim_chain": 0.0, "push_rows": 0.0}
+
+    def want(phase: int) -> bool:
+        return only is None or phase in only
+
+    kernels = []
     try:
         smi = phase_build()
-        phase_kernel_parity(errs)
-        phase_oracle()
-        full_phases, kernels = phase_full(smi, errs)
-        phase_prim_parity(errs)
-        phase_bnb_proofs()
-        kernels += phase_bnb_full(smi, errs)
-        phase_push_parity(errs)
-        phase_kroa100(smi, errs)
-        phase_spill(smi)
-        phase_campaign(smi)
-        phase_pipeline_options(smi, full_phases)
-        phase_bnb_options(smi)
+        if want(2):
+            phase_kernel_parity(errs)
+        if want(3):
+            phase_oracle()
+        full_phases = None
+        if want(4) or want(12):
+            full_phases, kernels = phase_full(smi, errs)
+        if want(5):
+            phase_prim_parity(errs)
+        if want(6):
+            phase_bnb_proofs()
+        if want(7):
+            kernels += phase_bnb_full(smi, errs)
+        if want(8):
+            phase_push_parity(errs)
+        if want(9):
+            phase_kroa100(smi, errs)
+        if want(10):
+            phase_spill(smi)
+        if want(11):
+            phase_campaign(smi)
+        if want(12):
+            phase_pipeline_options(smi, full_phases)
+        if want(13):
+            phase_bnb_options(smi)
+        if want(14):
+            serve_launches = phase_serve(smi)
+            for k in kernels:  # the serve traffic's own counts beside the main paths'
+                k["launches_serve"] = serve_launches[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1329,6 +1651,10 @@ def main() -> int:
         if k["max_abs_err"] != 0.0:
             print(f"chip_smoke: FAILED: {k['name']} max_abs_err {k['max_abs_err']}", file=sys.stderr)
             return 1
+    if only is not None:
+        print(f"chip_smoke: phases {sorted(only | {1})} passed in {time.perf_counter() - t0:.1f} s "
+              "(a partial run: no result line)")
+        return 0
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

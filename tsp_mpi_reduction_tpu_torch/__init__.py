@@ -14,7 +14,9 @@ plain PyTorch functions on tensors with an explicit ``device``:
   bound runs its Prim chain in a hand-written CUDA kernel
   (``kernels/csrc/prim_chain.cu``); its snapshots are the JAX package's
   TSPCKPT1 files, and ``tools/bnb_chunked.py`` runs a campaign of
-  chunks, each a fresh process resuming the last snapshot.
+  chunks, each a fresh process resuming the last snapshot;
+- ``python -m tsp_mpi_reduction_tpu_torch serve`` answers JSONL requests
+  under deadlines on the strongest tier that fits (``serve/``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--backend=cpu`` / ``device="cpu"``); there is no silent CPU fallback.
@@ -27,7 +29,10 @@ Layout (each module mirrors its namesake in ``tsp_mpi_reduction_tpu``):
     models/    single-rank pipeline, single-device rank emulation, B&B
     parallel/  the reference's reduce tree
     resilience/ the crash-safe checkpoint store, fault seams, retry, health
-    obs/       the metrics registry and span tracing
+    obs/       the metrics registry, span tracing and latency SLOs
+    serve/     the JSONL solve service: canonical keys, cache, micro-batch
+               scheduler with preemptible B&B slices, deadline ladder
+    fleet/     the shared disk tier of the serve cache
     tools/     the B&B driver and the chunked campaign driver
     utils/     device selection, CLI, reporting, phase timing, state carry,
                TSPLIB instances

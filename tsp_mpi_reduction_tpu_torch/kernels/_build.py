@@ -7,6 +7,12 @@ library's name carries a hash of its source and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing is built when
 this module is imported: the first kernel launch calls its library's
 loader (:func:`library`, :func:`prim_library`, :func:`push_library`).
+
+Thread-safe: the serve layer launches kernels from its scheduler worker
+and from every request thread, so the first calls can race. One module
+lock holds build-and-load, so each library is compiled and loaded once per
+process, and the temp file of a build carries the thread's id beside the
+process id, so two threads never write one temp file.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "held_karp_relax.cu", _CSRC / "prim_chain.cu", _CSRC / "push_rows.cu")
@@ -32,6 +39,10 @@ NVCC_FLAGS = ARCH_FLAGS + (
     "-Xcompiler",
     "-fPIC",
 )
+
+#: held around every build and every library load (re-entrant: a loader
+#: builds under it)
+_LOCK = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -61,7 +72,7 @@ def build(source: pathlib.Path, verbose: bool = False) -> pathlib.Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = _tmp_path(out)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
@@ -74,6 +85,12 @@ def build(source: pathlib.Path, verbose: bool = False) -> pathlib.Path:
     return out
 
 
+def _tmp_path(out: pathlib.Path) -> pathlib.Path:
+    """The temp file a build writes before its atomic rename: unique per
+    process and thread."""
+    return out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+
+
 def build_all(verbose: bool = False) -> list:
     """Build every source at once, one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -82,7 +99,25 @@ def build_all(verbose: bool = False) -> list:
         return list(pool.map(lambda s: build(s, verbose), SOURCES))
 
 
-@functools.lru_cache(maxsize=None)
+def _locked_once(loader):
+    """Run a no-argument loader once per process and keep its result; the
+    first call runs under :data:`_LOCK` (racing first calls of a bare
+    ``lru_cache`` would each run the loader). ``cache_clear`` forgets it."""
+    box = []
+
+    @functools.wraps(loader)
+    def wrapper():
+        if not box:
+            with _LOCK:
+                if not box:
+                    box.append(loader())
+        return box[0]
+
+    wrapper.cache_clear = box.clear
+    return wrapper
+
+
+@_locked_once
 def library() -> ctypes.CDLL:
     """The Held-Karp relaxation library, built on first use."""
     lib = ctypes.CDLL(str(build(SOURCES[0])))
@@ -96,7 +131,7 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+@_locked_once
 def prim_library() -> ctypes.CDLL:
     """The branch-and-bound Prim chain library, built on first use."""
     lib = ctypes.CDLL(str(build(SOURCES[1])))
@@ -108,7 +143,7 @@ def prim_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+@_locked_once
 def push_library() -> ctypes.CDLL:
     """The branch-and-bound fused push library, built on first use."""
     lib = ctypes.CDLL(str(build(SOURCES[2])))

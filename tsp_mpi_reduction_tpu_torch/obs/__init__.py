@@ -13,8 +13,12 @@ checkpoint paths and the chunked campaign need it:
   ``TSP_TRACE_PARENT=<trace_id>:<span_id>`` env contract, so a chunked
   campaign (``tools/bnb_chunked.py``) reconstructs as one span tree.
 
-Not ported yet: the time-series sampler, the stall sentinel, the SLO,
-rank and bench-history views, and the profiler step annotations.
+- :mod:`.slo` — per-tier latency objectives of the serve layer: the
+  session verdicts (:func:`~.slo.evaluate`) and the live burn meter the
+  scheduler and the ladder steer by (:class:`~.slo.BurnMeter`).
+
+Not ported yet: the time-series sampler, the stall sentinel, and the
+rank and bench-history views.
 
 Gating: ``TSP_OBS=off`` disables the *optional-overhead* telemetry (span
 tracing). Plain registry counters stay on regardless: correctness paths

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import time
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -268,3 +269,25 @@ def solve_blocks(xy: torch.Tensor, dtype: torch.dtype = torch.float64):
     if xy.ndim != 3 or xy.shape[-1] != 2:
         raise ValueError(f"expected [B, n, 2] coords, got {tuple(xy.shape)}")
     return solve_blocks_from_dists(distance_matrix(xy.to(dtype)), dtype)
+
+
+def warm_blocks(n: int, batch: int, dtype=torch.float32, device="cuda") -> float:
+    """Warm the block solver for one ``[batch, n, n]`` shape before traffic
+    arrives -> the wall seconds spent (``held_karp.py:438-457`` of the JAX
+    package, which AOT-compiles the shape). There is no XLA compile here,
+    so on a CUDA device it loads the kernel library (``nvcc`` on a cold
+    build directory) and runs one throwaway solve of that shape: the first
+    real flush then pays neither the build nor the first launch."""
+    from ..utils.backend import parse_dtype, synchronize
+
+    dtype = parse_dtype(dtype)
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        from ..kernels import _build
+
+        _build.library()
+    eye = torch.ones((n, n), dtype=dtype, device=device) - torch.eye(n, dtype=dtype, device=device)
+    solve_blocks_from_dists(eye.expand(batch, n, n).contiguous(), dtype)
+    synchronize(device)
+    return time.perf_counter() - t0

@@ -23,6 +23,10 @@ Flags:
                               its re-measured cost
   --compat-bugs               reproduce the reference's reduce corruption
 
+Modes (dispatched before the argv contract, as in the JAX CLI):
+  serve ...                   the JSONL solve service (``serve.service.serve_cli``)
+  fleet ...                   not ported yet: exit 2
+
 Degenerate blocks (n < 3) exit 2 with an error, as does a missing GPU.
 ``--backend=native`` refuses ``--improve``, ``--trace``, ``--dtype=float32``,
 ``--compat-bugs`` and a non-``auto`` ``--impl`` with exit 2.
@@ -78,6 +82,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     t_start = time.perf_counter()
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "serve":
+        # JSONL requests in, JSONL responses out; "serve" can never collide
+        # with the four positional ints
+        from ..serve.service import serve_cli
+
+        return serve_cli(argv[1:])
+    if argv and argv[0] == "fleet":
+        print("error: the fleet mode is not ported yet (use `serve`, or the JAX package's "
+              "`python -m tsp_mpi_reduction_tpu fleet`)", file=sys.stderr)
+        return 2
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as e:

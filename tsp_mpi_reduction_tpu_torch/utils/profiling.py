@@ -31,11 +31,18 @@ class PhaseTimer:
     ['solve']
 
     Thread-safe: the read-modify-write into ``seconds`` holds a lock.
+
+    ``mirror_metric``: when set, every :meth:`add` also increments the
+    counter series ``<mirror_metric>{phase=<name>}`` in the process-global
+    obs registry (``tsp_mpi_reduction_tpu/utils/profiling.py:48-75``), so
+    the phase table has the registry's snapshot/delta semantics too.
     """
 
-    def __init__(self, device: Optional[torch.device] = None) -> None:
+    def __init__(self, device: Optional[torch.device] = None,
+                 mirror_metric: Optional[str] = None) -> None:
         self.seconds: Dict[str, float] = {}
         self.device = torch.device(device) if device is not None else None
+        self.mirror_metric = mirror_metric
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
@@ -57,6 +64,12 @@ class PhaseTimer:
         """Accumulate an externally measured duration into a phase."""
         with self._lock:
             self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        if self.mirror_metric:
+            from ..obs import enabled as _obs_enabled
+            from ..obs.metrics import REGISTRY
+
+            if _obs_enabled():
+                REGISTRY.inc(self.mirror_metric, max(seconds, 0.0), phase=name)
 
 
 #: is a :func:`device_trace` capture running? (``obs.tracing``'s step

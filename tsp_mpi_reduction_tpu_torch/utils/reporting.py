@@ -68,3 +68,61 @@ def metrics_json(
     if elapsed_ms > 0 and dp_transitions:
         payload["dp_transitions_per_sec"] = dp_transitions / (elapsed_ms / 1000.0)
     return json.dumps(payload)
+
+
+def obs_block(
+    *,
+    trace_path: Optional[str] = None,
+    metrics_port: Optional[int] = None,
+) -> Dict:
+    """The ``obs`` sub-block of the serve stats JSON: whether the
+    optional-overhead telemetry is on, where spans go, and the bound
+    metrics port. The JAX package's block also carries XLA compile phases
+    and XLA cost analyses; the port compiles no XLA, so those keys are
+    absent."""
+    from ..obs import enabled as obs_enabled
+
+    return {"enabled": obs_enabled(), "trace": trace_path, "metrics_port": metrics_port}
+
+
+def service_stats_json(
+    *,
+    responses: int,
+    errors: int,
+    deadline_misses: int,
+    tier_counts: Dict[str, int],
+    cache: Dict[str, int],
+    scheduler: Dict[str, float],
+    phases_s: Optional[Dict[str, float]] = None,
+    refreshes: int = 0,
+    rung_failures: Optional[Dict[str, int]] = None,
+    health: Optional[Dict] = None,
+    compile_cache: Optional[Dict] = None,
+    slo: Optional[Dict] = None,
+    obs: Optional[Dict] = None,
+    admission: Optional[Dict] = None,
+) -> str:
+    """The serve layer's one-line stats JSON, with the JAX package's keys
+    (``tsp_mpi_reduction_tpu/utils/reporting.py:109-152``): answers per
+    tier, rung failures, the cache counters and hit rate, the scheduler's
+    batching and slicing counters, phase seconds, the session's health
+    delta, ``compile_cache`` (here the root-ascent memo's counters), the
+    per-tier SLO verdicts, the admission block and ``obs``."""
+    lookups = cache.get("hits", 0) + cache.get("misses", 0)
+    payload = {
+        "responses": responses,
+        "errors": errors,
+        "deadline_misses": deadline_misses,
+        "refreshes": refreshes,
+        "rung_failures": rung_failures or {},
+        "tiers": tier_counts,
+        "cache": dict(cache, hit_rate=(cache.get("hits", 0) / lookups) if lookups else 0.0),
+        "scheduler": scheduler,
+        "phases_s": phases_s or {},
+        "health": health or {},
+        "compile_cache": compile_cache or {},
+        "slo": slo or {},
+        "admission": admission or {},
+        "obs": obs or {},
+    }
+    return json.dumps(payload)
