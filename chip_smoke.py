@@ -114,14 +114,32 @@ Phases, each printing its own line; any failure exits non-zero:
     B&B slices with their save seconds, the cache hit rate and the
     launches; then a lone 1024-city request split into flush, fold and
     polish, and C's four requests at once without the other traffic,
-    under the interpreter's switch interval and one 20x shorter.
+    under the interpreter's switch interval and one 20x shorter;
+15. the ``fleet`` entry point: an in-process ``FleetFront`` over 2 replica
+    processes (``chip_smoke.py --fleet-replica``: the port's serve CLI on
+    ``--backend cuda --threads 4 --warm 16 --stats``, each with its own
+    CUDA context on the one card, on a fresh shared-cache directory; each
+    zeroes the launch counts when its warm-up ends and prints them at
+    exit). F1: phase 14's A and D at once (every request on its tier, A
+    == the plain dense impl's bit for bit and == phase 14's answers when
+    it ran, D held to its certificate); F2: B, 64 hits, at least one from
+    the shared tier across the replica boundary; F3: a fresh fleet under
+    ``replica.kill`` then ``replica.hang`` on 16 certified n = 16 proofs
+    (exactly once, a restart, a re-dispatch, a wedge verdict, and as many
+    contexts in ``nvidia-smi --query-compute-apps`` after the restart as
+    before the kill); F4: ``python -m tsp_mpi_reduction_tpu_torch fleet
+    --replicas 2 --warm 16 --stats`` in a fresh process on 10 of A's
+    requests answers as F1 did, and the card holds no context of its
+    front (2 more contexts at most, its replicas'). Prints the replicas' cold
+    starts and restart, F1's requests/s and latency per tier, the flushes,
+    the hops and the launches (``launches_fleet`` in the kernels line).
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
-13's Boruvka run and phase 14's request traffic) runs with the kernels'
-launch counts
-reset just before and read just after; a kernel of the path that never
-launched fails the run.
+13's Boruvka run, phase 14's request traffic and phase 15's F1 and F2 in
+the replica processes) runs with the kernels' launch counts reset just
+before and read just after; a kernel of the path that never launched
+fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
 the JSON every kernel's ``ms`` is its eager time by CUDA events (the
 host's launch gaps included) and ``device_ms`` the same launches replayed
@@ -187,6 +205,10 @@ KRO_CHUNK2_PINNED = {"nodes_expanded": 304_128, "iterations": 300, "cost": 21282
 CAMPAIGN_DIR = ROOT / "build" / "chip_smoke_campaign"
 OPTIONS_DIR = ROOT / "build" / "chip_smoke_options"
 SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+FLEET_DIR = ROOT / "build" / "chip_smoke_fleet"
+#: phase 15's hop timeout, wedge timeout and start-up grace for F1 and F2:
+#: above D's 60 s deadline, so that only F3's faults cause re-dispatches
+FLEET_HOP_S = 90.0
 #: phase 14's traffic: group -> (requests, cities, deadline ms); D is
 #: berlin52 (its TSPLIB coordinates) and one random instance of 40 cities
 SERVE_GROUPS = {"A": (64, 16, 5000.0), "C": (4, 1024, 20_000.0), "D": (2, 40, 60_000.0),
@@ -1582,12 +1604,384 @@ def phase_serve(smi):
           f"answers == in-process; warm-up {cli_stats['scheduler']['precompile_seconds']} s, "
           f"{cli_stats['scheduler']['batches']} flushes, tiers {cli_stats['tiers']}")
     print(f"phase 14 card: {smi}")
+    return launches, {rid: resp_of[rid] for rid in a_ids}
+
+
+# -- phase 15: the fleet ------------------------------------------------------
+
+
+def fleet_replica(argv) -> int:
+    """A phase 15 replica: the port's serve CLI, with two stderr lines of
+    its own. When the warm-up ends it prints ``ready`` with its
+    ``time.monotonic()`` (one clock for every process of the machine, so
+    the front reads the cold start against the spawn time) and zeroes the
+    kernels' launch counts; at exit it prints the counts of the warm-up and
+    of the traffic. Stdout stays the JSONL response stream."""
+    import os
+
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.serve import scheduler
+    from tsp_mpi_reduction_tpu_torch.serve.service import serve_cli
+
+    def counts():
+        return {**hkk.LAUNCHES, **prim_kernels.LAUNCHES, **ek.LAUNCHES}
+
+    warm = {}
+    precompile = scheduler.MicroBatchScheduler.precompile
+
+    def precompile_then_reset(self, *args, **kwargs):
+        out = precompile(self, *args, **kwargs)
+        warm.update(counts())
+        for mod in (hkk, prim_kernels, ek):
+            mod.reset_launches()
+        print(json.dumps({"fleet_replica": "ready", "pid": os.getpid(), "monotonic": time.monotonic()}),
+              file=sys.stderr, flush=True)
+        return out
+
+    scheduler.MicroBatchScheduler.precompile = precompile_then_reset
+    rc = serve_cli(argv)
+    print(json.dumps({"fleet_replica": "exit", "pid": os.getpid(), "warm": warm, "launches": counts()}),
+          file=sys.stderr, flush=True)
+    return rc
+
+
+def _replica_lines(rep, kind):
+    """The phase 15 replica's JSON lines of one kind in its stderr tail."""
+    out = []
+    for line in rep.stderr_tail():
+        if line.startswith('{"fleet_replica": "' + kind + '"'):
+            out.append(json.loads(line))
+    return out
+
+
+def _replica_stats(rep):
+    """The serve stats line (``--stats``) a phase 15 replica printed at exit."""
+    for line in reversed(rep.stderr_tail()):
+        if line.startswith('{"responses"'):
+            return json.loads(line)
+    return None
+
+
+def _wait_for(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        require(time.monotonic() < deadline, f"fleet: {what} within {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def _cold_start_s(rep):
+    """Spawn to the end of the warm-up of the replica's current process."""
+    pid = rep.proc.pid
+    ready = [r for r in _replica_lines(rep, "ready") if r["pid"] == pid]
+    return ready[-1]["monotonic"] - rep.started_at if ready else None
+
+
+def _compute_apps():
+    """One ``pid, used_memory`` line per CUDA context on the card. In a
+    container the pids may be the host's, not the container's, so the
+    checks count the contexts."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [line.strip() for line in out.strip().splitlines() if line.strip()]
+
+
+def _fleet_front(cfg):
+    """A front whose replicas are ``chip_smoke.py --fleet-replica`` (the
+    serve CLI's argv otherwise, plus ``--stats``)."""
+    from tsp_mpi_reduction_tpu_torch.fleet import FleetFront, ReplicaSpec
+    from tsp_mpi_reduction_tpu_torch.fleet.front import default_replica_spec
+
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+    specs = []
+    for i in range(cfg.replicas):
+        spec = default_replica_spec(cfg, i, shared_cache_dir=cfg.shared_cache_dir,
+                                    compile_cache_dir=str(FLEET_DIR / "ascent_memo"))
+        require(spec.argv[1:4] == ["-m", "tsp_mpi_reduction_tpu_torch", "serve"], f"fleet: argv {spec.argv}")
+        specs.append(ReplicaSpec(argv=[sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-replica",
+                                       *spec.argv[4:], "--stats"], env=spec.env, scrape=True, meta=spec.meta))
+    cfg.replica_specs = specs
+    front = FleetFront(cfg)
+    reps = front.supervisor.replicas
+    _wait_for(lambda: all(_cold_start_s(r) is not None for r in reps), 300, "both replicas warmed up")
+    return front, [_cold_start_s(r) for r in reps]
+
+
+def _close_fleet(front):
+    """Close the front; return each replica's exit line and serve stats."""
+    front.close()
+    reps = front.supervisor.replicas
+    _wait_for(lambda: all(_replica_lines(r, "exit") and _replica_stats(r) for r in reps), 30,
+              "every replica's exit lines")
+    return [(_replica_lines(r, "exit")[-1], _replica_stats(r)) for r in reps]
+
+
+def _valid_tour(r, n):
+    tour = r["tour"]
+    return tour[0] == tour[-1] and sorted(tour[:-1]) == list(range(n))
+
+
+def phase_fleet(smi, serve_a):
+    """Phase 15: the fleet entry point on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.fleet import FleetConfig
+    from tsp_mpi_reduction_tpu_torch.fleet.supervisor import SupervisorConfig
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+    from tsp_mpi_reduction_tpu_torch.ops.distance import distance_matrix_np
+    from tsp_mpi_reduction_tpu_torch.resilience import faults
+    from tsp_mpi_reduction_tpu_torch.resilience.health import HEALTH
+    from tsp_mpi_reduction_tpu_torch.serve import canonical as canon
+    from tsp_mpi_reduction_tpu_torch.serve.service import run_jsonl
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    first, second, perms = serve_requests()
+    by_id = {r["id"]: r for r in first + second}
+    f1 = [r for r in first if r["id"][0] in "AD"]  # phase 14's order: A, then D
+    a_ids = [r["id"] for r in first if r["id"][0] == "A"]
+    if FLEET_DIR.exists():
+        shutil.rmtree(FLEET_DIR)
+    cfg = FleetConfig(replicas=2, backend="cuda", replica_threads=4, replica_args=("--warm", "16"),
+                      shared_cache_dir=str(FLEET_DIR / "shared"), hop_timeout_s=FLEET_HOP_S,
+                      supervisor=SupervisorConfig(wedge_timeout_s=FLEET_HOP_S, startup_grace_s=FLEET_HOP_S))
+    base = len(_compute_apps())
+    t0 = time.perf_counter()
+    front, cold = _fleet_front(cfg)
+    warm_s = time.perf_counter() - t0
+    try:
+        # --- F1: A and D at once; F2: B, A's instances moved and permuted
+        sink = _TimedSink()
+        t_start = time.perf_counter()
+        run_jsonl((json.dumps(r) for r in f1), sink, service=front)
+        f1_wall = time.perf_counter() - t_start
+        apps_f1 = _compute_apps()
+        f1_stats = json.loads(front.stats_json())
+        f2_sink = _TimedSink()
+        run_jsonl((json.dumps(r) for r in second), f2_sink, service=front)
+
+        def shared_hits():
+            return sum(row["scrape"].get("shared_cache_hits", 0)
+                       for row in json.loads(front.stats_json())["fleet"]["replicas"])
+
+        _wait_for(lambda: shared_hits() > 0, 15, "a shared-tier hit in the replicas' scrapes")
+        stats = json.loads(front.stats_json())
+    finally:
+        exits = _close_fleet(front)
+    resp = [json.loads(line) for line in sink.lines]
+    f2 = [json.loads(line) for line in f2_sink.lines]
+    resp_of = {r["id"]: r for r in resp + f2}
+    require([r.get("id") for r in resp] == [r["id"] for r in f1] and [r.get("id") for r in f2] ==
+             [r["id"] for r in second], "fleet: responses dropped, duplicated or out of order")
+    require(stats["errors"] == 0 and not any("error" in r for r in resp + f2),
+            f"fleet: errors {stats['errors']}: {[r for r in resp + f2 if 'error' in r][:2]}")
+    require(not any("degraded" in r for r in resp + f2) and sum(stats["fleet"]["degraded_answers"].values()) == 0,
+            f"fleet: degraded answers {stats['fleet']['degraded_answers']}")
+    require(stats["fleet"]["restarts_total"] == 0, f"fleet: {stats['fleet']['restarts_total']} restarts in F1/F2")
+    for exit_line, rstats in exits:
+        require(rstats["errors"] == 0 and all(v == 0 for v in rstats["rung_failures"].values()),
+                f"fleet: replica {exit_line['pid']} errors {rstats['errors']}, rung failures "
+                f"{rstats['rung_failures']}")
+    for r in resp + f2:
+        tier, cache = SERVE_EXPECT[r["id"][0]]
+        n = len(by_id[r["id"]]["xy"])
+        require(r["tier"] == tier and r["cache"] == cache and r["n"] == n and _valid_tour(r, n),
+                f"fleet: {r['id']} on {r['tier']}/{r['cache']}, want {tier}/{cache}")
+        require(r["cost"] == canon.tour_length_np(np.asarray(r["tour"]), np.asarray(by_id[r["id"]]["xy"])),
+                f"fleet: {r['id']} cost is not its tour's length")
+    # A against the plain dense impl (and phase 14's in-process answers)
+    stack = np.stack([distance_matrix_np(np.asarray(by_id[i]["xy"])) for i in a_ids])
+    with held_karp.use_impl("dense"):
+        _, pt = held_karp.solve_blocks_from_dists(torch.as_tensor(stack, dtype=torch.float32, device="cuda"),
+                                                  torch.float32)
+    pt = pt.cpu().numpy()
+    for i, rid in enumerate(a_ids):
+        r = resp_of[rid]
+        require(r["tour"] == pt[i].tolist() and r["certified_gap"] == 0.0
+                and r["cost"] == canon.tour_length_np(pt[i], np.asarray(by_id[rid]["xy"])),
+                f"fleet: {rid} differs from the plain dense impl's tour")
+        if serve_a:
+            require(all(r[f] == serve_a[rid][f] for f in ("tour", "cost", "tier", "certified_gap")),
+                    f"fleet: {rid} differs from phase 14's in-process answer")
+    for i, perm in enumerate(perms):
+        a, b = resp_of[f"A{i}"], resp_of[f"B{i}"]
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0])
+        require(b["tour"] == [int(inv[c]) for c in a["tour"]] and abs(b["cost"] - a["cost"]) <= 1e-9 * a["cost"],
+                f"fleet: B{i} is not A{i}'s tour relabelled")
+    # D held to phase 14's certificate
+    for i in range(SERVE_GROUPS["D"][0]):
+        require(resp_of[f"D{i}"]["certified_gap"] is not None and resp_of[f"D{i}"]["certified_gap"] >= 0.0,
+                f"fleet: D{i} carries no certificate")
+    berlin = resp_of["D0"]
+    dr = tsplib.embedded("berlin52").distance_matrix()
+    bt = np.asarray(berlin["tour"])
+    berlin_rounded = float(dr[bt[:-1], bt[1:]].sum())
+    require(berlin["certified_gap"] > 0.0 or berlin_rounded == 7542.0,
+            f"fleet: berlin52 proven at {berlin['cost']}, its tour {berlin_rounded} under TSPLIB's distances")
+    shared = sum(row["scrape"].get("shared_cache_hits", 0) for row in stats["fleet"]["replicas"])
+    require(shared > 0, "fleet: no hit served across the replica boundary")
+    require(len(apps_f1) == base + 2, f"fleet: {len(apps_f1)} contexts on the card during F1, want {base} + 2 "
+            f"replicas: {apps_f1}")
+    launches = {k: sum(e["launches"][k] for e, _ in exits) for k in exits[0][0]["launches"]}
+    warm_launches = {k: sum(e["warm"].get(k, 0) for e, _ in exits) for k in launches}
+    for name in ("relax_dense", "prim_chain", "push_rows"):
+        require(launches[name] > 0, f"fleet: {name} never launched by the replicas ({launches})")
+
+    a_last = max(sink.stamps[i] for i, r in enumerate(resp) if r["id"][0] == "A")
+    flushes = sum(s["scheduler"]["batches"] for _, s in exits)
+    print(f"phase 15 fleet: 2 replicas (cuda, --replica-threads 4, --warm 16) up in {warm_s:.2f} s; cold start "
+          f"(spawn to warmed service) {cold[0]:.2f} / {cold[1]:.2f} s; warm-up launches {warm_launches}")
+    print(f"phase 15 F1 (A + D at once, {len(f1)} requests): {f1_wall:.2f} s; A {len(a_ids) / (a_last - t_start):.1f} "
+          f"requests/s; errors 0, degraded 0, rung failures 0; tiers {f1_stats['tiers']}")
+    for tier in ("pipeline", "bnb"):
+        lat = [r["fleet_latency_ms"] for r in resp if r["tier"] == tier]
+        print(f"phase 15 F1 tier {tier}: {len(lat)} answers, fleet_latency_ms p50 {_quantile(lat, 0.5):.3f} "
+              f"p99 {_quantile(lat, 0.99):.3f} max {max(lat):.3f}")
+    for i in range(SERVE_GROUPS["D"][0]):
+        r = resp_of[f"D{i}"]
+        print(f"phase 15 F1 D{i} (n={r['n']}): cost {r['cost']:.4f}, certified gap {r['certified_gap']}, "
+              f"fleet latency {r['fleet_latency_ms']:.1f} ms" + (f"; {berlin_rounded:.1f} under TSPLIB's rounding"
+                                                                if i == 0 else ""))
+    lat_b = [r["fleet_latency_ms"] for r in f2]
+    print(f"phase 15 F2 (B): {len(f2)} hits, fleet_latency_ms p50 {_quantile(lat_b, 0.5):.3f}; shared-tier hits "
+          f"over the replicas' scrapes {shared}; A == plain dense bit for bit"
+          + (" == phase 14's in-process answers" if serve_a else ""))
+    for row, (e, s) in zip(stats["fleet"]["replicas"], exits):
+        print(f"phase 15 replica {row['index']} (pid {row['pid']}): "
+              f"dispatched {row['dispatched']}, answered {row['answered']}, flushes {s['scheduler']['batches']}, "
+              f"B&B slices {s['scheduler'].get('bnb_slices')}, launches {e['launches']}, scrape {row['scrape']}")
+    print(f"phase 15 launches by F1 + F2, summed over the replicas: relax_dense {launches['relax_dense']}, "
+          f"relax_minplus {launches['relax_minplus']}, prim_chain {launches['prim_chain']}, push_rows "
+          f"{launches['push_rows']}; {flushes} flushes; hops: redispatches {stats['fleet']['redispatches_total']}")
+    print(f"phase 15 compute apps (pid, used memory) during F1: {apps_f1} ({base} before the fleet)")
+
+    # --- F3: a kill, then a hang, each mid-flight
+    hop = max(60.0, 3 * max(cold))
+    grace = max(20.0, 2 * max(cold))
+    cfg3 = FleetConfig(replicas=2, backend="cuda", replica_threads=4, replica_args=("--warm", "16"),
+                       shared_cache_dir=str(FLEET_DIR / "shared3"), hop_timeout_s=hop, default_deadline_ms=180_000.0,
+                       supervisor=SupervisorConfig(wedge_timeout_s=5.0, startup_grace_s=grace, scrape_timeout_s=1.0,
+                                                   restart_backoff_base_s=0.2, restart_backoff_max_s=1.0))
+    rng = np.random.default_rng(SERVE_SEED + 15)
+    rounds = [[{"id": f"K{i}", "xy": rng.uniform(0, 1000, (16, 2)).tolist(), "deadline_ms": 180_000.0}
+               for i in range(8)],
+              [{"id": f"H{i}", "xy": rng.uniform(0, 1000, (16, 2)).tolist(), "deadline_ms": 180_000.0}
+               for i in range(8)]]
+    base = len(_compute_apps())
+    front, cold3 = _fleet_front(cfg3)
+    h0 = HEALTH.snapshot()
+    f3 = []
+    try:
+        reps = front.supervisor.replicas
+        before = {r.proc.pid: r for r in reps}
+        apps_before = _compute_apps()
+        for spec, reqs in zip(("replica.kill:raise,nth=3", "replica.hang:raise,nth=3"), rounds):
+            out = _TimedSink()
+            faults.configure(spec)
+            try:
+                run_jsonl((json.dumps(r) for r in reqs), out, service=front)
+            finally:
+                faults.clear()
+            f3 += [json.loads(line) for line in out.lines]
+            if spec.startswith("replica.kill"):
+                _wait_for(lambda: any(r.proc.pid not in before and _cold_start_s(r) is not None for r in reps),
+                          300, "the killed replica restarted and warmed up")
+                killed = [pid for pid, r in before.items() if r.proc.pid != pid]
+                restart_cold = [_cold_start_s(r) for r in reps if r.proc.pid not in before]
+                restarted = [r.proc.pid for r in reps if r.proc.pid not in before]
+                apps_after = _compute_apps()
+        _wait_for(lambda: HEALTH.delta_since(h0)["stuck_restarts"] >= 1, grace + 120, "the wedge verdict")
+        f3_stats = json.loads(front.stats_json())
+        h = HEALTH.delta_since(h0)
+    finally:
+        faults.clear()
+        front.close()
+    want_ids = [r["id"] for rnd in rounds for r in rnd]
+    require([r.get("id") for r in f3] == want_ids, "fleet chaos: responses dropped, duplicated or out of order")
+    require(not any("error" in r or "degraded" in r for r in f3) and f3_stats["errors"] == 0,
+            f"fleet chaos: {[r for r in f3 if 'error' in r or 'degraded' in r][:2]}")
+    # n = 16 under a long deadline goes to the certified rung: each proof
+    # ends on the float64 Held-Karp optimum (the plain dense impl's) up to
+    # the B&B's float32 distances (1e-6 relative)
+    xy3 = {r["id"]: r["xy"] for rnd in rounds for r in rnd}
+    with held_karp.use_impl("dense"):
+        opt, _ = held_karp.solve_blocks_from_dists(torch.as_tensor(
+            np.stack([distance_matrix_np(np.asarray(xy3[i])) for i in want_ids]), device="cuda"), torch.float64)
+    for r, c in zip(f3, opt.cpu().tolist()):
+        require(r["tier"] == "bnb" and r["certified_gap"] == 0.0 and _valid_tour(r, 16)
+                and abs(r["cost"] - c) <= 1e-6 * c, f"fleet chaos: {r['id']} on {r['tier']}, cost {r['cost']}, "
+                f"the Held-Karp optimum {c}")
+    require(h["faults_injected"].get("replica.kill") == 1 and h["faults_injected"].get("replica.hang") == 1,
+            f"fleet chaos: injected {h['faults_injected']}")
+    require(h["fleet_redispatches"] >= 1 and h["fleet_replica_restarts"] >= 1 and h["stuck_restarts"] >= 1,
+            f"fleet chaos: health {h}")
+    # a killed replica's context is torn down: the count stays at 2 replicas
+    require(len(killed) == 1 and len(apps_before) == len(apps_after) == base + 2,
+            f"fleet chaos: killed {killed}, restarted {restarted}; contexts before the kill {apps_before}, after "
+            f"the restart {apps_after} ({base} before the fleet)")
+    print(f"phase 15 F3 (chaos, {len(want_ids)} requests of n=16; kill at the 3rd dispatch, then a hang at the "
+          f"3rd): exactly once, errors 0, degraded 0; restarts {f3_stats['fleet']['restarts_total']}, "
+          f"redispatches {h['fleet_redispatches']}, wedge verdicts {h['stuck_restarts']}; cold start "
+          f"{cold3[0]:.2f} / {cold3[1]:.2f} s, the killed replica's restart {restart_cold[0]:.2f} s (spawn to "
+          f"warmed service; hop {hop:.0f} s, grace {grace:.0f} s)")
+    print(f"phase 15 F3 compute apps (pid, used memory) before the kill {apps_before}; after the restart "
+          f"{apps_after} (killed pid {killed}, restarted as {restarted}; {base} before the fleet)")
+
+    # --- F4: the CLI in a fresh process on 10 of F1's requests
+    pick = a_ids[:10]
+    req_path, out_path = FLEET_DIR / "requests.jsonl", FLEET_DIR / "responses.jsonl"
+    req_path.write_text("".join(json.dumps(by_id[i]) + "\n" for i in pick))
+    # the front dispatches at once and a request's deadline runs while a
+    # cold replica starts: the requests go in after the measured cold start
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch", "fleet", "--replicas", "2",
+                             "--warm", "16", "--stats", "--out", str(out_path)], stdin=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    base = len(_compute_apps())
+    most = []
+    try:
+        hold_until = time.monotonic() + 2 * max(cold) + 5
+        while time.monotonic() < hold_until:
+            most = max(most, _compute_apps(), key=len)
+            time.sleep(0.5)
+        proc.stdin.write(req_path.read_text())
+        proc.stdin.close()
+        while proc.poll() is None:
+            most = max(most, _compute_apps(), key=len)
+            time.sleep(0.5)
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"fleet CLI: exit {proc.returncode}: {err[-2000:]}")
+    got = [json.loads(line) for line in out_path.read_text().splitlines()]
+    cli_stats = json.loads(err.strip().splitlines()[-1])
+    require([g["id"] for g in got] == pick, f"fleet CLI: ids {[g['id'] for g in got]}")
+    for g in got:
+        for f in ("n", "tier", "cost", "tour", "certified_gap", "cache"):
+            require(g[f] == resp_of[g["id"]][f], f"fleet CLI: {g['id']} {f} {g[f]!r} != F1's {resp_of[g['id']][f]!r}")
+    cli_pids = [row["pid"] for row in cli_stats["fleet"]["replicas"]]
+    require(cli_stats["errors"] == 0 and sum(cli_stats["fleet"]["degraded_answers"].values()) == 0,
+            f"fleet CLI stats: {cli_stats['errors']} errors, degraded {cli_stats['fleet']['degraded_answers']}")
+    # the front creates no context: the most the card held was the 2 replicas'
+    require(len(most) == base + 2, f"fleet CLI: at most {len(most)} contexts on the card, want {base} + 2 "
+            f"replicas (the front {proc.pid} none): {most}")
+    print(f"phase 15 F4 CLI (fresh process, --replicas 2 --warm 16, {len(pick)} requests): exit 0 in {cli_s:.2f} s, "
+          f"answers == F1; contexts on the card at most {most} ({base} before): the front (pid {proc.pid}) held "
+          f"none, its replicas {cli_pids} one each")
+    print(f"phase 15 card: {smi}")
     return launches
 
 
 def main(argv=None) -> int:
     import argparse
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--fleet-replica"]:  # a phase 15 replica process
+        return fleet_replica(argv[1:])
     import torch
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
@@ -1640,10 +2034,15 @@ def main(argv=None) -> int:
             phase_pipeline_options(smi, full_phases)
         if want(13):
             phase_bnb_options(smi)
+        serve_a = None
         if want(14):
-            serve_launches = phase_serve(smi)
+            serve_launches, serve_a = phase_serve(smi)
             for k in kernels:  # the serve traffic's own counts beside the main paths'
                 k["launches_serve"] = serve_launches[k["name"]]
+        if want(15):
+            fleet_launches = phase_fleet(smi, serve_a)
+            for k in kernels:  # summed over the fleet's replica processes
+                k["launches_fleet"] = fleet_launches[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -20,9 +20,19 @@ import pytest
 import torch
 
 from tsp_mpi_reduction_tpu.models import branch_bound as jbb
+from tsp_mpi_reduction_tpu.perf import compile_cache as jcompile_cache
 from tsp_mpi_reduction_tpu_torch.models import branch_bound as tbb
 from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
 from tsp_mpi_reduction_tpu_torch.utils import tsplib as ttsplib
+
+
+@pytest.fixture(autouse=True)
+def _jax_aot_off(monkeypatch):
+    """The JAX oracle takes its jit path. Once ``compile_cache.enable()``
+    has run in this process (an earlier test's serve CLI does), its
+    solves would load whatever executables the shared AOT store holds,
+    some compiled for an 8-device mesh."""
+    monkeypatch.setattr(jcompile_cache, "_enabled_dir", None)
 
 
 @pytest.fixture(autouse=True)

@@ -21,6 +21,7 @@ import torch
 
 from tsp_mpi_reduction_tpu.models import branch_bound as jbb
 from tsp_mpi_reduction_tpu.ops import expand_pallas
+from tsp_mpi_reduction_tpu.perf import compile_cache as jcompile_cache
 from tsp_mpi_reduction_tpu.utils import tsplib as jtsplib
 from tsp_mpi_reduction_tpu_torch.models import branch_bound as tbb
 from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
@@ -31,6 +32,15 @@ BD_FIELDS = ("min_out", "bound_adj", "dbar", "pi", "slack", "ascent_step", "lam_
 #: quiet NaN, NaN with a payload, -0.0, +inf, -inf
 SPECIAL_BITS = np.array([0x7FC00000, 0x7FC00123, 0x80000000, 0x7F800000, 0xFF800000],
                         np.uint32).view(np.int32)
+
+
+@pytest.fixture(autouse=True)
+def _jax_aot_off(monkeypatch):
+    """The JAX oracle takes its jit path. Once ``compile_cache.enable()``
+    has run in this process (an earlier test's serve CLI does), its
+    solves would load whatever executables the shared AOT store holds,
+    some compiled for an 8-device mesh."""
+    monkeypatch.setattr(jcompile_cache, "_enabled_dir", None)
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ from tsp_mpi_reduction_tpu.models import branch_bound as jbb
 from tsp_mpi_reduction_tpu.obs import metrics as jmetrics
 from tsp_mpi_reduction_tpu.obs import slo as jslo
 from tsp_mpi_reduction_tpu.ops import held_karp as jhk
+from tsp_mpi_reduction_tpu.perf import compile_cache as jcompile_cache
 from tsp_mpi_reduction_tpu.serve import ladder as jladder
 from tsp_mpi_reduction_tpu_torch.models import branch_bound as tbb
 from tsp_mpi_reduction_tpu_torch.obs import metrics as tmetrics
@@ -38,6 +39,15 @@ from tsp_mpi_reduction_tpu_torch.serve.scheduler import MicroBatchScheduler
 N, SEED = 12, 33
 SOLVE_KW = dict(capacity=256, k=8, inner_steps=1, bound="min-out", mst_prune=False,
                 node_ascent=0, device_loop=False, max_iters=400)
+
+
+@pytest.fixture(autouse=True)
+def _jax_aot_off(monkeypatch):
+    """The JAX oracle takes its jit path. Once ``compile_cache.enable()``
+    has run in this process (an earlier test's serve CLI does), its
+    solves would load whatever executables the shared AOT store holds,
+    some compiled for an 8-device mesh."""
+    monkeypatch.setattr(jcompile_cache, "_enabled_dir", None)
 
 
 @pytest.fixture(autouse=True)

@@ -70,6 +70,9 @@ from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
 from ..perf import ascent_memo as _ascent_memo
 from ..resilience import checkpoint as _ckpt_store
+from ..resilience.faults import TransientFault as _TransientFault
+from ..resilience.faults import registry as _fault_registry
+from ..resilience.retry import RetryPolicy as _RetryPolicy
 
 INF = float("inf")
 
@@ -1112,10 +1115,25 @@ def _np_bound_col(rows: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(rows[..., -2]).view(np.float32)
 
 
+#: what the spill readback's retry absorbs: injected faults and host I/O
+#: errors. A CUDA error is sticky (the context is unusable after it), so it
+#: is never retried; bounded at 3 attempts, a real fault surfaces in ~15 ms.
+_TRANSFER_ERRORS = (_TransientFault, OSError)
+
+
 def _fetch_live_rows(nodes: torch.Tensor, cnt: int) -> np.ndarray:
     """The one device-to-host fetch of a spill: only the live prefix of the
-    frontier buffer, copied so it never aliases the buffer."""
-    return nodes[:cnt].cpu().numpy().copy()
+    frontier buffer, copied so it never aliases the buffer. It is also the
+    ``spill.fetch`` fault seam, under the JAX package's bounded retry
+    (``branch_bound.py:1711-1734``)."""
+
+    def pull() -> np.ndarray:
+        _fault_registry().fire("spill.fetch")
+        return nodes[:cnt].cpu().numpy().copy()
+
+    return _RetryPolicy(
+        max_attempts=3, base_delay_s=0.005, seed=0, retry_on=_TRANSFER_ERRORS
+    ).call(pull)
 
 
 class _Reservoir:

@@ -194,20 +194,24 @@ class Tracer:
 
     def _maybe_env_configure(self) -> None:
         # lazy TSP_TRACE pickup, mirroring the faults registry: drivers
-        # and benches opt in by env without touching every entry point
+        # and benches opt in by env without touching every entry point.
+        # The flag is set only once the sink is open: a thread that reads
+        # it lock-free must never see "checked" with the file not yet open
+        # (the first requests of a fresh replica arrive on several threads
+        # at once, and one of them would go untraced)
         if self._env_checked:
             return
         with self._lock:
             if self._env_checked:
                 return
-            self._env_checked = True
             path = os.environ.get("TSP_TRACE", "").strip()
             if path:
-                self._path = path
                 try:
                     self._fh = open(path, "a", encoding="utf-8")
+                    self._path = path
                 except OSError:
-                    self._path = None
+                    pass
+            self._env_checked = True
 
     @property
     def active(self) -> bool:

@@ -25,7 +25,7 @@ Flags:
 
 Modes (dispatched before the argv contract, as in the JAX CLI):
   serve ...                   the JSONL solve service (``serve.service.serve_cli``)
-  fleet ...                   not ported yet: exit 2
+  fleet ...                   the front over N serve replicas (``fleet.front.fleet_cli``)
 
 Degenerate blocks (n < 3) exit 2 with an error, as does a missing GPU.
 ``--backend=native`` refuses ``--improve``, ``--trace``, ``--dtype=float32``,
@@ -89,9 +89,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         return serve_cli(argv[1:])
     if argv and argv[0] == "fleet":
-        print("error: the fleet mode is not ported yet (use `serve`, or the JAX package's "
-              "`python -m tsp_mpi_reduction_tpu fleet`)", file=sys.stderr)
-        return 2
+        from ..fleet.front import fleet_cli
+
+        return fleet_cli(argv[1:])
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as e:

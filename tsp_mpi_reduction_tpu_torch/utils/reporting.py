@@ -126,3 +126,37 @@ def service_stats_json(
         "obs": obs or {},
     }
     return json.dumps(payload)
+
+
+def fleet_stats_json(
+    *,
+    responses: int,
+    errors: int,
+    deadline_misses: int,
+    tier_counts: Dict[str, int],
+    fleet: Dict,
+    cache: Dict,
+    health: Optional[Dict] = None,
+    slo: Optional[Dict] = None,
+    obs: Optional[Dict] = None,
+) -> str:
+    """The fleet front's stats line, with the JAX package's keys in its
+    order (``tsp_mpi_reduction_tpu/utils/reporting.py:154``): the serve
+    stats shape without the per-process scheduler internals, plus the
+    ``fleet`` block — per-replica state rows (pid, liveness, restarts,
+    dispatched/answered, the last ``/metrics.json`` scrape totals),
+    supervision totals (restarts, re-dispatches, degraded answers by
+    reason, suppressed duplicates) and the shared disk tier's counters."""
+    lookups = cache.get("hits", 0) + cache.get("misses", 0)
+    payload = {
+        "responses": responses,
+        "errors": errors,
+        "deadline_misses": deadline_misses,
+        "tiers": tier_counts,
+        "fleet": fleet,
+        "cache": dict(cache, hit_rate=(cache.get("hits", 0) / lookups) if lookups else 0.0),
+        "health": health or {},
+        "slo": slo or {},
+        "obs": obs or {},
+    }
+    return json.dumps(payload)
