@@ -133,13 +133,29 @@ Phases, each printing its own line; any failure exits non-zero:
     front (2 more contexts at most, its replicas'). Prints the replicas' cold
     starts and restart, F1's requests/s and latency per tier, the flushes,
     the hops and the launches (``launches_fleet`` in the kernels line).
+16. the sharded B&B, the ranks batched on the card (``solve_sharded``): the
+    CLI's ``eil51 --ranks=8 --k=128`` under ``pair`` and ``--balance=ring``
+    (the host loop: 16,384 rows a rank is under the device loop's floor)
+    and ``eil51 --ranks=4 --k=256 --capacity=1048576 --device-loop=on``,
+    each held to the JAX package's CLI node for node (cost and LB 426,
+    nodes, nodes per rank, spill counters, balance actions, moved rows and
+    the per-dispatch rows), with 1 + node_ascent ``prim_chain`` and one
+    ``push_rows`` launch a rank-step; every launch of run 1 recorded and
+    held bit for bit against the plain versions, its first 3000 / 1000
+    launches timed (``launches_sharded`` in the kernels line); then 4-rank
+    ``solve_sharded`` calls held to the JAX package's numbers: the adaptive
+    controller on single-rank seeding (its whole summary), a spill-forcing
+    device-loop proof (nonzero spill counters), and a proof cut into a
+    snapshot and a resume (outputs in ``build/chip_smoke_sharded/``) that
+    lands on the uninterrupted optimum. Prints each run's seconds, nodes/s
+    and per-rank split.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
-13's Boruvka run, phase 14's request traffic and phase 15's F1 and F2 in
-the replica processes) runs with the kernels' launch counts reset just
-before and read just after; a kernel of the path that never launched
-fails the run.
+13's Boruvka run, phase 14's request traffic, phase 15's F1 and F2 in
+the replica processes and phase 16's three eil51 runs) runs with the
+kernels' launch counts reset just before and read just after; a kernel of
+the path that never launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
 the JSON every kernel's ``ms`` is its eager time by CUDA events (the
 host's launch gaps included) and ``device_ms`` the same launches replayed
@@ -153,6 +169,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -229,6 +246,69 @@ SPILL_PINNED = {"nodes_expanded": 26_900, "iterations": 3381, "cost": 3154.0,
                 "lower_bound": 3154.0, "proven_optimal": True, "spill_rounds": 14,
                 "spill_events": 14, "spill_full_merges": 0, "spill_bytes_to_host": 95_724,
                 "spill_bytes_to_device": 95_724}
+SHARD_DIR = ROOT / "build" / "chip_smoke_sharded"
+#: phase 16: the sharded B&B with the ranks batched on the card, through the
+#: CLI, held to the JAX package's CLI on the CPU (8 virtual devices, a fresh
+#: HOME each): ``python tools/bnb_solve.py <args> --backend=cpu``. R = 8 at
+#: 16,384 rows a rank is under the device loop's floor 4*k*(n-1) = 25,600,
+#: so auto runs the host loop there; R = 4 runs the device loop
+SHARD_CLI = {
+    "pair": (["eil51", "--ranks=8", "--k=128"], False, {
+        "nodes_expanded": 219_111, "nodes_per_rank": [3268, 14374, 10935, 10294, 87879, 10076, 79711, 2574],
+        "actions": {"pair": 22}, "moved_rows_total": 5376, "rows": "21a1fb53cb8fd24f"}),
+    "ring": (["eil51", "--ranks=8", "--k=128", "--balance=ring"], False, {
+        "nodes_expanded": 219_111, "nodes_per_rank": [7, 10405, 2087, 6, 87879, 15986, 79711, 23030],
+        "actions": {"ring": 22}, "moved_rows_total": 5376, "rows": "a05306df1f0e3777"}),
+    "device": (["eil51", "--ranks=4", "--k=256", "--capacity=1048576", "--device-loop=on"], True, {
+        "nodes_expanded": 233_874, "nodes_per_rank": [84559, 46283, 81212, 21820],
+        "actions": {"pair": 1}, "moved_rows_total": 4864, "rows": "cc6db87d0e6e8d2e"}),
+}
+#: every eil51 run above: cost and certified LB 426, proven, no spill
+SHARD_CLI_COMMON = {"cost": 426.0, "lower_bound": 426.0, "proven_optimal": True, "spill_rounds": 0,
+                    "spill_events": 0, "spill_full_merges": 0, "spill_bytes_to_host": 0,
+                    "spill_bytes_to_device": 0}
+#: the small sharded solves of phase 16: 4 ranks on rounded x10 Euclidean
+#: instances of numpy-seeded points; the host loop of tests/test_balance.py
+#: (``_SOLVE_KW``) and the spill-forcing device loop of the graft entry's mesh
+#: run (capacity 256, k = 4, re-sort every 8 steps)
+SHARD_HOST_KW = dict(capacity_per_rank=256, k=8, inner_steps=1, bound="min-out", mst_prune=False,
+                     node_ascent=0, device_loop=False, max_iters=2_000_000)
+SHARD_SPILL_KW = dict(capacity_per_rank=256, k=4, inner_steps=1, device_loop=True, reorder_every=8,
+                      bound="min-out", mst_prune=False, node_ascent=0, max_iters=2_000_000)
+#: name -> (instance (n, seed), extra arguments, the JAX package's
+#: solve_sharded numbers on the CPU with the same arguments on a 4-device
+#: mesh); "rows" is the sha256 prefix of the balance summary's per-dispatch rows
+SHARD_SMALL = {
+    "adaptive": ((12, 33), dict(SHARD_HOST_KW, balance="adaptive", seed_mode="single-rank"), {
+        "cost": 2994.0, "lower_bound": 2994.0, "proven_optimal": True, "nodes_expanded": 14_786,
+        "nodes_per_rank": [3736, 3668, 3698, 3684], "iterations": 469, "spill_rounds": 0,
+        "spill_events": 0, "actions": {"skip": 435, "steal": 10, "pair": 24}, "switches": 41,
+        "moved_rows_total": 959, "alive_probes": 9, "collective_dispatches": 34, "cv_max": 1.7321,
+        "cv_last": 0.8718, "rows": "437bd37d4a46e98d"}),
+    "spill": ((12, 7), dict(SHARD_SPILL_KW, balance="pair"), {
+        "cost": 3561.0, "lower_bound": 3561.0, "proven_optimal": True, "nodes_expanded": 7589,
+        "nodes_per_rank": [1896, 1899, 1900, 1894], "iterations": 481, "spill_rounds": 4,
+        "spill_events": 12, "spill_full_merges": 0, "spill_bytes_to_host": 41_184,
+        "spill_bytes_to_device": 43_840, "actions": {"pair": 5}, "moved_rows_total": 1135,
+        "rows": "238b813b762b0621"}),
+    "whole": ((12, 33), dict(SHARD_HOST_KW, balance="pair"), {
+        "cost": 2994.0, "lower_bound": 2994.0, "proven_optimal": True, "nodes_expanded": 14_786,
+        "nodes_per_rank": [3695, 3695, 3702, 3694], "iterations": 469, "spill_rounds": 9,
+        "spill_events": 28, "spill_bytes_to_host": 106_560, "spill_bytes_to_device": 112_384,
+        "actions": {"pair": 469}, "moved_rows_total": 1798, "rows": "62f0b13f1d0b6e3e"}),
+    # "whole" cut at 200 iterations with a snapshot, then resumed from it
+    # (the resumed reservoir lands on rank 0 and refills)
+    "chunk1": ((12, 33), dict(SHARD_HOST_KW, balance="pair", max_iters=200), {
+        "cost": 2994.0, "lower_bound": 2546.0, "proven_optimal": False, "nodes_expanded": 6379,
+        "nodes_per_rank": [1595, 1595, 1595, 1594], "iterations": 200, "spill_rounds": 6,
+        "spill_events": 19, "spill_bytes_to_host": 106_560, "spill_bytes_to_device": 77_824,
+        "rows": "983910b6178b06d2"}),
+    "chunk2": ((12, 33), dict(SHARD_HOST_KW, balance="pair"), {
+        "cost": 2994.0, "lower_bound": 2994.0, "proven_optimal": True, "nodes_expanded": 8407,
+        "nodes_per_rank": [2169, 2078, 2066, 2094], "iterations": 286, "spill_rounds": 8,
+        "spill_events": 8, "spill_bytes_to_host": 0, "spill_bytes_to_device": 28_736,
+        "moved_rows_total": 1825, "rows": "3545c3d9fb243dde"}),
+}
 
 
 class SmokeFailure(Exception):
@@ -1976,6 +2056,133 @@ def phase_fleet(smi, serve_a):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded B&B, the ranks batched on the one card
+# ---------------------------------------------------------------------------
+
+
+def rows_digest(rows) -> str:
+    """sha256 prefix of a balance summary's per-dispatch rows."""
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
+
+
+def shard_fields(out: dict, balance: dict) -> dict:
+    """A sharded run's pinned fields: the payload's, the balance summary's
+    and the digest of its rows."""
+    return {**out, **balance, "rows": rows_digest(balance["rows"])}
+
+
+def phase_sharded(smi, errs):
+    """Phase 16 (see the module docstring); returns the kernels' launches
+    in run 1 (eil51 R = 8 under pair, the main path of this phase)."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
+
+    # --- eil51 through the CLI, counts reset just before each run
+    outs = {}
+    for name, (argv, loop, pinned) in SHARD_CLI.items():
+        prim_kernels.reset_launches()
+        ek.reset_launches()
+        bb.reset_frontier_stats()
+        out = run_bnb_cli(argv + ["--backend=cuda"])
+        launches = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
+        outs[name] = (out, launches, bb.FRONTIER_STATS["peak_count"])
+        bal = out["obs"]["balance"]
+        pinned_fields(shard_fields(out, bal), {**SHARD_CLI_COMMON, **pinned}, f"sharded {' '.join(argv)}")
+        ranks = len(pinned["nodes_per_rank"])
+        require(out["ranks"] == ranks and out["balance"] == ("ring" if name == "ring" else "pair")
+                and out["device_loop"] == loop and out["mst_kernel"] == "prim_chain"
+                and out["step_kernel"] == "fused",
+                f"sharded {name}: ranks {out['ranks']} balance {out['balance']} loop {out['device_loop']} "
+                f"kernels {out['mst_kernel']}/{out['step_kernel']}")
+        # 1 + node_ascent prim_chain launches and one push_rows a rank-step
+        require(launches["prim_chain"] == out["prim_chain_launches"] == 3 * out["steps_run"] > 0
+                and launches["push_rows"] == out["push_rows_launches"] == out["steps_run"],
+                f"sharded {name}: {launches['prim_chain']} prim_chain / {launches['push_rows']} push_rows "
+                f"launches for {out['steps_run']} rank-steps")
+        print(f"phase 16 eil51 {' '.join(argv[1:])} ({'device' if loop else 'host'} loop, fused push, "
+              f"prim_chain): proved {out['cost']} (LB {out['lower_bound']}) in {out['nodes_expanded']} nodes "
+              f"== the JAX package's, per rank {out['nodes_per_rank']}; {out['iterations']} iterations, "
+              f"{out['steps_run']} rank-steps, balance {bal['actions']} moving {bal['moved_rows_total']} rows; "
+              f"{launches['prim_chain']} prim_chain + {launches['push_rows']} push_rows launches; largest "
+              f"rank count {outs[name][2]}")
+        print(f"phase 16 seconds ({name}): setup {out['setup_s']} (ascent {out['setup_ascent_s']}, ILS "
+              f"{out['setup_ils_s']}), search {out['wall_s']}, time to proof {out['time_to_proof_s']}; "
+              f"{out['nodes_per_sec']} nodes/s")
+    main_out, main_launches, _ = outs["pair"]
+
+    # --- both kernels on run 1's recorded inputs, launch by launch
+    argv = SHARD_CLI["pair"][0] + ["--backend=cuda"]
+    chains, pushes, out = kt.record_bnb_calls(argv)
+    require(out["nodes_expanded"] == main_out["nodes_expanded"] and len(chains) == main_launches["prim_chain"]
+            and len(pushes) == main_launches["push_rows"],
+            f"recorded run: {out['nodes_expanded']} nodes, {len(chains)} prim_chain / {len(pushes)} push_rows "
+            f"launches, want {main_launches}")
+    try:
+        lanes = kt.prim_check(chains)
+        kt.push_check(pushes, 51)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
+    sample = chains[: 3 * 1000]
+    prim_row = kt.time_prim(sample, "sharded", reps=3)
+    push = kt.time_push(pushes[:1000], 51, "sharded", reps=3)
+    print(f"phase 16 kernels on run 1's recorded inputs: all {len(chains)} prim_chain launches ({lanes} lanes) "
+          f"and all {len(pushes)} push_rows launches == plain bit for bit; on the first {len(sample)} / "
+          f"{min(len(pushes), 1000)} (k=128, n=51): prim_chain {prim_row['device_ms']:.4f} ms/launch device "
+          f"(graph replay), {prim_row['ms']:.4f} eager, bound {prim_row['bound_ms']:.6f} ms, plain "
+          f"{prim_row['plain_ms']:.4f}; push_rows {push['device_ms']:.4f} ms/launch device, {push['ms']:.4f} "
+          f"eager, bound {push['bound_ms']:.6f} ms, plain {push['plain_ms']:.4f}, mean n_push "
+          f"{push['mean_n_push']:.1f}")
+    del chains, pushes
+
+    # --- the small sharded solves: adaptive controller, spills, resume
+    SHARD_DIR.mkdir(parents=True, exist_ok=True)
+    ck = str(SHARD_DIR / "sharded.npz")
+    for old in SHARD_DIR.glob("sharded.npz*"):
+        old.unlink()
+    got = {}
+    for name, ((n, seed), kw, pinned) in SHARD_SMALL.items():
+        xy = np.random.default_rng(seed).uniform(0, 100, (n, 2))
+        d = np.rint(np.sqrt(((xy[:, None] - xy[None]) ** 2).sum(-1)) * 10)
+        extra = {}
+        if name == "chunk1":
+            extra = dict(checkpoint_path=ck)
+        elif name == "chunk2":
+            extra = dict(checkpoint_path=ck, resume_from=ck)
+        t0 = time.perf_counter()
+        res = bb.solve_sharded(d, 4, device="cuda", **kw, **extra)
+        wall = time.perf_counter() - t0
+        got[name] = res
+        fields = {"cost": res.cost, "lower_bound": res.lower_bound, "proven_optimal": res.proven_optimal,
+                  "nodes_expanded": res.nodes_expanded, "nodes_per_rank": [int(x) for x in res.nodes_per_rank],
+                  "iterations": res.iterations, "spill_rounds": res.spill_rounds,
+                  "spill_events": res.spill_events, "spill_full_merges": res.spill_full_merges,
+                  "spill_bytes_to_host": res.spill_bytes_to_host,
+                  "spill_bytes_to_device": res.spill_bytes_to_device}
+        pinned_fields(shard_fields(fields, res.balance), pinned, f"sharded {name}")
+        print(f"phase 16 {name} (4 ranks, {n} cities, {kw.get('balance')}, "
+              f"{'device' if res.device_loop else 'host'} loop): cost {res.cost}, LB {res.lower_bound}, "
+              f"proven {res.proven_optimal}, {res.nodes_expanded} nodes {fields['nodes_per_rank']}, "
+              f"{res.iterations} iterations, spill rounds/events {res.spill_rounds}/{res.spill_events}, "
+              f"balance {res.balance['actions']} ({res.balance['switches']} switches, "
+              f"{res.balance['moved_rows_total']} rows moved) == the JAX package's; {wall:.2f} s")
+    whole, chunk2 = got["whole"], got["chunk2"]
+    require(chunk2.cost == whole.cost and chunk2.lower_bound == whole.lower_bound
+            and np.array_equal(chunk2.tour, whole.tour) and got["chunk1"].checkpoint_save_s,
+            "sharded resume: chunk 2 does not land on the uninterrupted optimum")
+    print(f"phase 16 sharded checkpoint -> resume on the card: chunk 1 saved in "
+          f"{got['chunk1'].checkpoint_save_s[-1]:.4f} s, chunk 2 restored in {chunk2.checkpoint_restore_s:.4f} s "
+          f"and proved {chunk2.cost} with certified LB {chunk2.lower_bound} and the uninterrupted tour")
+    print(f"phase 16 card: {smi}")
+    torch.cuda.synchronize()
+    return main_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1986,8 +2193,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases to run after phase 1 (default: all); a partial run "
-                    "prints no result line")
+                    help="comma-separated phases (2-16) to run after phase 1 (default: all); a "
+                    "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
     if not torch.cuda.is_available():
@@ -2043,6 +2250,10 @@ def main(argv=None) -> int:
             fleet_launches = phase_fleet(smi, serve_a)
             for k in kernels:  # summed over the fleet's replica processes
                 k["launches_fleet"] = fleet_launches[k["name"]]
+        if want(16):
+            sharded_launches = phase_sharded(smi, errs)
+            for k in kernels:  # run 1 of phase 16 (eil51, 8 ranks, pair)
+                k["launches_sharded"] = sharded_launches.get(k["name"], 0)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -342,8 +342,13 @@ def test_cli_proves_burma14_on_cpu(capsys):
     assert out["device"] == "cpu" and out["time_to_proof_s"] is not None
     assert {"retries", "fallback_restores", "faults_injected"} <= out["health"].keys()
     assert set(out["compile_cache"]) == {"ascent_memo_hits", "ascent_memo_misses"}
-    for key in ("series", "anomalies", "rank_series", "obs"):
+    for key in ("series", "anomalies", "rank_series"):
         assert out[key] is None
+    # the JAX payload's obs block without its XLA keys; no rank telemetry
+    # and no balance controller on a single device
+    assert out["obs"] == {"enabled": True, "trace": None, "metrics_port": None,
+                          "rank_balance": None, "balance": None}
+    assert out["ranks"] == 1 and out["nodes_per_rank"] is None and out["balance"] is None
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(capsys):

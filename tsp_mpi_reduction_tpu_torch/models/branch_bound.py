@@ -288,6 +288,8 @@ class BnBResult:
     device_loop: bool = False  # the resolved loop
     checkpoint_save_s: Tuple[float, ...] = ()  # host seconds of each save
     checkpoint_restore_s: float = 0.0  # host seconds of the restore (in setup_seconds)
+    nodes_per_rank: Optional[np.ndarray] = None  # per-rank expansions (solve_sharded only)
+    balance: Optional[dict] = None  # the balance controller's summary (solve_sharded only)
 
 
 # ---------------------------------------------------------------------------
@@ -1060,7 +1062,7 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
 
 
 def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n: int,
-                         source: str = "") -> bool:
+                         source: str = "", what: str = "capacity") -> bool:
     """The device loop's compaction floor ``capacity >= 4*k*(n-1)`` (one push
     batch of headroom per step): auto falls back to the host loop, an
     explicit request raises (``branch_bound.py:1954-1969``). Re-run after
@@ -1070,8 +1072,8 @@ def _resolve_device_loop(device_loop: bool, auto: bool, capacity: int, k: int, n
         if auto:
             return False
         raise ValueError(
-            f"device_loop needs capacity >= 4*k*(n-1) = {4 * k * (n - 1)} "
-            f"(got {capacity}{source}); lower k or raise capacity"
+            f"device_loop needs {what} >= 4*k*(n-1) = {4 * k * (n - 1)} "
+            f"(got {capacity}{source}); lower k or raise {what}"
         )
     return device_loop
 
@@ -1167,10 +1169,17 @@ class _Reservoir:
                 out.append(c[alive])
         self.chunks = out
 
+    def refill_rows(self, inc_cost: float, integral: bool, capacity: int):
+        """Host core of :meth:`refill` (``branch_bound.py:1779``): the
+        best-bound ``capacity // 2`` reservoir rows in stack order for an
+        empty device stack, incumbent-closed ones dropped; None when
+        nothing survives."""
+        return self._partition(None, inc_cost, integral, capacity)
+
     def refill(self, fr: Frontier, inc_cost: float, integral: bool, capacity: int) -> Frontier:
         """Reload up to half the logical ``capacity`` onto an empty device
         stack, written in place over the dead rows of the buffer."""
-        keep = self._partition(None, inc_cost, integral, capacity)
+        keep = self.refill_rows(inc_cost, integral, capacity)
         if keep is None:
             return fr
         take = keep.shape[0]
@@ -1225,16 +1234,26 @@ class _Reservoir:
         self.stats.events += 1
         self.stats.full_merges += int(merge)
         self.stats.bytes_to_host += live.nbytes
-        if merge:
-            keep = self._partition(live, inc_cost, integral, capacity)
-        else:
-            keep = self._keep_live_only(live, inc_cost, integral, capacity)
+        keep = self.exchange_rows(live, inc_cost, integral, capacity, merge=merge)
         if keep is None:
             return Frontier(fr.nodes, _count_like(fr.count, 0), fr.overflow)
         take = keep.shape[0]
         self.stats.bytes_to_device += keep.nbytes
         fr.nodes[:take].copy_(torch.from_numpy(keep))
         return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
+
+    def exchange_rows(self, live: np.ndarray, inc_cost, integral, capacity: int,
+                      merge: bool = True):
+        """Host core of :meth:`exchange`, shared with the sharded
+        ``spill_refill`` (``branch_bound.py:1902``): partition the ``live``
+        packed rows, plus the whole reservoir when ``merge``, against the
+        incumbent and return the rows to put on the device (stack order),
+        or None when nothing survives. ``merge=False`` selects the best
+        half of the live rows only; the cut joins the reservoir, whose
+        chunks are never touched."""
+        if merge:
+            return self._partition(live, inc_cost, integral, capacity)
+        return self._keep_live_only(live, inc_cost, integral, capacity)
 
     def _keep_live_only(self, live, inc_cost, integral, capacity: int):
         """Best-half select over the live rows only; the cut rows join the
@@ -1267,7 +1286,8 @@ def _d_fingerprint(d) -> np.ndarray:
 
 
 def save(path: str, fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
-         reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None) -> None:
+         reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None,
+         num_ranks: Optional[int] = None) -> None:
     """Checkpoint the frontier, incumbent, instance fingerprint and any
     host-spilled reservoir nodes (``branch_bound.py:3599-3648``).
 
@@ -1278,11 +1298,13 @@ def save(path: str, fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
     certified lower bound so far; the snapshot then records
     ``lb_certified = max(floor, min bound over every open node)`` capped
     at the incumbent, which keeps the reported LB monotone across a
-    chunked campaign. The port writes single-device snapshots only (no
-    ``num_ranks`` key).
+    chunked campaign. ``num_ranks``: set for a sharded snapshot (the
+    stacked ``[R, ...]`` frontier, incumbent and count arrays of
+    :func:`solve_sharded`); :func:`restore` then refuses to resume it on
+    another rank count.
     """
     payload = _ckpt_payload(fr, inc_cost, inc_tour, d=d, bound=bound, reservoir=reservoir,
-                            lb_floor=lb_floor)
+                            lb_floor=lb_floor, num_ranks=num_ranks)
     _ckpt_store.write_atomic(
         _norm_ckpt_path(path),
         _ckpt_store.npz_bytes(**payload),
@@ -1292,7 +1314,8 @@ def save(path: str, fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
 
 
 def _ckpt_payload(fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
-                  reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None) -> dict:
+                  reservoir: Optional[_Reservoir] = None, lb_floor: Optional[float] = None,
+                  num_ranks: Optional[int] = None) -> dict:
     """The snapshot's array dict (``branch_bound.py:3651-3717``), key for
     key, dtype for dtype and value for value the JAX package's: one
     device-to-host copy of the whole packed buffer (live and dead rows),
@@ -1310,19 +1333,23 @@ def _ckpt_payload(fr: Frontier, inc_cost, inc_tour, d=None, bound=None,
         payload["d_fingerprint"] = _d_fingerprint(d)
     if bound is not None:
         payload["bound_mode"] = np.asarray(bound)
+    if num_ranks is not None:
+        payload["num_ranks"] = np.asarray(num_ranks)
     if lb_floor is not None:
         # min over the open nodes, from the arrays already copied: the
-        # frontier's live prefix and the reservoir. After an overflow the
-        # open set no longer covers the search, so only the floor stands.
-        if bool(payload["overflow"]):
+        # frontier's live prefixes (one per rank when sharded) and the
+        # reservoir. After an overflow the open set no longer covers the
+        # search, so only the floor stands.
+        if bool(payload["overflow"].any()):
             open_min = float("-inf")
         else:
-            cnt = int(payload["count"])
-            mins = [payload["bound"][:cnt].min()] if cnt else []
+            bnd = payload["bound"].reshape(-1, payload["bound"].shape[-1])
+            cnts = payload["count"].reshape(-1).tolist()
+            mins = [bnd[r, :c].min() for r, c in enumerate(cnts) if c]
             if reservoir is not None and len(reservoir):
                 mins.append(reservoir.min_bound())
             open_min = float(min(mins)) if mins else float("inf")
-        inc = float(payload["inc_cost"])
+        inc = float(payload["inc_cost"].reshape(-1)[0])
         payload["lb_certified"] = np.asarray(min(max(float(lb_floor), open_min), inc))
     if reservoir is not None and len(reservoir):
         res_fields = _unpack_rows_np(np.concatenate(reservoir.chunks), n=n_exact)
@@ -1725,4 +1752,445 @@ def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = 
         lower_bound=float(res.lower_bound),
         first_lower_bound=(handle.first_lower_bound if handle is not None
                            else float(res.root_lower_bound)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# The sharded solve: R rank frontiers stacked on one device
+# ---------------------------------------------------------------------------
+
+#: the load-balance schemes of :func:`solve_sharded`
+BALANCES = ("pair", "ring", "steal", "adaptive")
+
+#: how :func:`solve_sharded` deals the root's children over the ranks
+SEED_MODES = ("round-robin", "single-rank")
+
+
+def _rank_counts(count: torch.Tensor) -> np.ndarray:
+    """Host copy of the stacked frontier's ``[R]`` int32 count vector, the
+    one per-round readback of the sharded loop (``branch_bound.py:2568``)."""
+    return count.cpu().numpy()
+
+
+def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: SpillStats) -> Frontier:
+    """Write every exchanged rank's kept rows into the stacked buffer in
+    one rectangular write, plus the ``[R]`` count vector
+    (``branch_bound.py:2576-2604``). Shorter keeps are zero-padded to the
+    widest one from row 0; the padded rows land past that rank's new
+    count, in dead slots. Ranks without a keep keep their rows bit for
+    bit."""
+    nodes = fr.nodes
+    if keeps:
+        ridx = sorted(keeps)
+        mt = max(kp.shape[0] for kp in keeps.values())
+        block = np.zeros((len(ridx), mt, nodes.shape[-1]), np.int32)
+        for i, r in enumerate(ridx):
+            block[i, : keeps[r].shape[0]] = keeps[r]
+        stats.bytes_to_device += block.nbytes
+        nodes[torch.as_tensor(ridx, device=nodes.device), :mt] = torch.from_numpy(block).to(nodes.device)
+    count = torch.as_tensor(new_counts.astype(np.int32), device=nodes.device)
+    return Frontier(nodes, count, fr.overflow)
+
+
+def _merge_reservoirs(reservoirs) -> Optional[_Reservoir]:
+    """The per-rank reservoirs concatenated into one (for a snapshot and
+    the final bound; ``branch_bound.py:3581``); None when all are empty."""
+    merged = _Reservoir()
+    for rv in reservoirs:
+        merged.chunks.extend(rv.chunks)
+    return merged if len(merged) else None
+
+
+def _seed_rank_frontiers(d_np: np.ndarray, bd: BoundData, num_ranks: int, capacity: int, k: int,
+                         seed_mode: str, device) -> Frontier:
+    """The root's depth-2 children dealt over the ranks
+    (``branch_bound.py:2717-2750``): round-robin (child c to rank
+    ``(c - 1) % R``) or all on rank 0, each rank's stack ``capacity`` logical
+    rows plus k*n push-padding rows (an all-zero row is a dead row)."""
+    n = d_np.shape[0]
+    w = (n + 31) // 32
+    min_out = bd.min_out.cpu().numpy().astype(np.float64)
+    adj = bd.bound_adj.cpu().numpy().astype(np.float64)
+    sum_min0 = float(min_out[1:].sum())
+    nodes = torch.zeros((num_ranks, capacity + k * n, _path_words(n) + w + 4), dtype=torch.int32,
+                        device=device)
+    counts = []
+    for r in range(num_ranks):
+        if seed_mode == "round-robin":
+            mine = np.asarray([c for c in range(1, n) if (c - 1) % num_ranks == r], np.int64)
+        else:
+            mine = np.arange(1, n) if r == 0 else np.zeros(0, np.int64)
+        m = mine.size
+        counts.append(m)
+        if not m:
+            continue
+        path = np.zeros((m, n), np.int32)
+        path[:, 1] = mine
+        mask = np.zeros((m, w), np.uint32)
+        mask[:, 0] = 1  # city 0
+        mask[np.arange(m), mine // 32] |= np.uint32(1) << (mine % 32).astype(np.uint32)
+        rows = _pack_rows_np(path, mask, np.full(m, 2, np.int32), d_np[0, mine],
+                             d_np[0, mine] + sum_min0 + adj[mine], sum_min0 - min_out[mine])
+        nodes[r, :m] = torch.from_numpy(rows).to(device)
+    return Frontier(nodes, torch.as_tensor(counts, dtype=torch.int32, device=device),
+                    torch.zeros(num_ranks, dtype=torch.bool, device=device))
+
+
+def solve_sharded(
+    d: np.ndarray,
+    num_ranks: int,
+    capacity_per_rank: int = 1 << 15,
+    k: int = 128,
+    inner_steps: int = 32,
+    max_iters: int = 200_000,
+    time_limit_s: Optional[float] = None,
+    bound: str = "one-tree",
+    mst_prune: bool = True,
+    transfer: Optional[int] = None,
+    seed_mode: str = "round-robin",
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume_from: Optional[str] = None,
+    ils_rounds: Optional[int] = None,
+    node_ascent: int = 2,
+    ascent: str = "host",
+    device_loop: Optional[bool] = None,
+    reorder_every: int = 0,
+    mst_kernel: str = "auto",
+    balance: str = "pair",
+    push_order: str = "best-first",
+    push_block: int = 0,
+    step_kernel: str = "auto",
+    device="cuda",
+) -> BnBResult:
+    """Sharded B&B with ``num_ranks`` rank frontiers batched on one device
+    (``branch_bound.solve_sharded`` of the JAX package, its mesh replaced
+    by a leading ``[R]`` dimension).
+
+    The frontier is one tensor ``nodes [R, capacity_per_rank + k*n, C]``
+    with ``count [R]`` and ``overflow [R]``; rank r's stack is the view
+    ``nodes[r]``, on which the single-device step, guard, compaction,
+    re-sort and ``push_rows`` work in place. A round runs every rank in
+    turn for ``inner_steps`` steps with its own incumbent, then the
+    balance step over the ranks (``parallel/balance.py``: ``pair``,
+    ``ring``, ``steal``, or ``adaptive``, whose controller picks
+    skip/pair/steal per dispatch), then the incumbent share (the first
+    rank with the lowest cost, as ``jnp.argmin`` over the all-gathered
+    costs).
+
+    The host acts where the JAX package's dispatches end, which node
+    counts depend on. Host loop (``device_loop`` off): one dispatch is one
+    round of :func:`_expand_loop` per rank. Device loop: one dispatch is
+    many rounds of :func:`_guarded_expand_steps` per rank, stopping when
+    every rank is drained, a rank passes ``capacity_per_rank -
+    loop_headroom`` or overflowed, or the step budget runs out; one
+    balance action holds for every round of it. Between dispatches the
+    controller decides (the ``balance.steal`` fault seam degrades a
+    steal to the base action), the per-rank host reservoirs spill and
+    refill, the host loop re-sorts every ``reorder_every`` steps, and
+    snapshots are written. A run with ``time_limit_s`` also checks the
+    clock after every round, so it may stop at another step than the JAX
+    package's.
+
+    ``seed_mode``: "round-robin" deals the root's children over the ranks,
+    "single-rank" piles them on rank 0. ``transfer``: the rows a balance
+    step may move per rank (default ``max(k, 64)``, at most a quarter of
+    the capacity). Snapshots are the JAX package's sharded TSPCKPT1 files
+    (``num_ranks`` key), resumable by either package on the same rank
+    count; a resumed reservoir lands on rank 0.
+    """
+    from ..parallel import balance as _balance
+    from ..parallel.reduce import rank_alive_counts, rank_alive_min
+
+    t_setup = time.perf_counter()
+    n = d.shape[0]
+    if not 3 <= n <= MAX_BNB_CITIES:
+        raise ValueError(f"B&B engine supports 3 <= n <= {MAX_BNB_CITIES} cities, got {n}")
+    if num_ranks < 1 or inner_steps < 1:
+        raise ValueError(f"need num_ranks >= 1 and inner_steps >= 1, got {num_ranks}, {inner_steps}")
+    if balance not in BALANCES:
+        raise ValueError(f"unknown balance {balance!r} (expected one of {BALANCES})")
+    if seed_mode not in SEED_MODES:
+        raise ValueError(f"unknown seed_mode {seed_mode!r} (expected one of {SEED_MODES})")
+    device = torch.device(device)
+    mst_kernel = _resolve_mst_kernel(mst_kernel, device)
+    step_kernel = _resolve_step_kernel(step_kernel, device)
+    auto_loop = device_loop is None
+    if auto_loop:
+        device_loop = device.type == "cuda"
+    device_loop = _resolve_device_loop(bool(device_loop), auto_loop, capacity_per_rank, k, n,
+                                       what="capacity_per_rank")
+    d_np = np.asarray(d, np.float64)
+    d32 = torch.as_tensor(np.asarray(d, np.float32), device=device)
+    t_asc = time.perf_counter()
+    bd = _bound_setup(d, bound, node_ascent=node_ascent, ascent=ascent, device=device)
+    ascent_s = time.perf_counter() - t_asc
+    integral = bd.integral
+
+    spill_stats = SpillStats()
+    reservoirs = [_Reservoir(stats=spill_stats) for _ in range(num_ranks)]
+    ils_s = restore_s = 0.0
+    save_s = []
+    lb_floor = -np.inf  # the certified LB carried across resumed chunks
+    if resume_from:
+        t_restore = time.perf_counter()
+        fr, ic, itour, resumed, lb_floor = restore(
+            resume_from, expect_d=d, expect_bound=bound, expect_ranks=num_ranks, device=device)
+        restore_s = time.perf_counter() - t_restore
+        inc_cost0 = float(ic[0])
+        # the restored rows fix the per-rank LOGICAL capacity (rows minus
+        # the k*n push padding), and the device loop's floor is re-checked
+        capacity_per_rank = max(int(fr.nodes.shape[1]) - k * n, 1)
+        device_loop = _resolve_device_loop(device_loop, auto_loop, capacity_per_rank, k, n,
+                                           source=f" from checkpoint {resume_from!r}",
+                                           what="capacity_per_rank")
+        if len(resumed):
+            # a resumed snapshot's spilled nodes land on rank 0; the balance
+            # spreads them once they flow back onto the device
+            resumed.stats = spill_stats
+            reservoirs[0] = resumed
+    else:
+        t_ils = time.perf_counter()
+        inc_tour_np = _initial_incumbent(d, ils_rounds, device)
+        ils_s = time.perf_counter() - t_ils
+        inc_cost0 = tour_cost(d_np, inc_tour_np)
+        fr = _seed_rank_frontiers(d_np, bd, num_ranks, capacity_per_rank, k, seed_mode, device)
+        ic = torch.full((num_ranks,), inc_cost0, dtype=torch.float32, device=device)
+        itour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device).repeat(num_ranks, 1)
+
+    t_slots = int(transfer) if transfer is not None else max(k, 64)
+    t_slots = min(t_slots, capacity_per_rank // 4)
+    adaptive = balance == "adaptive"
+    base_action = "pair" if adaptive else balance
+    bal_kw = dict(num_ranks=num_ranks, t_slots=t_slots, capacity=capacity_per_rank,
+                  phys_rows=int(fr.nodes.shape[1]))
+    controller = _balance.BalanceController(num_ranks=num_ranks, k=k, t_slots=t_slots,
+                                            base=base_action, adaptive=adaptive,
+                                            row_bytes=int(fr.nodes.shape[-1]) * 4)
+    headroom = _spill_headroom(capacity_per_rank, inner_steps, k, n)
+    loop_headroom = min(capacity_per_rank // 4, k * (n - 1))
+    step_kw = dict(use_mst=mst_prune, node_ascent=node_ascent, mst_kernel=mst_kernel,
+                   push_order=push_order, push_block=push_block, step_kernel=step_kernel)
+    step_ann = _obs_tracing.step_annotation_factory()
+
+    def inc32(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    def spill_refill(fr: Frontier, inc_best: float):
+        """Per-rank reservoir exchange and refill between dispatches
+        (``branch_bound.py:3130-3231``): a rank past ``capacity -
+        headroom`` fetches only its live prefix and keeps its best half
+        (merging its reservoir only when that holds a better open node
+        than the rank's live rows); an empty rank with spilled nodes
+        refills. Returns ``(frontier, total count, counts)``."""
+        counts = _rank_counts(fr.count)
+        spilling = counts > capacity_per_rank - headroom
+        refilling = (counts == 0) & np.asarray([len(rv) > 0 for rv in reservoirs])
+        if not (spilling.any() or refilling.any()):
+            return fr, int(counts.sum()), counts
+        with _obs_tracing.span("bnb.spill_round", ranks=num_ranks, spilling=int(spilling.sum()),
+                               refilling=int(refilling.sum())) as sp:
+            live_min = None
+            if spilling.any():  # refill-only rounds never read the minima
+                live_min = rank_alive_min(fr.nodes, fr.count, inc32(inc_best), integral).cpu().numpy()
+                sp.event("reduce.rank_alive_min", ranks=[int(x) for x in np.flatnonzero(spilling)])
+            spill_stats.rounds += 1
+            keeps = {}
+            new_counts = counts.copy()
+            for r in range(num_ranks):
+                if not (spilling[r] or refilling[r]):
+                    continue
+                rv = reservoirs[r]
+                if refilling[r]:
+                    keep = rv.refill_rows(inc_best, integral, capacity_per_rank)
+                    mode, merge = "refill", False
+                    if keep is not None:
+                        rv.stats.events += 1
+                else:
+                    cnt = int(counts[r])
+                    live = _fetch_live_rows(fr.nodes[r], cnt)
+                    # alive minima, as the single-device exchange compares
+                    merge = not (cnt and rv.min_bound() >= float(live_min[r]))
+                    mode = "exchange"
+                    rv.stats.events += 1
+                    rv.stats.full_merges += int(merge)
+                    rv.stats.bytes_to_host += live.nbytes
+                    keep = rv.exchange_rows(live, inc_best, integral, capacity_per_rank, merge=merge)
+                new_counts[r] = 0 if keep is None else keep.shape[0]
+                if keep is not None:
+                    keeps[r] = keep
+                sp.event("rank_spill", rank=int(r), mode=mode, merge=bool(merge),
+                         kept=int(new_counts[r]), reservoir=len(rv))
+            fr = _apply_keeps(fr, keeps, new_counts, spill_stats)
+            return fr, int(new_counts.sum()), new_counts
+
+    def run_round(fr: Frontier, ic, itour, action: str, round_i: int, step0: int, guarded: bool):
+        """One round: every rank's steps on its view with its own
+        incumbent, the balance step, the incumbent share. Returns
+        ``(frontier, ic, itour, popped [R], rank-steps, moved [R])``."""
+        ics, tours = list(ic.unbind(0)), list(itour.unbind(0))
+        popped = np.zeros(num_ranks, np.int64)
+        counts, overflows = [], []
+        steps = 0
+        for r in range(num_ranks):
+            view = Frontier(fr.nodes[r], fr.count[r], fr.overflow[r])
+            if guarded:
+                view, ics[r], tours[r], popped[r], _, _, ran = _guarded_expand_steps(
+                    view, ics[r], tours[r], d32, bd, k, n, inner_steps, reorder_every, step0,
+                    step_ann=step_ann, **step_kw)
+            else:
+                view, ics[r], tours[r], popped[r], ran = _expand_loop(
+                    view, ics[r], tours[r], d32, bd, k, n, inner_steps, step0, step_ann, **step_kw)
+            steps += ran
+            counts.append(view.count)
+            overflows.append(view.overflow)
+        count = torch.stack(counts).to(torch.int32)
+        nodes = fr.nodes
+        moved = torch.zeros_like(count)
+        if num_ranks > 1 and action != "skip":
+            nodes, count, moved = _balance.apply(action, nodes, count, round_i, **bal_kw)
+        # the incumbent share: every rank takes the first rank with the
+        # lowest cost (jnp.argmin over the all-gathered costs)
+        all_c, all_t = torch.stack(ics), torch.stack(tours)
+        b = torch.argmin(all_c)
+        ic = all_c[b].repeat(num_ranks)
+        itour = all_t[b].repeat(num_ranks, 1)
+        return Frontier(nodes, count, torch.stack(overflows)), ic, itour, popped, steps, moved
+
+    lbf = float(max(lb_floor, bd.root_lb))  # the certified floor of every save
+
+    def timed_save():
+        t_save = time.perf_counter()
+        save(checkpoint_path, fr, ic, itour, d=d, bound=bound, reservoir=_merge_reservoirs(reservoirs),
+             lb_floor=lbf, num_ranks=num_ranks)
+        save_s.append(time.perf_counter() - t_save)
+
+    if resume_from:
+        # a snapshot written with a smaller k can restore counts past this
+        # run's logical capacity: shed the overhang before the first dispatch
+        fr, _, _ = spill_refill(fr, inc_cost0)
+    counts_now = _rank_counts(fr.count)
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    setup_s = t0 - t_setup
+    deadline = None if time_limit_s is None else t0 + time_limit_s
+    t_best = 0.0
+    last_inc = inc_cost0
+    nodes = it = steps_run = 0
+    rank_nodes = np.zeros(num_ranks, np.int64)
+    total0 = 1
+    last_ckpt = last_reorder = 0
+    unit = inner_steps
+    periodic = bool(checkpoint_every and checkpoint_path)
+    while it < max_iters:
+        prev_action = controller.last_action
+        action = controller.decide(
+            counts_now,
+            alive_probe=(lambda: rank_alive_counts(fr.nodes, fr.count, inc32(last_inc), integral)
+                         .cpu().numpy()) if adaptive and num_ranks > 1 else None,
+        )
+        if action == "steal":
+            try:
+                _fault_registry().fire("balance.steal")
+            except _TransientFault:
+                action = controller.degrade()
+        controller.count_action(action)
+        if action != prev_action:
+            # a span per switch, not per decision, with the donor/receiver
+            # sets the new action sees
+            with _obs_tracing.span("bnb.balance", step=it, action=action, cv=controller.cv) as bsp:
+                bsp.event("rank_participation", **controller.participation(counts_now))
+        popped = np.zeros(num_ranks, np.int64)
+        moved = torch.zeros(num_ranks, dtype=torch.int32, device=device)
+        if device_loop:
+            budget = _dispatch_budget((max_iters - it) // unit,
+                                      (2**31 - 1) // max(k * unit * num_ranks, 1),
+                                      (checkpoint_every - (it - last_ckpt)) // unit if periodic else None)
+            rounds_done = 0
+            done = False
+            while rounds_done < budget and not done:
+                fr, ic, itour, p, ran, mv = run_round(fr, ic, itour, action, it // unit + rounds_done,
+                                                      it + rounds_done * inner_steps, True)
+                popped += p
+                steps_run += ran
+                moved += mv
+                rounds_done += 1
+                cnt = torch.cat([fr.count, fr.overflow.to(torch.int32)]).tolist()
+                cnts, ovf = cnt[:num_ranks], cnt[num_ranks:]
+                done = (sum(cnts) == 0 or max(cnts) > capacity_per_rank - loop_headroom
+                        or any(ovf))
+                if deadline is not None and time.perf_counter() > deadline:
+                    break
+        else:
+            fr, ic, itour, popped, steps, moved = run_round(fr, ic, itour, action, it // unit, it, False)
+            steps_run += steps
+            rounds_done = 1
+        controller.record(it, action, moved.cpu().numpy())
+        rank_nodes += popped
+        nodes += int(popped.sum())
+        it += rounds_done * inner_steps
+        best = float(ic[0])
+        if best < last_inc:
+            last_inc = best
+            t_best = time.perf_counter() - t0
+            for rv in reservoirs:
+                if len(rv):
+                    rv.prune(best, integral)
+        fr, total0, counts_now = spill_refill(fr, best)
+        if reorder_every and not device_loop and it - last_reorder >= reorder_every:
+            with _obs_tracing.span("bnb.reorder", step=it, ranks=num_ranks) as rsp:
+                rsp.event("rank_participation", ranks=list(range(num_ranks)))
+                for r in range(num_ranks):
+                    _reorder_frontier(Frontier(fr.nodes[r], fr.count[r], fr.overflow[r]),
+                                      rows=capacity_per_rank)
+            last_reorder = it
+        if periodic and it - last_ckpt >= checkpoint_every:
+            timed_save()
+            last_ckpt = it
+        if total0 == 0:
+            break
+        if deadline is not None and time.perf_counter() > deadline:
+            break
+    wall = time.perf_counter() - t0
+    overflow = bool(fr.overflow.any())
+    proven = total0 == 0 and all(len(rv) == 0 for rv in reservoirs) and not overflow
+    if checkpoint_path and not proven:
+        timed_save()
+    counts = _rank_counts(fr.count)
+    cost = float(ic[0])
+    lb_raw = _final_lower_bound(proven, cost, bd.root_lb,
+                                [fr.bound[r, : int(c)].cpu().numpy() for r, c in enumerate(counts)],
+                                _merge_reservoirs(reservoirs), overflow=overflow)
+    _obs_metrics.fold_bnb_solve(nodes, wall, spill_stats)
+    return BnBResult(
+        cost=cost,
+        tour=itour[0].cpu().numpy(),
+        nodes_expanded=nodes,
+        iterations=it,
+        proven_optimal=proven,
+        wall_seconds=wall,
+        nodes_per_sec=nodes / wall if wall > 0 else 0.0,
+        time_to_best=t_best,
+        root_lower_bound=bd.root_lb,
+        # clamped to the resumed floor: monotone across chunked resumes
+        lower_bound=min(max(lb_raw, lb_floor), cost),
+        setup_seconds=setup_s,
+        ascent_seconds=ascent_s,
+        ils_seconds=ils_s,
+        lower_bound_raw=lb_raw,
+        spill_rounds=spill_stats.rounds,
+        spill_events=spill_stats.events,
+        spill_full_merges=spill_stats.full_merges,
+        spill_bytes_to_host=spill_stats.bytes_to_host,
+        spill_bytes_to_device=spill_stats.bytes_to_device,
+        steps_run=steps_run,
+        mst_kernel=mst_kernel,
+        step_kernel=step_kernel,
+        device_loop=device_loop,
+        checkpoint_save_s=tuple(save_s),
+        checkpoint_restore_s=restore_s,
+        nodes_per_rank=rank_nodes,
+        balance=controller.summary(),
     )

@@ -189,3 +189,43 @@ def assign_blocks_to_ranks(num_blocks: int, num_ranks: int) -> list[list[int]]:
         out.append(list(range(start, start + c)))
         start += c
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rank collectives of the sharded branch-and-bound, ranks stacked on dim 0
+# ---------------------------------------------------------------------------
+
+
+def pmin_incumbent(values: torch.Tensor) -> torch.Tensor:
+    """The best (minimum) incumbent broadcast to every rank (``reduce.py:220``,
+    ``lax.pmin`` over the rank axis): ``[R]`` -> ``[R]``."""
+    return values.amin(0).expand(values.shape)
+
+
+def _rank_alive(nodes: torch.Tensor, counts: torch.Tensor, inc, integral: bool):
+    """Per-rank alive mask ``[R, F]`` and bounds: row j of rank r is open
+    when ``j < counts[r]`` and its bound (the float32 bits of column
+    ``cols - 2``) is under the incumbent (``bound <= inc - 1`` on an
+    integer metric, the engine's ceil-aware pruning)."""
+    b = nodes[..., -2].view(torch.float32)
+    inc = torch.as_tensor(inc, dtype=torch.float32, device=nodes.device)
+    pos = torch.arange(nodes.shape[1], dtype=torch.int32, device=nodes.device)
+    alive = pos[None, :] < counts[:, None]
+    alive = alive & ((b <= inc - 1.0) if integral else (b < inc))
+    return alive, b
+
+
+def rank_alive_min(nodes: torch.Tensor, counts: torch.Tensor, inc, integral: bool = False) -> torch.Tensor:
+    """Each rank's minimum bound over its open rows (``reduce.py:230``,
+    ``make_rank_alive_min``): ``(nodes [R, F, C], counts [R], inc) -> [R]``
+    float32, +inf for a rank with no open row."""
+    alive, b = _rank_alive(nodes, counts, inc, integral)
+    return torch.where(alive, b, float("inf")).amin(dim=1)
+
+
+def rank_alive_counts(nodes: torch.Tensor, counts: torch.Tensor, inc, integral: bool = False) -> torch.Tensor:
+    """Each rank's number of open rows (``reduce.py:287``,
+    ``make_rank_alive_counts``): ``(nodes [R, F, C], counts [R], inc) ->
+    [R]`` int32."""
+    alive, _ = _rank_alive(nodes, counts, inc, integral)
+    return alive.sum(dim=1, dtype=torch.int32)

@@ -4,8 +4,14 @@
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve eil51 --k=1024 --capacity=262144
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve kroA100 --max-iters=300 \
         --checkpoint=run.npz [--resume=run.npz] [--checkpoint-every=N]
+    python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve eil51 --ranks=8 --k=128 \
+        [--balance=pair|ring|steal|adaptive]
 
-Counterpart of ``tools/bnb_solve.py``, single device. The instance is an
+Counterpart of ``tools/bnb_solve.py``. ``--ranks=R`` (R > 1) runs the
+sharded solve (``solve_sharded``) with R rank frontiers batched on the one
+device and ``--capacity // R`` rows a rank, balanced by ``--balance``; the
+line then carries ``nodes_per_rank`` and the balance controller's summary
+under ``obs.balance``. The instance is an
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
 computes (the host reservoir's ``spill_*`` counters, the ``health``
@@ -35,9 +41,14 @@ from typing import List, Optional
 
 
 def result_payload(res, inst, args, device, launches: dict, health: dict,
-                   ckpt_bytes: Optional[int], memo: dict) -> dict:
+                   ckpt_bytes: Optional[int], memo: dict, trace_path: Optional[str] = None) -> dict:
     """The one-line JSON payload (schema of the JAX driver's
-    ``result_payload``, single device, plus the port's own keys)."""
+    ``result_payload`` plus the port's own keys). ``obs`` holds the port's
+    ``obs_block`` (the JAX block's XLA compile phases and cost analyses
+    have no counterpart here), ``rank_balance`` (not ported yet: null) and
+    the balance controller's summary (sharded solves)."""
+    from ..utils import reporting
+
     opt = inst.known_optimum
     return {
         "instance": inst.name,
@@ -57,8 +68,10 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
         "time_to_proof_s": (
             round(res.setup_seconds + res.wall_seconds, 3) if res.proven_optimal else None
         ),
-        "ranks": 1,
-        "nodes_per_rank": None,
+        "ranks": args.ranks,
+        "nodes_per_rank": (
+            [int(x) for x in res.nodes_per_rank] if res.nodes_per_rank is not None else None
+        ),
         "bound": args.bound,
         "mst_kernel": res.mst_kernel,
         "step_kernel": res.step_kernel,
@@ -66,7 +79,7 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
         "reorder_every": args.reorder_every,
         "push_order": args.push_order,
         "push_block": args.push_block,
-        "balance": None,
+        "balance": args.balance if args.ranks > 1 else None,
         "root_lower_bound": round(res.root_lower_bound, 3),
         "lower_bound": round(res.lower_bound, 3),
         "lb_raw": round(res.lower_bound_raw, 3) if res.lower_bound_raw > -1e30 else None,
@@ -82,7 +95,8 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
         "series": None,
         "anomalies": None,
         "rank_series": None,
-        "obs": None,
+        "obs": {**reporting.obs_block(trace_path=trace_path), "rank_balance": None,
+                "balance": res.balance},
         "iterations": res.iterations,
         "steps_run": res.steps_run,
         "prim_chain_launches": launches["prim_chain"],
@@ -99,6 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("instance", help="embedded name (burma14, ulysses16, ulysses22, eil51, "
                     "berlin52, kroA100), random:N[:SEED], or a TSPLIB .tsp path")
     ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "cpu"])
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="rank frontiers of the sharded solve, batched on the one device "
+                    "(1: the single-device solve)")
     ap.add_argument("--k", type=int, default=256)
     ap.add_argument("--capacity", type=int, default=1 << 17)
     ap.add_argument("--inner-steps", type=int, default=32)
@@ -122,6 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device-loop", default="auto", choices=["auto", "on", "off"],
                     help="per-step capacity guard with on-device compaction (auto: on for "
                     "cuda, off for cpu); off runs --inner-steps steps between checks")
+    ap.add_argument("--balance", default="pair", choices=["pair", "ring", "steal", "adaptive"],
+                    help="sharded load balance: pair (richest donates to poorest each round), "
+                    "ring (successor donation), steal (one global repartition), or adaptive "
+                    "(a controller picks skip/pair/steal per dispatch)")
     ap.add_argument("--reorder-every", type=int, default=0,
                     help="every N expansion steps, re-sort the stack best-bound-first (0 = off)")
     ap.add_argument("--push-order", default="best-first", choices=["best-first", "natural"])
@@ -161,28 +182,35 @@ def main(argv: Optional[List[str]] = None) -> int:
     ascent_memo.enable()
     prim_kernels.reset_launches()
     expand_kernels.reset_launches()
-    with tracing.span("bnb.solve", parent=tracing.parent_from_env(), instance=inst.name, ranks=1):
-        res = bb.solve(
-            d,
-            capacity=args.capacity,
-            k=args.k,
-            inner_steps=args.inner_steps,
-            time_limit_s=args.time_limit,
-            max_iters=args.max_iters,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every,
-            resume_from=args.resume,
-            bound=args.bound,
-            node_ascent=args.node_ascent,
-            ils_rounds=args.ils_rounds,
-            mst_kernel=args.mst_kernel,
-            push_order=args.push_order,
-            push_block=args.push_block,
-            step_kernel=args.step_kernel,
-            device_loop={"auto": None, "on": True, "off": False}[args.device_loop],
-            reorder_every=args.reorder_every,
-            device=device,
-        )
+    if args.ranks < 1:
+        print(f"error: --ranks must be >= 1, got {args.ranks}", file=sys.stderr)
+        return 2
+    kw = dict(
+        k=args.k,
+        inner_steps=args.inner_steps,
+        time_limit_s=args.time_limit,
+        max_iters=args.max_iters,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        resume_from=args.resume,
+        bound=args.bound,
+        node_ascent=args.node_ascent,
+        ils_rounds=args.ils_rounds,
+        mst_kernel=args.mst_kernel,
+        push_order=args.push_order,
+        push_block=args.push_block,
+        step_kernel=args.step_kernel,
+        device_loop={"auto": None, "on": True, "off": False}[args.device_loop],
+        reorder_every=args.reorder_every,
+        device=device,
+    )
+    with tracing.span("bnb.solve", parent=tracing.parent_from_env(), instance=inst.name,
+                      ranks=args.ranks):
+        if args.ranks > 1:
+            res = bb.solve_sharded(d, args.ranks, capacity_per_rank=args.capacity // args.ranks,
+                                   balance=args.balance, **kw)
+        else:
+            res = bb.solve(d, capacity=args.capacity, **kw)
     name = device.type
     if device.type == "cuda":
         import torch
@@ -192,7 +220,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ckpt = args.checkpoint and bb._norm_ckpt_path(args.checkpoint)
     ckpt_bytes = os.path.getsize(ckpt) if ckpt and os.path.exists(ckpt) else None
     print(json.dumps(result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes,
-                                    ascent_memo.STATS.snapshot())))
+                                    ascent_memo.STATS.snapshot(), trace_path=tracing.TRACER.path)))
     return 0
 
 
