@@ -148,14 +148,35 @@ Phases, each printing its own line; any failure exits non-zero:
     device-loop proof (nonzero spill counters), and a proof cut into a
     snapshot and a resume (outputs in ``build/chip_smoke_sharded/``) that
     lands on the uninterrupted optimum. Prints each run's seconds, nodes/s
-    and per-rank split.
+    and per-rank split;
+17. real ranks: R processes on the one card over gloo
+    (``parallel/mesh.spawn_ranks``), each with its own CUDA context.
+    (a) ``run_pipeline_sharded`` over 4 processes at phase 4's full size
+    (and ``10 6 500 500``, ``10 100 1000 1000`` in float64): cost and tour
+    equal ``run_pipeline_ranks(..., 4)`` on the card; rank 0's
+    ``relax_dense_sweep`` calls held to the plain per-level loop (the
+    whole table) in a pass before the timed run, which is not checked;
+    the timed run's launches per rank (no ``relax_minplus`` on ``auto``). (b) ``ring_two_opt`` over 4
+    processes on the merged tour of ``16 64 1000 1000`` (float64) equals
+    ``BatchedRanks(4)`` on the card. (c) eil51 ``--ranks=8 --k=128`` and
+    ``--ranks=4 --k=256 --capacity=1048576 --device-loop=on`` with
+    ``--transport=procs``: phase 16's pins and its summed launches (the
+    first through the CLI's rank body with rank 0's ``prim_chain`` and
+    ``push_rows`` launches recorded and held bit for bit, the second
+    through the CLI itself). (d) 4-process 12-city solves: phase 16's
+    adaptive and spill-forcing pins, a procs snapshot at 200 iterations
+    resumed batched and a batched one resumed over procs (outputs in
+    ``build/chip_smoke_procs/``). Prints seconds, nodes/s, collective
+    seconds a round, bytes staged through the host by collective kind and
+    each rank's cold start (``launches_procs`` in the kernels line).
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
 13's Boruvka run, phase 14's request traffic, phase 15's F1 and F2 in
-the replica processes and phase 16's three eil51 runs) runs with the
-kernels' launch counts reset just before and read just after; a kernel of
-the path that never launched fails the run.
+the replica processes, phase 16's three eil51 runs and phase 17's runs in
+every rank process) runs with the kernels' launch counts reset just before
+and read just after; a kernel of the path that never launched fails the
+run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
 the JSON every kernel's ``ms`` is its eager time by CUDA events (the
 host's launch gaps included) and ``device_ms`` the same launches replayed
@@ -2183,6 +2204,325 @@ def phase_sharded(smi, errs):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: real ranks, one process a rank over gloo, all on the one card
+# ---------------------------------------------------------------------------
+
+PROCS_DIR = ROOT / "build" / "chip_smoke_procs"
+#: every rank group of phase 17 must finish within this (cold starts included)
+PROCS_DEADLINE_S = 400.0
+#: phase 17's pipeline runs over 4 ranks: (n, blocks, grid, dtype)
+PROCS_PIPE = [(N_FULL, B_FULL, GRID_FULL, "float32"), (10, 6, 500, "float64"), (10, 100, 1000, "float64")]
+#: phase 17's ring: the merged tour of 16 64 1000 1000 (1,024 cities), float64
+PROCS_RING = (16, 64, 1000)
+
+
+def _launch_counts() -> dict:
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+
+    return {"relax_minplus": hkk.LAUNCHES["relax_minplus"], "relax_dense": hkk.LAUNCHES["relax_dense"],
+            "prim_chain": prim_kernels.LAUNCHES["prim_chain"], "push_rows": ek.LAUNCHES["push_rows"]}
+
+
+def _reset_launches() -> None:
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+
+    hkk.reset_launches()
+    prim_kernels.reset_launches()
+    ek.reset_launches()
+
+
+def procs_mesh_rank(ranks, ring_xy, ring_tour):
+    """A phase 17 rank process for (a) and (b): ``run_pipeline_sharded`` on
+    every case of ``PROCS_PIPE`` twice, first with rank 0's sweeps recorded
+    and held to the plain per-level loop (the whole table), then timed with
+    no check and its launches counted; then ``ring_two_opt`` of
+    ``ring_tour``. Returns rank 0's results with every rank's launches,
+    seconds and collective counters."""
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models.distributed import run_pipeline_sharded
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.parallel.seq_improve import ring_two_opt
+    from tsp_mpi_reduction_tpu_torch.utils.state import instance_from_numpy
+
+    dev = ranks.device
+    real, checked = held_karp.relax_dense_sweep, []
+
+    def recorder(cost, d_sub):
+        before = cost.clone()
+        out = real(cost, d_sub)
+        ref = before
+        for c in range(1, cost.shape[1]):
+            ref = hkk.relax_dense_reference(ref, d_sub, c)
+        checked.append((tuple(cost.shape), bool(torch.equal(out, ref))))
+        return out
+
+    pipes = []
+    for n, nb, grid, dtype in PROCS_PIPE:
+        if ranks.is_root:
+            held_karp.relax_dense_sweep = recorder
+        try:
+            run_pipeline_sharded(n, nb, grid, grid, ranks, dtype=dtype, device=dev)
+        finally:
+            held_karp.relax_dense_sweep = real
+        _reset_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_pipeline_sharded(n, nb, grid, grid, ranks, dtype=dtype, device=dev)
+        wall = time.perf_counter() - t0
+        per_rank = ranks.gather_objects((_launch_counts(), wall, torch.cuda.max_memory_allocated(dev)))
+        if res is not None:
+            pipes.append({"cost": res.cost, "ids": res.tour_ids, "solve_reduce": res.phase_seconds["solve_reduce"],
+                          "per_rank": per_rank})
+    _, dist = instance_from_numpy(ring_xy, torch.float64, dev)
+    _reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ring = ring_two_opt(torch.as_tensor(ring_tour, device=dev), dist, ranks)
+    torch.cuda.synchronize(dev)
+    ring_s = time.perf_counter() - t0
+    stats = ranks.gather_objects(ranks.stats())
+    if not ranks.is_root:
+        return None
+    return {"pipes": pipes, "checked": checked, "ring": ring.cpu().numpy(), "ring_s": ring_s, "stats": stats}
+
+
+def procs_bnb_rank(ranks, argv):
+    """A phase 17 rank process of the B&B CLI (``bnb_solve --transport=procs``'s
+    own rank body) with rank 0's ``prim_chain`` and ``push_rows`` launches
+    recorded, then held bit for bit against the plain versions."""
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.tools import bnb_solve
+    from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
+
+    if not ranks.is_root:
+        return bnb_solve._solve_rank(ranks, argv)
+    with kt.recorded(prim_kernels, "prim_chain", kt.keep_prim) as chains, \
+            kt.recorded(ek, "push_rows", kt.keep_push) as pushes:
+        out = bnb_solve._solve_rank(ranks, argv)
+    lanes = kt.prim_check(chains)
+    kt.push_check(pushes, out[0]["dimension"])
+    return out, {"prim_chain": len(chains), "push_rows": len(pushes), "lanes": lanes}
+
+
+def procs_small_rank(ranks, cases):
+    """A phase 17 rank process for (d): 4-rank ``solve_sharded`` of each case
+    ``(name, d, kw)`` -> rank 0's results, seconds, every rank's launches
+    and collective counters."""
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+
+    out = {}
+    for name, d, kw in cases:
+        _reset_launches()
+        before = ranks.stats()
+        torch.cuda.synchronize(ranks.device)
+        t0 = time.perf_counter()
+        res = bb.solve_sharded(d, ranks.num_ranks, device=ranks.device, ranks=ranks, **kw)
+        wall = time.perf_counter() - t0
+        after = ranks.stats()
+        coll = sum(after["seconds"].values()) - sum(before["seconds"].values())
+        per_rank = ranks.gather_objects((_launch_counts(), coll))
+        out[name] = (res, wall, per_rank)
+    stats = ranks.gather_objects(ranks.stats())
+    return (out, stats) if ranks.is_root else None
+
+
+def run_bnb_cli_procs(argv):
+    """The B&B CLI in this process with ``--transport=procs`` (it spawns the
+    ranks) -> (payload, its ``transport:`` stderr line)."""
+    from tsp_mpi_reduction_tpu_torch.tools import bnb_solve
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bnb_solve.main(argv)
+    require(rc == 0, f"bnb_solve {argv}: exit {rc}: {err.getvalue()[-2000:]}")
+    info = [line for line in err.getvalue().splitlines() if line.startswith("transport: ")]
+    return json.loads(out.getvalue().strip().splitlines()[-1]), json.loads(info[-1].split(": ", 1)[1])
+
+
+def _staged_summary(stats) -> str:
+    """Bytes staged through the host a collective kind, summed over ranks,
+    and the ranks' cold starts."""
+    kinds = {}
+    for st in stats:
+        for k, v in st["staged_bytes"].items():
+            if v:
+                kinds[k] = kinds.get(k, 0) + v
+    colds = [round(st["cold_start_s"], 2) for st in stats]
+    return f"staged bytes {kinds}, cold start per rank {colds} s"
+
+
+def phase_procs(smi):
+    """Phase 17: the port's real ranks, R processes on the one card over
+    gloo (the module docstring); returns the launches of the phase's main
+    paths summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.models.distributed import run_pipeline_ranks
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
+    from tsp_mpi_reduction_tpu_torch.ops.local_search import tour_length
+    from tsp_mpi_reduction_tpu_torch.parallel import mesh
+    from tsp_mpi_reduction_tpu_torch.parallel.seq_improve import ring_two_opt
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # --- (a) pipeline and (b) ring improver: one group of 4 rank processes
+    n_r, nb_r, grid_r = PROCS_RING
+    ring_in = run_pipeline(n_r, nb_r, grid_r, grid_r, dtype=torch.float64, device=dev)
+    ring_tour = ring_in.tour_ids[:-1].astype(np.int64)
+    from tsp_mpi_reduction_tpu_torch.ops.generator import generate_instance
+
+    _, ring_xy = generate_instance(n_r, nb_r, grid_r, grid_r)
+    t0 = time.perf_counter()
+    got = mesh.spawn_ranks(procs_mesh_rank, 4, args=(ring_xy, ring_tour), timeout_s=PROCS_DEADLINE_S)
+    group_s = time.perf_counter() - t0
+    require(got["checked"] and all(ok for _, ok in got["checked"]),
+            f"relax_dense_sweep != the plain per-level loop on rank 0's launches: {got['checked']}")
+    launches = {}
+    for (n, nb, grid, dtype), pipe in zip(PROCS_PIPE, got["pipes"]):
+        t0 = time.perf_counter()
+        want = run_pipeline_ranks(n, nb, grid, grid, 4, dtype=dtype, device=dev)
+        one_s = time.perf_counter() - t0
+        require(pipe["cost"] == want.cost and np.array_equal(pipe["ids"], want.tour_ids),
+                f"pipeline {n} {nb} {grid} {dtype} over 4 processes: cost {pipe['cost']!r} != run_pipeline_ranks "
+                f"{want.cost!r} or the tour differs")
+        dense = [lc["relax_dense"] for lc, _, _ in pipe["per_rank"]]
+        minplus = [lc["relax_minplus"] for lc, _, _ in pipe["per_rank"]]
+        require(all(x > 0 for x in dense), f"pipeline {n} {nb}: a rank launched no relax_dense_sweep: {dense}")
+        require(not any(minplus), f"pipeline {n} {nb}: impl auto launched relax_minplus: {minplus}")
+        if n == N_FULL:
+            launches.update(relax_dense=sum(dense), relax_minplus=sum(minplus))
+        print(f"phase 17 pipeline {n} {nb} {grid} {grid} {dtype} over 4 rank processes: cost {pipe['cost']:f} "
+              f"and tour == run_pipeline_ranks(..., 4) on the card; solve_reduce {pipe['solve_reduce']:.4f} s "
+              f"(rank 0) against {want.phase_seconds['solve_reduce']:.4f} s batched on one device ({one_s:.2f} s "
+              f"wall); relax_dense_sweep launches per rank {dense}, relax_minplus {minplus}; per-rank wall "
+              f"{[round(w, 3) for _, w, _ in pipe['per_rank']]} s, peak memory "
+              f"{[round(m / 2**30, 2) for _, _, m in pipe['per_rank']]} GiB")
+    print(f"phase 17 rank 0's {len(got['checked'])} relax_dense_sweep calls (tables "
+          f"{sorted({s for s, _ in got['checked']})}) == the plain per-level loop, whole table")
+    dist = ring_in.dist
+    t0 = time.perf_counter()
+    want_ring = ring_two_opt(torch.as_tensor(ring_tour, device=dev), dist, mesh.BatchedRanks(4))
+    torch.cuda.synchronize()
+    batched_ring_s = time.perf_counter() - t0
+    ring = torch.as_tensor(got["ring"], device=dev)
+    before = float(tour_length(torch.as_tensor(ring_tour, device=dev)[None], dist)[0])
+    after = float(tour_length(ring[None], dist)[0])
+    require(torch.equal(ring, want_ring) and after <= before,
+            f"ring_two_opt over 4 processes != BatchedRanks(4) on the card, or dearer ({after} > {before})")
+    print(f"phase 17 ring_two_opt ({nb_r * n_r} cities, float64, 4 rank processes) == BatchedRanks(4) element "
+          f"for element; length {before:.6f} -> {after:.6f}; {got['ring_s']:.3f} s over processes, "
+          f"{batched_ring_s:.3f} s batched; (a)+(b) group {group_s:.1f} s with {_staged_summary(got['stats'])}")
+
+    # --- (c) eil51 at the JAX width through the CLI's procs transport
+    for name, (argv, loop, pinned) in SHARD_CLI.items():
+        if name == "ring":
+            continue
+        r = len(pinned["nodes_per_rank"])
+        cli = argv + ["--backend=cuda", "--transport=procs"]
+        t0 = time.perf_counter()
+        if name == "pair":  # rank 0's launches recorded and held bit for bit
+            (out, info), rec = mesh.spawn_ranks(procs_bnb_rank, r, args=(cli,), timeout_s=PROCS_DEADLINE_S)
+        else:
+            (out, info), rec = run_bnb_cli_procs(cli), None
+        wall = time.perf_counter() - t0
+        bal = out["obs"]["balance"]
+        pinned_fields(shard_fields(out, bal), {**SHARD_CLI_COMMON, **pinned}, f"procs {' '.join(argv)}")
+        per_rank = info["launches_per_rank"]
+        want_prim, want_push = (5721, 1907) if name == "pair" else (3090, 1030)
+        require(info["transport"] == "procs" and info["backend"] == "gloo" and out["ranks"] == r
+                and out["prim_chain_launches"] == sum(x["prim_chain"] for x in per_rank) == want_prim
+                and out["push_rows_launches"] == sum(x["push_rows"] for x in per_rank) == want_push
+                and all(x["prim_chain"] > 0 and x["push_rows"] > 0 for x in per_rank),
+                f"procs {name}: launches {per_rank}, want {want_prim} / {want_push} summed")
+        if rec is not None:
+            require(rec["prim_chain"] == per_rank[0]["prim_chain"] and rec["push_rows"] == per_rank[0]["push_rows"],
+                    f"procs {name}: recorded {rec} != rank 0's launches {per_rank[0]}")
+            launches.update(prim_chain=out["prim_chain_launches"], push_rows=out["push_rows_launches"])
+        rounds = max(out["iterations"] // 32, 1)
+        # a rank's collective seconds include its wait for the slowest rank
+        coll = [sum(st["seconds"].values()) for st in info["collectives_per_rank"]]
+        print(f"phase 17 eil51 {' '.join(argv[1:])} --transport=procs ({'device' if loop else 'host'} loop): proved "
+              f"{out['cost']} (LB {out['lower_bound']}) in {out['nodes_expanded']} nodes == phase 16 / the JAX "
+              f"package's, per rank {out['nodes_per_rank']}; balance {bal['actions']} moving "
+              f"{bal['moved_rows_total']} rows; launches per rank prim_chain "
+              f"{[x['prim_chain'] for x in per_rank]} push_rows {[x['push_rows'] for x in per_rank]} (summed "
+              f"{want_prim} / {want_push})" + (f"; rank 0's {rec['prim_chain']} prim_chain ({rec['lanes']} lanes) "
+                                                 f"and {rec['push_rows']} push_rows launches == plain bit for bit"
+                                                 if rec else ""))
+        print(f"phase 17 seconds ({name}, procs): setup {out['setup_s']}, search {out['wall_s']}, time to proof "
+              f"{out['time_to_proof_s']}; {out['nodes_per_sec']} nodes/s; {wall:.1f} s with the spawn; collectives "
+              f"{min(coll) / rounds * 1e3:.2f}-{max(coll) / rounds * 1e3:.2f} ms a round (the rank that waits "
+              f"least - most, {rounds} rounds); "
+              f"{_staged_summary(info['collectives_per_rank'])}")
+
+    # --- (d) 4-rank 12-city solves: adaptive, spill, snapshots both ways
+    PROCS_DIR.mkdir(parents=True, exist_ok=True)
+    for old in PROCS_DIR.glob("*.npz*"):
+        old.unlink()
+    bpath, ppath = str(PROCS_DIR / "batched.npz"), str(PROCS_DIR / "procs.npz")
+
+    def inst(n, seed):
+        xy = np.random.default_rng(seed).uniform(0, 100, (n, 2))
+        return np.rint(np.sqrt(((xy[:, None] - xy[None]) ** 2).sum(-1)) * 10)
+
+    (n1, s1), kw1, _ = SHARD_SMALL["chunk1"]
+    bb.solve_sharded(inst(n1, s1), 4, device="cuda", checkpoint_path=bpath, **kw1)
+    cases = [("adaptive", SHARD_SMALL["adaptive"]), ("spill", SHARD_SMALL["spill"]),
+             ("chunk1", SHARD_SMALL["chunk1"]), ("chunk2", SHARD_SMALL["chunk2"])]
+    extra = {"chunk1": dict(checkpoint_path=ppath), "chunk2": dict(resume_from=bpath)}
+    runs = [(name, inst(*nseed), dict(kw, **extra.get(name, {}))) for name, (nseed, kw, _) in cases]
+    t0 = time.perf_counter()
+    small, stats = mesh.spawn_ranks(procs_small_rank, 4, args=(runs,), timeout_s=PROCS_DEADLINE_S)
+    group_s = time.perf_counter() - t0
+    for name, (nseed, kw, pinned) in cases:
+        res, wall, per_rank = small[name]
+        fields = {"cost": res.cost, "lower_bound": res.lower_bound, "proven_optimal": res.proven_optimal,
+                  "nodes_expanded": res.nodes_expanded, "nodes_per_rank": [int(x) for x in res.nodes_per_rank],
+                  "iterations": res.iterations, "spill_rounds": res.spill_rounds,
+                  "spill_events": res.spill_events, "spill_full_merges": res.spill_full_merges,
+                  "spill_bytes_to_host": res.spill_bytes_to_host,
+                  "spill_bytes_to_device": res.spill_bytes_to_device}
+        pinned_fields(shard_fields(fields, res.balance), pinned, f"procs {name}")
+        pushes = [lc["push_rows"] for lc, _ in per_rank]
+        require(all(x > 0 for x in pushes), f"procs {name}: a rank launched no push_rows: {pushes}")
+        rounds = max(res.iterations // kw.get("inner_steps", 32), 1)
+        print(f"phase 17 {name} (4 rank processes, {nseed[0]} cities, {kw.get('balance')}): cost {res.cost}, LB "
+              f"{res.lower_bound}, proven {res.proven_optimal}, {res.nodes_expanded} nodes {fields['nodes_per_rank']}, "
+              f"spill rounds/events {res.spill_rounds}/{res.spill_events}, balance {res.balance['actions']} == phase "
+              f"16 / the JAX package's; {wall:.2f} s ({res.nodes_per_sec:.1f} nodes/s), collectives "
+              f"{min(c for _, c in per_rank) / rounds * 1e3:.2f}-{max(c for _, c in per_rank) / rounds * 1e3:.2f} "
+              f"ms a round; push_rows per rank {pushes}")
+    t0 = time.perf_counter()
+    back = bb.solve_sharded(inst(*SHARD_SMALL["chunk2"][0]), 4, device="cuda", resume_from=ppath,
+                            **SHARD_SMALL["chunk2"][1])
+    resume_s = time.perf_counter() - t0
+    whole = SHARD_SMALL["whole"][2]
+    for what, res in (("batched snapshot -> procs", small["chunk2"][0]), ("procs snapshot -> batched", back)):
+        require(res.proven_optimal and res.cost == whole["cost"] and res.lower_bound == whole["lower_bound"],
+                f"{what}: does not land on the uninterrupted optimum")
+    require(np.array_equal(back.tour, small["chunk2"][0].tour) and back.nodes_expanded
+            == SHARD_SMALL["chunk2"][2]["nodes_expanded"], "procs snapshot -> batched: not the JAX resume")
+    print(f"phase 17 snapshots: the procs 200-iteration snapshot resumed batched ({resume_s:.2f} s) and the batched "
+          f"one resumed over procs both prove {back.cost} with LB {back.lower_bound} ({back.nodes_expanded} nodes, "
+          f"the JAX resume); (d) group {group_s:.1f} s with {_staged_summary(stats)}")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    torch.cuda.synchronize()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2193,7 +2533,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-16) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-17) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -2254,6 +2594,10 @@ def main(argv=None) -> int:
             sharded_launches = phase_sharded(smi, errs)
             for k in kernels:  # run 1 of phase 16 (eil51, 8 ranks, pair)
                 k["launches_sharded"] = sharded_launches.get(k["name"], 0)
+        if want(17):
+            procs_launches = phase_procs(smi)
+            for k in kernels:  # summed over the rank processes of phase 17's main paths
+                k["launches_procs"] = procs_launches[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,8 @@ against the JAX package, on the CPU.
 - the CLI's ``--improve`` prints that re-measured cost, no more than the
   formulaic one, also with ``--ranks=P`` (one device polishes, as the JAX
   CLI does with fewer than P devices);
-- a mesh raises: the ring improver is not ported yet.
+- a mesh that is not a rank group raises (the ring improver over rank
+  groups is held to JAX in ``tests/test_torch_ring_improve.py``).
 """
 
 import io
@@ -59,5 +60,5 @@ def test_cli_improve_with_ranks_polishes_on_one_device():
 
 def test_mesh_is_not_ported():
     d = torch.rand(8, 8, dtype=torch.float64)
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(TypeError, match="rank group"):
         tseq.improve_tour(torch.arange(8), d, mesh=object())

@@ -1766,23 +1766,26 @@ BALANCES = ("pair", "ring", "steal", "adaptive")
 SEED_MODES = ("round-robin", "single-rank")
 
 
-def _rank_counts(count: torch.Tensor) -> np.ndarray:
-    """Host copy of the stacked frontier's ``[R]`` int32 count vector, the
-    one per-round readback of the sharded loop (``branch_bound.py:2568``)."""
-    return count.cpu().numpy()
+def _rank_counts(count: torch.Tensor, ranks) -> np.ndarray:
+    """Host copy of every rank's int32 count, ``[R]``: the one per-round
+    readback of the sharded loop (``branch_bound.py:2568``), gathered
+    over the group."""
+    return ranks.all_gather(count.cpu()).numpy()
 
 
-def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: SpillStats) -> Frontier:
-    """Write every exchanged rank's kept rows into the stacked buffer in
-    one rectangular write, plus the ``[R]`` count vector
+def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: SpillStats,
+                 width: Optional[int] = None) -> Frontier:
+    """Write every exchanged local rank's kept rows into the stacked buffer
+    in one rectangular write, plus the local count vector
     (``branch_bound.py:2576-2604``). Shorter keeps are zero-padded to the
-    widest one from row 0; the padded rows land past that rank's new
-    count, in dead slots. Ranks without a keep keep their rows bit for
-    bit."""
+    widest one from row 0 (``width``: the widest over every rank of the
+    group, default over the local ones); the padded rows land past that
+    rank's new count, in dead slots. Ranks without a keep keep their rows
+    bit for bit."""
     nodes = fr.nodes
     if keeps:
         ridx = sorted(keeps)
-        mt = max(kp.shape[0] for kp in keeps.values())
+        mt = width if width is not None else max(kp.shape[0] for kp in keeps.values())
         block = np.zeros((len(ridx), mt, nodes.shape[-1]), np.int32)
         for i, r in enumerate(ridx):
             block[i, : keeps[r].shape[0]] = keeps[r]
@@ -1792,30 +1795,61 @@ def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: Spill
     return Frontier(nodes, count, fr.overflow)
 
 
-def _merge_reservoirs(reservoirs) -> Optional[_Reservoir]:
-    """The per-rank reservoirs concatenated into one (for a snapshot and
-    the final bound; ``branch_bound.py:3581``); None when all are empty."""
+def _snapshot_on_root(ranks, fr: Frontier, ic, itour, reservoirs):
+    """The whole sharded state on rank 0, as the batched solve holds it:
+    ``(frontier [R, ...], inc_cost [R], inc_tour [R, n+1], reservoir)``
+    with every process's rows, counters and spilled chunks in rank order;
+    None on the other ranks."""
+    parts = ranks.gather_objects((fr.nodes.cpu().numpy(), fr.count.cpu().numpy(),
+                                  fr.overflow.cpu().numpy(), ic.cpu().numpy(), itour.cpu().numpy(),
+                                  [c for rv in reservoirs for c in rv.chunks]))
+    if parts is None:
+        return None
+    cat = [torch.from_numpy(np.concatenate([p[i] for p in parts])) for i in range(5)]
     merged = _Reservoir()
-    for rv in reservoirs:
-        merged.chunks.extend(rv.chunks)
-    return merged if len(merged) else None
+    for p in parts:
+        merged.chunks.extend(p[5])
+    return Frontier(*cat[:3]), cat[3], cat[4], merged if len(merged) else None
+
+
+def _restore_scattered(ranks, path: str, d, bound: str, device):
+    """:func:`restore` on rank 0, each process's rows sent to it. Returns
+    this process's ``(frontier, inc_cost, inc_tour, reservoir, lb_floor)``;
+    the reservoir (which lands on rank 0) is empty elsewhere."""
+    blocks, resumed = None, _Reservoir()
+    if ranks.is_root:
+        try:
+            fr, ic, itour, resumed, lbf = restore(path, expect_d=d, expect_bound=bound,
+                                                   expect_ranks=ranks.num_ranks, device="cpu")
+            blocks = [tuple(x[ids].numpy() for x in (fr.nodes, fr.count, fr.overflow, ic, itour)) + (lbf,)
+                      for ids in ranks.process_ids()]
+        except (ValueError, OSError, _ckpt_store.CheckpointError) as e:
+            # a refused snapshot stops every rank, not rank 0 alone
+            blocks = [e] * ranks.num_ranks
+    mine = ranks.scatter_objects(blocks)
+    if isinstance(mine, Exception):
+        raise mine
+    nodes, count, overflow, ic, itour = (torch.from_numpy(x).to(device) for x in mine[:5])
+    return Frontier(nodes, count, overflow), ic, itour, resumed, mine[5]
 
 
 def _seed_rank_frontiers(d_np: np.ndarray, bd: BoundData, num_ranks: int, capacity: int, k: int,
-                         seed_mode: str, device) -> Frontier:
+                         seed_mode: str, device, ids=None) -> Frontier:
     """The root's depth-2 children dealt over the ranks
     (``branch_bound.py:2717-2750``): round-robin (child c to rank
     ``(c - 1) % R``) or all on rank 0, each rank's stack ``capacity`` logical
-    rows plus k*n push-padding rows (an all-zero row is a dead row)."""
+    rows plus k*n push-padding rows (an all-zero row is a dead row).
+    ``ids``: the global ranks whose stacks to build (default all)."""
     n = d_np.shape[0]
     w = (n + 31) // 32
+    ids = list(range(num_ranks)) if ids is None else list(ids)
     min_out = bd.min_out.cpu().numpy().astype(np.float64)
     adj = bd.bound_adj.cpu().numpy().astype(np.float64)
     sum_min0 = float(min_out[1:].sum())
-    nodes = torch.zeros((num_ranks, capacity + k * n, _path_words(n) + w + 4), dtype=torch.int32,
+    nodes = torch.zeros((len(ids), capacity + k * n, _path_words(n) + w + 4), dtype=torch.int32,
                         device=device)
     counts = []
-    for r in range(num_ranks):
+    for j, r in enumerate(ids):
         if seed_mode == "round-robin":
             mine = np.asarray([c for c in range(1, n) if (c - 1) % num_ranks == r], np.int64)
         else:
@@ -1831,9 +1865,9 @@ def _seed_rank_frontiers(d_np: np.ndarray, bd: BoundData, num_ranks: int, capaci
         mask[np.arange(m), mine // 32] |= np.uint32(1) << (mine % 32).astype(np.uint32)
         rows = _pack_rows_np(path, mask, np.full(m, 2, np.int32), d_np[0, mine],
                              d_np[0, mine] + sum_min0 + adj[mine], sum_min0 - min_out[mine])
-        nodes[r, :m] = torch.from_numpy(rows).to(device)
+        nodes[j, :m] = torch.from_numpy(rows).to(device)
     return Frontier(nodes, torch.as_tensor(counts, dtype=torch.int32, device=device),
-                    torch.zeros(num_ranks, dtype=torch.bool, device=device))
+                    torch.zeros(len(ids), dtype=torch.bool, device=device))
 
 
 def solve_sharded(
@@ -1862,16 +1896,21 @@ def solve_sharded(
     push_block: int = 0,
     step_kernel: str = "auto",
     device="cuda",
+    ranks=None,
 ) -> BnBResult:
-    """Sharded B&B with ``num_ranks`` rank frontiers batched on one device
-    (``branch_bound.solve_sharded`` of the JAX package, its mesh replaced
-    by a leading ``[R]`` dimension).
+    """Sharded B&B over ``num_ranks`` rank frontiers
+    (``branch_bound.solve_sharded`` of the JAX package).
 
-    The frontier is one tensor ``nodes [R, capacity_per_rank + k*n, C]``
-    with ``count [R]`` and ``overflow [R]``; rank r's stack is the view
-    ``nodes[r]``, on which the single-device step, guard, compaction,
-    re-sort and ``push_rows`` work in place. A round runs every rank in
-    turn for ``inner_steps`` steps with its own incumbent, then the
+    ``ranks`` is the rank group (``parallel/mesh.py``): by default all R
+    ranks batched on one device (``BatchedRanks``: the mesh replaced by a
+    leading ``[R]`` dimension), or this process's rank of a
+    ``torch.distributed`` group (``ProcessRanks``), whose ``device`` is then
+    the rank's. Either way the frontier is one tensor ``nodes [L,
+    capacity_per_rank + k*n, C]`` with ``count [L]`` and ``overflow [L]``
+    over the group's L local ranks; local rank j's stack is the view
+    ``nodes[j]``, on which the single-device step, guard, compaction,
+    re-sort and ``push_rows`` work in place. A round runs every local rank
+    in turn for ``inner_steps`` steps with its own incumbent, then the
     balance step over the ranks (``parallel/balance.py``: ``pair``,
     ``ring``, ``steal``, or ``adaptive``, whose controller picks
     skip/pair/steal per dispatch), then the incumbent share (the first
@@ -1890,16 +1929,21 @@ def solve_sharded(
     refill, the host loop re-sorts every ``reorder_every`` steps, and
     snapshots are written. A run with ``time_limit_s`` also checks the
     clock after every round, so it may stop at another step than the JAX
-    package's.
+    package's. Every decision that steers the ranks is taken alike on all
+    of them: the controller from gathered counts, the fault seam and the
+    clock on rank 0, broadcast.
 
     ``seed_mode``: "round-robin" deals the root's children over the ranks,
     "single-rank" piles them on rank 0. ``transfer``: the rows a balance
     step may move per rank (default ``max(k, 64)``, at most a quarter of
     the capacity). Snapshots are the JAX package's sharded TSPCKPT1 files
-    (``num_ranks`` key), resumable by either package on the same rank
-    count; a resumed reservoir lands on rank 0.
+    (``num_ranks`` key), written by rank 0 with every rank's state and
+    resumable by either package or transport on the same rank count; a
+    resumed reservoir lands on rank 0. Every process returns the same
+    search numbers; the wall-clock fields are its own.
     """
     from ..parallel import balance as _balance
+    from ..parallel.mesh import BatchedRanks
     from ..parallel.reduce import rank_alive_counts, rank_alive_min
 
     t_setup = time.perf_counter()
@@ -1912,6 +1956,10 @@ def solve_sharded(
         raise ValueError(f"unknown balance {balance!r} (expected one of {BALANCES})")
     if seed_mode not in SEED_MODES:
         raise ValueError(f"unknown seed_mode {seed_mode!r} (expected one of {SEED_MODES})")
+    ranks = BatchedRanks(num_ranks) if ranks is None else ranks
+    if ranks.num_ranks != num_ranks:
+        raise ValueError(f"a {num_ranks}-rank solve on a group of {ranks.num_ranks} ranks")
+    local = ranks.local
     device = torch.device(device)
     mst_kernel = _resolve_mst_kernel(mst_kernel, device)
     step_kernel = _resolve_step_kernel(step_kernel, device)
@@ -1928,14 +1976,13 @@ def solve_sharded(
     integral = bd.integral
 
     spill_stats = SpillStats()
-    reservoirs = [_Reservoir(stats=spill_stats) for _ in range(num_ranks)]
+    reservoirs = [_Reservoir(stats=spill_stats) for _ in range(local)]
     ils_s = restore_s = 0.0
     save_s = []
     lb_floor = -np.inf  # the certified LB carried across resumed chunks
     if resume_from:
         t_restore = time.perf_counter()
-        fr, ic, itour, resumed, lb_floor = restore(
-            resume_from, expect_d=d, expect_bound=bound, expect_ranks=num_ranks, device=device)
+        fr, ic, itour, resumed, lb_floor = _restore_scattered(ranks, resume_from, d, bound, device)
         restore_s = time.perf_counter() - t_restore
         inc_cost0 = float(ic[0])
         # the restored rows fix the per-rank LOGICAL capacity (rows minus
@@ -1951,19 +1998,21 @@ def solve_sharded(
             reservoirs[0] = resumed
     else:
         t_ils = time.perf_counter()
-        inc_tour_np = _initial_incumbent(d, ils_rounds, device)
+        # rank 0 alone runs the ILS; every rank starts from its incumbent
+        mine = _initial_incumbent(d, ils_rounds, device) if ranks.is_root else np.zeros(n + 1, np.int32)
+        inc_tour_np = ranks.broadcast(torch.as_tensor(mine)).numpy()
         ils_s = time.perf_counter() - t_ils
         inc_cost0 = tour_cost(d_np, inc_tour_np)
-        fr = _seed_rank_frontiers(d_np, bd, num_ranks, capacity_per_rank, k, seed_mode, device)
-        ic = torch.full((num_ranks,), inc_cost0, dtype=torch.float32, device=device)
-        itour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device).repeat(num_ranks, 1)
+        fr = _seed_rank_frontiers(d_np, bd, num_ranks, capacity_per_rank, k, seed_mode, device, ranks.ids)
+        ic = torch.full((local,), inc_cost0, dtype=torch.float32, device=device)
+        itour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device).repeat(local, 1)
 
     t_slots = int(transfer) if transfer is not None else max(k, 64)
     t_slots = min(t_slots, capacity_per_rank // 4)
     adaptive = balance == "adaptive"
     base_action = "pair" if adaptive else balance
     bal_kw = dict(num_ranks=num_ranks, t_slots=t_slots, capacity=capacity_per_rank,
-                  phys_rows=int(fr.nodes.shape[1]))
+                  phys_rows=int(fr.nodes.shape[1]), ranks=ranks)
     controller = _balance.BalanceController(num_ranks=num_ranks, k=k, t_slots=t_slots,
                                             base=base_action, adaptive=adaptive,
                                             row_bytes=int(fr.nodes.shape[-1]) * 4)
@@ -1982,10 +2031,15 @@ def solve_sharded(
         headroom`` fetches only its live prefix and keeps its best half
         (merging its reservoir only when that holds a better open node
         than the rank's live rows); an empty rank with spilled nodes
-        refills. Returns ``(frontier, total count, counts)``."""
-        counts = _rank_counts(fr.count)
+        refills. Every rank sees every rank's count and whether its
+        reservoir is empty, so all take part in the same rounds. Returns
+        ``(frontier, total count, counts [R])``."""
+        mine = fr.count.cpu().numpy()
+        flags = np.stack([mine, np.asarray([len(rv) > 0 for rv in reservoirs], np.int32)], 1)
+        flags = ranks.all_gather(torch.from_numpy(flags)).numpy()
+        counts = flags[:, 0]
         spilling = counts > capacity_per_rank - headroom
-        refilling = (counts == 0) & np.asarray([len(rv) > 0 for rv in reservoirs])
+        refilling = (counts == 0) & (flags[:, 1] > 0)
         if not (spilling.any() or refilling.any()):
             return fr, int(counts.sum()), counts
         with _obs_tracing.span("bnb.spill_round", ranks=num_ranks, spilling=int(spilling.sum()),
@@ -1996,51 +2050,57 @@ def solve_sharded(
                 sp.event("reduce.rank_alive_min", ranks=[int(x) for x in np.flatnonzero(spilling)])
             spill_stats.rounds += 1
             keeps = {}
-            new_counts = counts.copy()
-            for r in range(num_ranks):
+            new_counts = mine.copy()
+            for j, r in enumerate(ranks.ids):
                 if not (spilling[r] or refilling[r]):
                     continue
-                rv = reservoirs[r]
+                rv = reservoirs[j]
                 if refilling[r]:
                     keep = rv.refill_rows(inc_best, integral, capacity_per_rank)
                     mode, merge = "refill", False
                     if keep is not None:
                         rv.stats.events += 1
                 else:
-                    cnt = int(counts[r])
-                    live = _fetch_live_rows(fr.nodes[r], cnt)
+                    cnt = int(mine[j])
+                    live = _fetch_live_rows(fr.nodes[j], cnt)
                     # alive minima, as the single-device exchange compares
-                    merge = not (cnt and rv.min_bound() >= float(live_min[r]))
+                    merge = not (cnt and rv.min_bound() >= float(live_min[j]))
                     mode = "exchange"
                     rv.stats.events += 1
                     rv.stats.full_merges += int(merge)
                     rv.stats.bytes_to_host += live.nbytes
                     keep = rv.exchange_rows(live, inc_best, integral, capacity_per_rank, merge=merge)
-                new_counts[r] = 0 if keep is None else keep.shape[0]
+                new_counts[j] = 0 if keep is None else keep.shape[0]
                 if keep is not None:
-                    keeps[r] = keep
+                    keeps[j] = keep
                 sp.event("rank_spill", rank=int(r), mode=mode, merge=bool(merge),
-                         kept=int(new_counts[r]), reservoir=len(rv))
-            fr = _apply_keeps(fr, keeps, new_counts, spill_stats)
-            return fr, int(new_counts.sum()), new_counts
+                         kept=int(new_counts[j]), reservoir=len(rv))
+            # every rank pads its write to the widest keep of the group, as
+            # one rectangular write over the stacked ranks does
+            kept = np.stack([new_counts, np.asarray([keeps[j].shape[0] if j in keeps else -1
+                                                     for j in range(local)], np.int32)], 1)
+            kept = ranks.all_gather(torch.from_numpy(kept)).numpy()
+            fr = _apply_keeps(fr, keeps, new_counts, spill_stats, width=int(kept[:, 1].max()))
+            counts = kept[:, 0]
+            return fr, int(counts.sum()), counts
 
     def run_round(fr: Frontier, ic, itour, action: str, round_i: int, step0: int, guarded: bool):
-        """One round: every rank's steps on its view with its own
+        """One round: every local rank's steps on its view with its own
         incumbent, the balance step, the incumbent share. Returns
-        ``(frontier, ic, itour, popped [R], rank-steps, moved [R])``."""
+        ``(frontier, ic, itour, popped [L], rank-steps, moved [L])``."""
         ics, tours = list(ic.unbind(0)), list(itour.unbind(0))
-        popped = np.zeros(num_ranks, np.int64)
+        popped = np.zeros(local, np.int64)
         counts, overflows = [], []
         steps = 0
-        for r in range(num_ranks):
-            view = Frontier(fr.nodes[r], fr.count[r], fr.overflow[r])
+        for j in range(local):
+            view = Frontier(fr.nodes[j], fr.count[j], fr.overflow[j])
             if guarded:
-                view, ics[r], tours[r], popped[r], _, _, ran = _guarded_expand_steps(
-                    view, ics[r], tours[r], d32, bd, k, n, inner_steps, reorder_every, step0,
+                view, ics[j], tours[j], popped[j], _, _, ran = _guarded_expand_steps(
+                    view, ics[j], tours[j], d32, bd, k, n, inner_steps, reorder_every, step0,
                     step_ann=step_ann, **step_kw)
             else:
-                view, ics[r], tours[r], popped[r], ran = _expand_loop(
-                    view, ics[r], tours[r], d32, bd, k, n, inner_steps, step0, step_ann, **step_kw)
+                view, ics[j], tours[j], popped[j], ran = _expand_loop(
+                    view, ics[j], tours[j], d32, bd, k, n, inner_steps, step0, step_ann, **step_kw)
             steps += ran
             counts.append(view.count)
             overflows.append(view.overflow)
@@ -2050,36 +2110,46 @@ def solve_sharded(
         if num_ranks > 1 and action != "skip":
             nodes, count, moved = _balance.apply(action, nodes, count, round_i, **bal_kw)
         # the incumbent share: every rank takes the first rank with the
-        # lowest cost (jnp.argmin over the all-gathered costs)
-        all_c, all_t = torch.stack(ics), torch.stack(tours)
+        # lowest cost (jnp.argmin over the all-gathered costs), each rank's
+        # cost bits and tour gathered as one int32 row
+        mine = torch.cat([torch.stack(ics).view(torch.int32)[:, None], torch.stack(tours)], 1)
+        every = ranks.all_gather(mine)
+        all_c, all_t = every[:, 0].view(torch.float32), every[:, 1:]
         b = torch.argmin(all_c)
-        ic = all_c[b].repeat(num_ranks)
-        itour = all_t[b].repeat(num_ranks, 1)
+        ic = all_c[b].repeat(local)
+        itour = all_t[b].repeat(local, 1)
         return Frontier(nodes, count, torch.stack(overflows)), ic, itour, popped, steps, moved
 
     lbf = float(max(lb_floor, bd.root_lb))  # the certified floor of every save
 
     def timed_save():
         t_save = time.perf_counter()
-        save(checkpoint_path, fr, ic, itour, d=d, bound=bound, reservoir=_merge_reservoirs(reservoirs),
-             lb_floor=lbf, num_ranks=num_ranks)
+        snap = _snapshot_on_root(ranks, fr, ic, itour, reservoirs)
+        if snap is not None:
+            save(checkpoint_path, *snap[:3], d=d, bound=bound, reservoir=snap[3], lb_floor=lbf,
+                 num_ranks=num_ranks)
         save_s.append(time.perf_counter() - t_save)
 
     if resume_from:
         # a snapshot written with a smaller k can restore counts past this
         # run's logical capacity: shed the overhang before the first dispatch
         fr, _, _ = spill_refill(fr, inc_cost0)
-    counts_now = _rank_counts(fr.count)
+    counts_now = _rank_counts(fr.count, ranks)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     setup_s = t0 - t_setup
     deadline = None if time_limit_s is None else t0 + time_limit_s
+
+    def past_deadline() -> bool:
+        # rank 0's clock decides for every rank
+        return deadline is not None and ranks.agree(time.perf_counter() > deadline)
+
     t_best = 0.0
     last_inc = inc_cost0
-    nodes = it = steps_run = 0
-    rank_nodes = np.zeros(num_ranks, np.int64)
+    it = steps_run = 0
+    rank_nodes = np.zeros(local, np.int64)
     total0 = 1
     last_ckpt = last_reorder = 0
     unit = inner_steps
@@ -2088,13 +2158,19 @@ def solve_sharded(
         prev_action = controller.last_action
         action = controller.decide(
             counts_now,
-            alive_probe=(lambda: rank_alive_counts(fr.nodes, fr.count, inc32(last_inc), integral)
-                         .cpu().numpy()) if adaptive and num_ranks > 1 else None,
+            alive_probe=(lambda: _rank_counts(rank_alive_counts(fr.nodes, fr.count, inc32(last_inc),
+                                                                integral), ranks))
+            if adaptive and num_ranks > 1 else None,
         )
         if action == "steal":
-            try:
-                _fault_registry().fire("balance.steal")
-            except _TransientFault:
+            # the fault seam fires on rank 0 only; its verdict holds for all
+            faulted = False
+            if ranks.is_root:
+                try:
+                    _fault_registry().fire("balance.steal")
+                except _TransientFault:
+                    faulted = True
+            if ranks.agree(faulted):
                 action = controller.degrade()
         controller.count_action(action)
         if action != prev_action:
@@ -2102,8 +2178,8 @@ def solve_sharded(
             # sets the new action sees
             with _obs_tracing.span("bnb.balance", step=it, action=action, cv=controller.cv) as bsp:
                 bsp.event("rank_participation", **controller.participation(counts_now))
-        popped = np.zeros(num_ranks, np.int64)
-        moved = torch.zeros(num_ranks, dtype=torch.int32, device=device)
+        popped = np.zeros(local, np.int64)
+        moved = torch.zeros(local, dtype=torch.int32, device=device)
         if device_loop:
             budget = _dispatch_budget((max_iters - it) // unit,
                                       (2**31 - 1) // max(k * unit * num_ranks, 1),
@@ -2117,19 +2193,17 @@ def solve_sharded(
                 steps_run += ran
                 moved += mv
                 rounds_done += 1
-                cnt = torch.cat([fr.count, fr.overflow.to(torch.int32)]).tolist()
-                cnts, ovf = cnt[:num_ranks], cnt[num_ranks:]
-                done = (sum(cnts) == 0 or max(cnts) > capacity_per_rank - loop_headroom
-                        or any(ovf))
-                if deadline is not None and time.perf_counter() > deadline:
+                cnt = ranks.all_gather(torch.stack([fr.count, fr.overflow.to(torch.int32)], 1).cpu()).tolist()
+                done = (sum(c for c, _ in cnt) == 0 or max(c for c, _ in cnt) > capacity_per_rank - loop_headroom
+                        or any(o for _, o in cnt))
+                if past_deadline():
                     break
         else:
             fr, ic, itour, popped, steps, moved = run_round(fr, ic, itour, action, it // unit, it, False)
             steps_run += steps
             rounds_done = 1
-        controller.record(it, action, moved.cpu().numpy())
+        controller.record(it, action, _rank_counts(moved, ranks))
         rank_nodes += popped
-        nodes += int(popped.sum())
         it += rounds_done * inner_steps
         best = float(ic[0])
         if best < last_inc:
@@ -2142,8 +2216,8 @@ def solve_sharded(
         if reorder_every and not device_loop and it - last_reorder >= reorder_every:
             with _obs_tracing.span("bnb.reorder", step=it, ranks=num_ranks) as rsp:
                 rsp.event("rank_participation", ranks=list(range(num_ranks)))
-                for r in range(num_ranks):
-                    _reorder_frontier(Frontier(fr.nodes[r], fr.count[r], fr.overflow[r]),
+                for j in range(local):
+                    _reorder_frontier(Frontier(fr.nodes[j], fr.count[j], fr.overflow[j]),
                                       rows=capacity_per_rank)
             last_reorder = it
         if periodic and it - last_ckpt >= checkpoint_every:
@@ -2151,18 +2225,35 @@ def solve_sharded(
             last_ckpt = it
         if total0 == 0:
             break
-        if deadline is not None and time.perf_counter() > deadline:
+        if past_deadline():
             break
     wall = time.perf_counter() - t0
-    overflow = bool(fr.overflow.any())
-    proven = total0 == 0 and all(len(rv) == 0 for rv in reservoirs) and not overflow
+    overflow = bool(ranks.all_reduce(fr.overflow, "any"))
+    spilled_left = int(ranks.all_reduce(torch.as_tensor([len(rv) for rv in reservoirs]), "sum"))
+    proven = total0 == 0 and spilled_left == 0 and not overflow
     if checkpoint_path and not proven:
         timed_save()
-    counts = _rank_counts(fr.count)
     cost = float(ic[0])
-    lb_raw = _final_lower_bound(proven, cost, bd.root_lb,
-                                [fr.bound[r, : int(c)].cpu().numpy() for r, c in enumerate(counts)],
-                                _merge_reservoirs(reservoirs), overflow=overflow)
+    # the least bound over every rank's open rows and spilled nodes
+    mine = fr.count.cpu().numpy()
+    open_min = []
+    for j, c in enumerate(mine):
+        b = fr.bound[j, : int(c)].cpu().numpy()
+        mins = [float(b.min())] if b.size else []
+        if len(reservoirs[j]):
+            mins.append(reservoirs[j].min_bound())
+        open_min.append(min(mins) if mins else np.inf)
+    least = float(ranks.all_reduce(torch.as_tensor(open_min, dtype=torch.float64), "min"))
+    lb_raw = _final_lower_bound(proven, cost, bd.root_lb, [np.asarray([least])] if least < np.inf else [],
+                                overflow=overflow)
+    rank_nodes = _rank_counts(torch.from_numpy(rank_nodes), ranks)
+    nodes = int(rank_nodes.sum())
+    steps_run = int(ranks.all_reduce(torch.as_tensor([steps_run]), "sum"))
+    # rounds are counted alike on every rank; the rest is each rank's own
+    own = torch.as_tensor([[spill_stats.events, spill_stats.full_merges, spill_stats.bytes_to_host,
+                            spill_stats.bytes_to_device]], dtype=torch.int64)
+    spill_stats.events, spill_stats.full_merges, spill_stats.bytes_to_host, spill_stats.bytes_to_device = (
+        int(x) for x in ranks.all_reduce(own, "sum").tolist())
     _obs_metrics.fold_bnb_solve(nodes, wall, spill_stats)
     return BnBResult(
         cost=cost,
@@ -2194,3 +2285,4 @@ def solve_sharded(
         nodes_per_rank=rank_nodes,
         balance=controller.summary(),
     )
+

@@ -1,24 +1,23 @@
-"""Load balance for the sharded branch-and-bound search, ranks on one device.
+"""Load balance for the sharded branch-and-bound search.
 
 Counterpart of ``tsp_mpi_reduction_tpu/parallel/balance.py``. The JAX
 package runs one frontier per device inside ``shard_map`` and moves rows
-with ``ppermute``/``all_gather``; here the R ranks' frontiers are one
-stacked tensor ``nodes [R, F, C]`` with ``count [R]`` on a single device,
-and each collective is a deterministic tensor op over dim 0:
-
-- ``ppermute(x, perm_back)`` (rank r receives r+1's) is ``torch.roll(x, -1, 0)``;
-- ``ppermute(x, perm_fwd)`` (rank r receives r-1's) is ``torch.roll(x, 1, 0)``;
-- ``all_gather(x)`` is the stacked tensor itself, ``axis_index`` is
-  ``torch.arange(R)``.
+with ``ppermute``/``all_gather``. Here the steps take a rank group
+(``parallel/mesh.py``) and ``nodes [L, F, C]`` with ``count [L]``, the
+group's local ranks: all R stacked in one process (``BatchedRanks``, the
+default, whose collectives are tensor ops over dim 0) or this process's
+one rank (``ProcessRanks``). Every rank computes the assignment from the
+all-gathered ``[R]`` counts, donates from its own rows, and receives by
+its global rank id, so both groups run the same code.
 
 Three layers, as in the JAX module:
 
 - the assignment math (:func:`pair_assignment`, :func:`steal_assignment`):
   who donates how many rows to whom, a function of the ``[R]`` counts;
 - the balance steps (:func:`ring_step`, :func:`pair_step`,
-  :func:`steal_step`, dispatched by :func:`apply`) over the stacked
-  buffer, each returning ``(nodes, count [R], m_out [R])``; ``nodes`` is
-  updated in place;
+  :func:`steal_step`, dispatched by :func:`apply`) over the local rows,
+  each returning ``(nodes, count [L], m_out [L])``; ``nodes`` is updated
+  in place;
 - the host-side controller (:class:`BalanceController`, numpy only), which
   picks each dispatch's action from the per-rank occupancy counts with
   hysteresis: ``skip``, the base ``ring``/``pair``, or ``steal``.
@@ -33,6 +32,7 @@ import numpy as np
 import torch
 
 from ..obs.metrics import REGISTRY as _REGISTRY
+from .mesh import BatchedRanks
 
 #: every balance action the controller can pick
 ACTIONS = ("skip", "ring", "pair", "steal")
@@ -129,61 +129,76 @@ def _receive(nodes: torch.Tensor, cnt: torch.Tensor, m_out: torch.Tensor, m_in: 
     return nodes, base + m_in, m_out
 
 
-def ring_step(nodes, cnt, round_i=0, *, t_slots: int, capacity: int, phys_rows: int):
+def _group(ranks, nodes):
+    """The rank group of a step: the stacked ranks of ``nodes`` by default."""
+    return ranks if ranks is not None else BatchedRanks(nodes.shape[0])
+
+
+def ring_step(nodes, cnt, round_i=0, *, t_slots: int, capacity: int, phys_rows: int, ranks=None):
     """Diffuse work around the ring (``balance.py:138-162``): each rank
     donates top-of-stack rows to its successor while it holds more,
     capped so the receiver cannot overflow. ``round_i`` is unused."""
-    nb_cnt = torch.roll(cnt, -1, 0)  # the successor's count
-    m_out = torch.clamp((cnt - nb_cnt) // 2, 0, t_slots)
-    m_in = torch.roll(m_out, 1, 0)  # what my predecessor donates
+    ranks = _group(ranks, nodes)
+    me = ranks.rank_ids(nodes.device)
+    all_c = ranks.all_gather(cnt)
+    m_all = torch.clamp((all_c - torch.roll(all_c, -1, 0)) // 2, 0, t_slots)
+    m_out = m_all[me]
+    m_in = torch.roll(m_all, 1, 0)[me]  # what my predecessor donates
     slabs = _donor_slabs(nodes, cnt, m_out, t_slots, capacity)
-    return _receive(nodes, cnt, m_out, m_in, torch.roll(slabs, 1, 0), phys_rows)
+    return _receive(nodes, cnt, m_out, m_in, ranks.shift_fwd(slabs), phys_rows)
 
 
 def pair_step(nodes, cnt, round_i, *, num_ranks: int, t_slots: int, capacity: int,
-              phys_rows: int):
+              phys_rows: int, ranks=None):
     """Pair the richest rank with the poorest and donate half the gap
     (``balance.py:165-190``); the matching rotates its tie-break with
     ``round_i``."""
-    m_of, partner_of = pair_assignment(cnt, round_i, num_ranks, t_slots)
-    m_in = m_of[partner_of]  # 0 unless my partner donates (to me)
-    slabs = _donor_slabs(nodes, cnt, m_of, t_slots, capacity)
-    return _receive(nodes, cnt, m_of, m_in, slabs[partner_of], phys_rows)
+    ranks = _group(ranks, nodes)
+    me = ranks.rank_ids(nodes.device)
+    m_of, partner_of = pair_assignment(ranks.all_gather(cnt), round_i, num_ranks, t_slots)
+    m_in = m_of[partner_of][me]  # 0 unless my partner donates (to me)
+    slabs = _donor_slabs(nodes, cnt, m_of[me], t_slots, capacity)
+    recv = ranks.all_gather(slabs)[partner_of[me]]
+    return _receive(nodes, cnt, m_of[me], m_in, recv, phys_rows)
 
 
 def steal_step(nodes, cnt, round_i=0, *, num_ranks: int, t_slots: int, capacity: int,
-               phys_rows: int):
+               phys_rows: int, ranks=None):
     """Global repartition for starvation (``balance.py:193-231``): ranks
     above the mean donate their surplus into a pool, ranks below it take
     their deficit out of it. Receiver lane j holds pool position
     ``take_off + j``; its donor is the last rank whose slab starts at or
     before it (a right-side search over the donor offsets, robust to
     zero-width donors). ``round_i`` is unused."""
-    m_out, m_in, pool_off, take_off = steal_assignment(cnt, t_slots)
-    slabs = _donor_slabs(nodes, cnt, m_out, t_slots, capacity)
+    ranks = _group(ranks, nodes)
+    me = ranks.rank_ids(nodes.device)
+    m_out, m_in, pool_off, take_off = steal_assignment(ranks.all_gather(cnt), t_slots)
+    slabs = ranks.all_gather(_donor_slabs(nodes, cnt, m_out[me], t_slots, capacity))
     lanes = torch.arange(t_slots, dtype=torch.int32, device=nodes.device)
-    pos = take_off[:, None] + lanes  # [R, t] global pool positions
+    pos = take_off[me][:, None] + lanes  # [local, t] global pool positions
     # jnp.searchsorted(side="right") is torch.searchsorted(right=True)
     donor = torch.clamp(torch.searchsorted(pool_off, pos, right=True) - 1, 0, num_ranks - 1)
     row = torch.clamp(pos - pool_off[donor], 0, t_slots - 1)
-    return _receive(nodes, cnt, m_out, m_in, slabs[donor, row.long()], phys_rows)
+    return _receive(nodes, cnt, m_out[me], m_in[me], slabs[donor, row.long()], phys_rows)
 
 
 def apply(action: str, nodes, cnt, round_i, *, num_ranks: int, t_slots: int, capacity: int,
-          phys_rows: int):
+          phys_rows: int, ranks=None):
     """One balance step by action name (``balance.py:234-263``). ``skip``
-    returns the frontier untouched with zero moved rows."""
+    returns the frontier untouched with zero moved rows. ``ranks``: the
+    rank group whose local rows ``nodes`` holds (default: all ranks stacked
+    in this process)."""
     if action == "skip":
         return nodes, cnt, torch.zeros_like(cnt)
     if action == "ring":
         return ring_step(nodes, cnt, round_i, t_slots=t_slots, capacity=capacity,
-                         phys_rows=phys_rows)
+                         phys_rows=phys_rows, ranks=ranks)
     if action == "pair":
         return pair_step(nodes, cnt, round_i, num_ranks=num_ranks, t_slots=t_slots,
-                         capacity=capacity, phys_rows=phys_rows)
+                         capacity=capacity, phys_rows=phys_rows, ranks=ranks)
     if action == "steal":
         return steal_step(nodes, cnt, round_i, num_ranks=num_ranks, t_slots=t_slots,
-                          capacity=capacity, phys_rows=phys_rows)
+                          capacity=capacity, phys_rows=phys_rows, ranks=ranks)
     raise ValueError(f"unknown balance action {action!r} (one of {ACTIONS})")
 
 

@@ -1,4 +1,4 @@
-"""The reference's merge-tree reduction, emulated on one device.
+"""The reference's merge-tree reduction, on one device or over ranks.
 
 The reference hand-rolls a binary-tree reduce over MPI ranks because its
 operator (``mergeBlocks``) is neither commutative nor associative and its
@@ -16,7 +16,9 @@ per-rank folds and the same "zero length means no data" rule, so a P-rank
 result is exactly what P MPI ranks compute. ``compat_bugs=True``
 reproduces the reference's never-cleared receive buffer (SURVEY.md
 quirk #5). Ranks and rounds are host loops over device merges; all
-lengths and costs stay on the device.
+lengths and costs stay on the device. :func:`reduce_tours_on_mesh` runs the
+same tree over a rank group (``parallel/mesh.py``), each round a
+``ppermute`` of fixed-width padded tours, as the JAX package's mesh path.
 """
 
 from __future__ import annotations
@@ -168,6 +170,44 @@ def tree_reduce_single_device(
             new[dst] = _combine(folds[dst], recv, dist)
         for dst, t in new.items():
             folds[dst] = t
+    return folds[0].ids, folds[0].length, folds[0].cost
+
+
+def reduce_tours_on_mesh(ranks, tours: torch.Tensor, costs: torch.Tensor, valid: torch.Tensor,
+                         dist: torch.Tensor, capacity: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fold and tree-reduce the block tours of a rank group
+    (``parallel/reduce.py:137-183``).
+
+    ``tours`` ``[L*K, L_tour]``: the group's local ranks' block slots, K a
+    rank in rank order (every rank of a ``BatchedRanks`` group, this
+    process's one of a ``ProcessRanks`` group); ``costs`` and ``valid``
+    ``[L*K]``; ``dist`` the whole ``[N, N]`` matrix on every rank. Each rank
+    folds its blocks, then each round of :func:`tree_schedule` sends every
+    sender's fixed-width ``PaddedTour`` (ids ``[capacity]`` int32, length,
+    cost) to its receiver, which merges (mine, received) with the
+    zero-length rule of :func:`_combine`. Returns the first local rank's
+    (ids, length, cost): rank 0's result, the only meaningful one
+    (tsp.cpp:133), on rank 0's process; bit for bit what
+    :func:`tree_reduce_single_device` gives for the same rank count.
+    """
+    num_ranks, local = ranks.num_ranks, ranks.local
+    lk, l = tours.shape
+    if lk % local or costs.shape != (lk,) or valid.shape != (lk,):
+        raise ValueError(f"reduce: tours {tuple(tours.shape)}, costs {tuple(costs.shape)} and valid "
+                         f"{tuple(valid.shape)} must hold {local} local ranks' block slots")
+    if capacity < l:
+        raise ValueError(f"capacity {capacity} below block tour length {l}")
+    k = lk // local
+    folds = [_local_fold(tours[j * k:(j + 1) * k], costs[j * k:(j + 1) * k], valid[j * k:(j + 1) * k],
+                         dist, capacity) for j in range(local)]
+    for _name, pairs in tree_schedule(num_ranks):
+        acc = PaddedTour(*(torch.stack(f) for f in zip(*folds)))
+        recv = PaddedTour(*(ranks.ppermute(x, pairs) for x in acc))
+        dsts = {dst for _, dst in pairs}
+        # a rank that receives nothing this round keeps its tour (JAX's
+        # ppermute hands it zeros, which _combine keeps past)
+        folds = [_combine(folds[j], PaddedTour(*(x[j] for x in recv)), dist) if r in dsts else folds[j]
+                 for j, r in enumerate(ranks.ids)]
     return folds[0].ids, folds[0].length, folds[0].cost
 
 

@@ -5,13 +5,21 @@
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve kroA100 --max-iters=300 \
         --checkpoint=run.npz [--resume=run.npz] [--checkpoint-every=N]
     python -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve eil51 --ranks=8 --k=128 \
-        [--balance=pair|ring|steal|adaptive]
+        [--balance=pair|ring|steal|adaptive] [--transport=batched|procs]
+    torchrun --nproc-per-node=R -m tsp_mpi_reduction_tpu_torch.tools.bnb_solve eil51 \
+        --ranks=R --transport=procs
 
 Counterpart of ``tools/bnb_solve.py``. ``--ranks=R`` (R > 1) runs the
-sharded solve (``solve_sharded``) with R rank frontiers batched on the one
-device and ``--capacity // R`` rows a rank, balanced by ``--balance``; the
-line then carries ``nodes_per_rank`` and the balance controller's summary
-under ``obs.balance``. The instance is an
+sharded solve (``solve_sharded``) over R rank frontiers of ``--capacity //
+R`` rows each, balanced by ``--balance``; the line then carries
+``nodes_per_rank`` and the balance controller's summary under
+``obs.balance``. ``--transport=batched`` (the default) stacks the R ranks
+on the one device; ``procs`` runs each rank as a process of a gloo group
+(``parallel/mesh.py``): R local processes started here, or, under
+``torchrun`` (``WORLD_SIZE`` set), the group torchrun started. Rank 0
+prints the line (the launch counts summed over the ranks); the transport,
+each rank's launches, staged collective bytes and cold start go on a
+``transport:`` line on stderr before it. The instance is an
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
 computes (the host reservoir's ``spill_*`` counters, the ``health``
@@ -114,8 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "berlin52, kroA100), random:N[:SEED], or a TSPLIB .tsp path")
     ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "cpu"])
     ap.add_argument("--ranks", type=int, default=1,
-                    help="rank frontiers of the sharded solve, batched on the one device "
-                    "(1: the single-device solve)")
+                    help="rank frontiers of the sharded solve (1: the single-device solve)")
+    ap.add_argument("--transport", default="batched", choices=["batched", "procs"],
+                    help="how the ranks run: batched on the one device, or one process each "
+                    "over a gloo group (joins torchrun's group when WORLD_SIZE is set)")
     ap.add_argument("--k", type=int, default=256)
     ap.add_argument("--capacity", type=int, default=1 << 17)
     ap.add_argument("--inner-steps", type=int, default=32)
@@ -153,38 +163,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-
+def _solve(args, inst, device, ranks=None):
+    """Run the solve of ``args`` on this process (one rank of ``ranks`` when
+    given) -> ``(payload, transport info)`` on rank 0, None elsewhere."""
     from ..models import branch_bound as bb
     from ..obs import tracing
     from ..ops import expand_kernels, prim_kernels
     from ..perf import ascent_memo
     from ..resilience.health import HEALTH
-    from ..utils import tsplib
-    from ..utils.backend import resolve_device
 
-    try:
-        device = resolve_device(args.backend)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    try:
-        inst = tsplib.resolve_instance(args.instance)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    except OSError as e:
-        print(f"error: cannot read instance: {e}", file=sys.stderr)
-        return 2
     d = inst.distance_matrix()
-
     ascent_memo.enable()
     prim_kernels.reset_launches()
     expand_kernels.reset_launches()
-    if args.ranks < 1:
-        print(f"error: --ranks must be >= 1, got {args.ranks}", file=sys.stderr)
-        return 2
     kw = dict(
         k=args.k,
         inner_steps=args.inner_steps,
@@ -208,19 +199,84 @@ def main(argv: Optional[List[str]] = None) -> int:
                       ranks=args.ranks):
         if args.ranks > 1:
             res = bb.solve_sharded(d, args.ranks, capacity_per_rank=args.capacity // args.ranks,
-                                   balance=args.balance, **kw)
+                                   balance=args.balance, ranks=ranks, **kw)
         else:
             res = bb.solve(d, capacity=args.capacity, **kw)
+    launches = {**prim_kernels.LAUNCHES, **expand_kernels.LAUNCHES}
+    info = {"transport": args.transport, "ranks": args.ranks}
+    if ranks is not None:
+        # every rank process counts its own launches; the line sums them
+        per_rank = ranks.gather_objects((launches, ranks.stats()))
+        if per_rank is None:
+            return None
+        launches = {key: sum(lc[key] for lc, _ in per_rank) for key in launches}
+        info.update(backend="gloo", launches_per_rank=[lc for lc, _ in per_rank],
+                    collectives_per_rank=[st for _, st in per_rank])
     name = device.type
     if device.type == "cuda":
         import torch
 
         name = torch.cuda.get_device_name(device)
-    launches = {**prim_kernels.LAUNCHES, **expand_kernels.LAUNCHES}
     ckpt = args.checkpoint and bb._norm_ckpt_path(args.checkpoint)
     ckpt_bytes = os.path.getsize(ckpt) if ckpt and os.path.exists(ckpt) else None
-    print(json.dumps(result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes,
-                                    ascent_memo.STATS.snapshot(), trace_path=tracing.TRACER.path)))
+    payload = result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes,
+                             ascent_memo.STATS.snapshot(), trace_path=tracing.TRACER.path)
+    return payload, info
+
+
+def _solve_rank(ranks, argv: List[str]):
+    """One rank process of ``--transport=procs`` (``spawn_ranks``' target)."""
+    from ..utils import tsplib
+
+    args = build_parser().parse_args(argv)
+    return _solve(args, tsplib.resolve_instance(args.instance), ranks.device, ranks)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+
+    from ..utils import tsplib
+    from ..utils.backend import resolve_device
+
+    try:
+        device = resolve_device(args.backend)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        inst = tsplib.resolve_instance(args.instance)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"error: cannot read instance: {e}", file=sys.stderr)
+        return 2
+    if args.ranks < 1:
+        print(f"error: --ranks must be >= 1, got {args.ranks}", file=sys.stderr)
+        return 2
+    if args.transport == "procs" and args.ranks > 1:
+        from ..parallel import mesh
+
+        if os.environ.get("WORLD_SIZE"):
+            import torch.distributed as dist
+
+            mesh.initialize_multihost()
+            try:
+                ranks = mesh.make_rank_mesh(args.ranks, device=device.type)
+                out = _solve(args, inst, ranks.device, ranks)
+            finally:
+                dist.destroy_process_group()
+        else:
+            out = mesh.spawn_ranks(_solve_rank, args.ranks, args=(argv,), device=device.type)
+    else:
+        out = _solve(args, inst, device)
+    if out is None:  # a rank other than 0 of a torchrun group
+        return 0
+    payload, info = out
+    if args.ranks > 1:
+        print("transport: " + json.dumps(info), file=sys.stderr)
+    print(json.dumps(payload))
     return 0
 
 
