@@ -169,6 +169,22 @@ Phases, each printing its own line; any failure exits non-zero:
     ``build/chip_smoke_procs/``). Prints seconds, nodes/s, collective
     seconds a round, bytes staged through the host by collective kind and
     each rank's cold start (``launches_procs`` in the kernels line).
+18. the B&B line's telemetry and the runtime contracts, mostly on runs of
+    earlier phases: phase 7's eil51 line carries a series (one row a
+    host-loop dispatch) whose nodes add up to 153,747, ending with no open
+    work, an incumbent that never rises, an ``anomalies`` block and
+    ``obs.device_costs`` records of ``prim_chain`` and ``push_rows``; the
+    telemetry's cost as eil51's time to proof under ``TSP_OBS`` off and
+    on (ABBA); ``TSP_CONTRACTS=strict`` against ``off`` on the same solve
+    (equal nodes, cost, LB); the full-size pipeline with contracts on and
+    off (ABBA, wall ms and merge fold seconds); the float64 parity config
+    with contracts on (``3720.557435``, goldens bit for bit); phase 16's
+    and 17's eil51 ``--ranks=8`` pair runs give one ``rank_series`` and
+    ``obs.rank_balance`` on both transports, per-rank series nodes equal
+    ``nodes_per_rank``, with the rank hook's own meter
+    (``RankSampler.METER_NS``) against the search; the 4-rank
+    spill-forcing solve's per-rank spill attribution is nonzero and adds
+    up to the aggregate counters on both transports.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
@@ -871,6 +887,7 @@ def phase_bnb_full(smi, errs):
         require((out["lower_bound"], out["steps_run"]) == (runs[0]["lower_bound"], runs[0]["steps_run"]),
                 "eil51: the reference push gives another search than the fused one")
     main = runs[0]
+    SHARED["eil51"] = main  # phase 18 reads its telemetry blocks
     launches = main["_launches"]
     print(f"phase 7 main path ({name}, k={k}, capacity={cap}, one-tree, node_ascent=2, device loop, "
           f"mst_kernel={main['mst_kernel']}, step_kernel={main['step_kernel']}): proved {main['cost']} "
@@ -2100,17 +2117,24 @@ def phase_sharded(smi, errs):
     import torch
 
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.obs import rankview
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
     from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
     from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
 
-    # --- eil51 through the CLI, counts reset just before each run
+    # --- eil51 through the CLI, counts reset just before each run; the
+    # rank hook's own meter on (phase 18 reads it)
     outs = {}
     for name, (argv, loop, pinned) in SHARD_CLI.items():
         prim_kernels.reset_launches()
         ek.reset_launches()
         bb.reset_frontier_stats()
-        out = run_bnb_cli(argv + ["--backend=cuda"])
+        rankview.RankSampler.METER_NS = [0]
+        try:
+            out = run_bnb_cli(argv + ["--backend=cuda"])
+        finally:
+            hook_ns, rankview.RankSampler.METER_NS = rankview.RankSampler.METER_NS[0], None
+        out["_rank_hook_ns"] = hook_ns
         launches = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
         outs[name] = (out, launches, bb.FRONTIER_STATS["peak_count"])
         bal = out["obs"]["balance"]
@@ -2136,6 +2160,7 @@ def phase_sharded(smi, errs):
               f"{out['setup_ils_s']}), search {out['wall_s']}, time to proof {out['time_to_proof_s']}; "
               f"{out['nodes_per_sec']} nodes/s")
     main_out, main_launches, _ = outs["pair"]
+    SHARED["pair_batched"] = main_out
 
     # --- both kernels on run 1's recorded inputs, launch by launch
     argv = SHARD_CLI["pair"][0] + ["--backend=cuda"]
@@ -2192,6 +2217,7 @@ def phase_sharded(smi, errs):
               f"{res.iterations} iterations, spill rounds/events {res.spill_rounds}/{res.spill_events}, "
               f"balance {res.balance['actions']} ({res.balance['switches']} switches, "
               f"{res.balance['moved_rows_total']} rows moved) == the JAX package's; {wall:.2f} s")
+    SHARED["spill_batched"] = got["spill"]
     whole, chunk2 = got["whole"], got["chunk2"]
     require(chunk2.cost == whole.cost and chunk2.lower_bound == whole.lower_bound
             and np.array_equal(chunk2.tour, whole.tour) and got["chunk1"].checkpoint_save_s,
@@ -2303,14 +2329,18 @@ def procs_bnb_rank(ranks, argv):
     from tsp_mpi_reduction_tpu_torch.tools import bnb_solve
     from tsp_mpi_reduction_tpu_torch.tools import kernel_times as kt
 
+    from tsp_mpi_reduction_tpu_torch.obs import rankview
+
     if not ranks.is_root:
         return bnb_solve._solve_rank(ranks, argv)
+    rankview.RankSampler.METER_NS = [0]  # rank 0's rank hook, for phase 18
     with kt.recorded(prim_kernels, "prim_chain", kt.keep_prim) as chains, \
             kt.recorded(ek, "push_rows", kt.keep_push) as pushes:
         out = bnb_solve._solve_rank(ranks, argv)
+    hook_ns = rankview.RankSampler.METER_NS[0]
     lanes = kt.prim_check(chains)
     kt.push_check(pushes, out[0]["dimension"])
-    return out, {"prim_chain": len(chains), "push_rows": len(pushes), "lanes": lanes}
+    return out, {"prim_chain": len(chains), "push_rows": len(pushes), "lanes": lanes, "rank_hook_ns": hook_ns}
 
 
 def procs_small_rank(ranks, cases):
@@ -2451,6 +2481,8 @@ def phase_procs(smi):
             require(rec["prim_chain"] == per_rank[0]["prim_chain"] and rec["push_rows"] == per_rank[0]["push_rows"],
                     f"procs {name}: recorded {rec} != rank 0's launches {per_rank[0]}")
             launches.update(prim_chain=out["prim_chain_launches"], push_rows=out["push_rows_launches"])
+            out["_rank_hook_ns"] = rec["rank_hook_ns"]
+            SHARED["pair_procs"] = out
         rounds = max(out["iterations"] // 32, 1)
         # a rank's collective seconds include its wait for the slowest rank
         coll = [sum(st["seconds"].values()) for st in info["collectives_per_rank"]]
@@ -2487,6 +2519,7 @@ def phase_procs(smi):
     t0 = time.perf_counter()
     small, stats = mesh.spawn_ranks(procs_small_rank, 4, args=(runs,), timeout_s=PROCS_DEADLINE_S)
     group_s = time.perf_counter() - t0
+    SHARED["spill_procs"] = small["spill"][0]
     for name, (nseed, kw, pinned) in cases:
         res, wall, per_rank = small[name]
         fields = {"cost": res.cost, "lower_bound": res.lower_bound, "proven_optimal": res.proven_optimal,
@@ -2522,6 +2555,270 @@ def phase_procs(smi):
     torch.cuda.synchronize()
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 18: the B&B line's telemetry and the runtime contracts
+# ---------------------------------------------------------------------------
+
+#: what earlier phases hand to phase 18 (it runs what is missing itself):
+#: phase 7's eil51 payload, phase 16's R = 8 pair payload and spill-forcing
+#: result, phase 17's procs R = 8 pair payload and spill-forcing result
+SHARED = {}
+
+
+def small_instance(n: int, seed: int):
+    """The rounded x10 Euclidean instance of phases 16-17's small solves."""
+    import numpy as np
+
+    xy = np.random.default_rng(seed).uniform(0, 100, (n, 2))
+    return np.rint(np.sqrt(((xy[:, None] - xy[None]) ** 2).sum(-1)) * 10)
+
+
+def _shared(key, make):
+    if key not in SHARED:
+        SHARED[key] = make()
+    return SHARED[key]
+
+
+def _median(values):
+    v = sorted(values)
+    return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+
+
+def _check_rank_view(what: str, rank_series: dict, bal: dict, nodes_per_rank, spill: dict) -> None:
+    """Per rank, the series' node windows add up to ``nodes_per_rank`` and
+    the balance block's spill vectors to the aggregate counters."""
+    cols, rows = rank_series["columns"], rank_series["rows"]
+    require(rank_series["samples_dropped"] == 0, f"{what}: the rank ring dropped windows")
+    i = cols.index("nodes")
+    sums = [sum(r[i][q] for r in rows) for q in range(rank_series["ranks"])]
+    require(sums == [int(x) for x in nodes_per_rank] == bal["nodes_per_rank"],
+            f"{what}: rank_series nodes {sums} != nodes_per_rank {list(nodes_per_rank)}")
+    for col, per, total in (("spill_events", "spill_events_per_rank", spill["events"]),
+                            ("spill_to_host", "spill_bytes_to_host_per_rank", spill["to_host"]),
+                            ("spill_to_device", "spill_bytes_to_device_per_rank", spill["to_device"])):
+        j = cols.index(col)
+        require(sum(bal[per]) == sum(sum(r[j]) for r in rows) == total,
+                f"{what}: {per} {bal[per]} does not add up to {total}")
+
+
+def phase_telemetry(smi):
+    """Phase 18 (see the module docstring)."""
+    import os
+
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch import obs
+    from tsp_mpi_reduction_tpu_torch.analysis import contracts
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
+    from tsp_mpi_reduction_tpu_torch.obs import timeseries
+    from tsp_mpi_reduction_tpu_torch.parallel import mesh
+    from tsp_mpi_reduction_tpu_torch.utils import cli
+
+    t_phase = time.perf_counter()
+    name, k, cap = BNB_FULL
+    base_argv = [name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"]
+
+    # --- (a) phase 7's main path: the series, the sentinels, device_costs
+    main = _shared("eil51", lambda: run_bnb_cli(base_argv))
+    series, rows = main["series"], main["series"]["rows"]
+    cols = series["columns"]
+    require(cols == list(timeseries.COLUMNS) and series["samples_dropped"] == 0, "eil51: series schema")
+    nodes_i, inc_i = cols.index("nodes"), cols.index("incumbent")
+    require(sum(r[nodes_i] for r in rows) == main["nodes_expanded"] == BNB_FULL_NODES,
+            f"eil51: series nodes {sum(r[nodes_i] for r in rows)} != {main['nodes_expanded']}")
+    require(rows[-1][cols.index("frontier")] + rows[-1][cols.index("reservoir")] == 0,
+            "eil51: the proof's last series row still has open work")
+    incs = [r[inc_i] for r in rows if r[inc_i] is not None]
+    require(all(b <= a for a, b in zip(incs, incs[1:])), f"eil51: the incumbent rose: {incs}")
+    require(isinstance(main["anomalies"], dict) and main["anomalies"]["fired"] == len(main["anomalies"]["events"]),
+            f"eil51: anomalies {main['anomalies']!r}")
+    # the process-global records of the first launch at each shape; the
+    # ones at eil51's shapes (k = 1024, n = 51) may come from an earlier
+    # phase's launch at the same shape
+    entries = main["obs"]["device_costs"]["entries"]
+    recs = {}
+    for entry, rec in entries.items():
+        if rec["shape"].get("k") == k and rec["shape"].get("n") == 51:
+            recs.setdefault(rec["kernel"], []).append((entry, rec))
+    require({"prim_chain", "push_rows"} <= set(recs), f"eil51: device_costs has {sorted(entries)}")
+    print(f"phase 18 eil51 (phase 7's main path, device loop): series {len(rows)} row(s) (one a host-loop "
+          f"dispatch), nodes {sum(r[nodes_i] for r in rows)} == nodes_expanded, last row frontier + reservoir 0, "
+          f"incumbent never rises {incs[:1]} -> {incs[-1:]}; anomalies fired {main['anomalies']['fired']}")
+    for kernel in ("prim_chain", "push_rows"):
+        for entry, rec in recs[kernel]:
+            print(f"phase 18 device_costs {entry} ({len(entries)} entries in all): {rec['flops']:.0f} operations, "
+                  f"{rec['bytes_accessed']:.0f} bytes, "
+                  f"intensity {rec['arithmetic_intensity']}, roofline est. {rec['roofline_utilization_est']} "
+                  f"({rec['bound']}-bound against the data-sheet row), bound {rec['bound_ms']:.6f} ms "
+                  f"({rec['bound_by']}); card {rec['card']}")
+
+    # --- (b) the telemetry's cost: eil51 to proof with TSP_OBS off and on,
+    # ABBA twice (host-bound runs spread by tens of percent between calls)
+    obs_runs = []
+    timeseries.StepSampler.METER_NS = [0]
+    try:
+        for on in (False, True, True, False) * 2:
+            obs.set_enabled(on)
+            try:
+                out = run_bnb_cli(base_argv)
+            finally:
+                obs.set_enabled(None)
+            require(out["nodes_expanded"] == BNB_FULL_NODES and out["cost"] == BNB_FULL_COST,
+                    f"eil51 TSP_OBS={'on' if on else 'off'}: {out['nodes_expanded']} nodes")
+            require((out["series"] is not None) == on and (out["anomalies"] is not None) == on,
+                    f"eil51 TSP_OBS={'on' if on else 'off'}: telemetry blocks {out['series'] is not None}")
+            obs_runs.append((on, out["time_to_proof_s"], out["wall_s"]))
+        sampler_ns = timeseries.StepSampler.METER_NS[0]
+    finally:
+        timeseries.StepSampler.METER_NS = None
+    for col, what in ((1, "time to proof"), (2, "search")):
+        off = sorted(r[col] for r in obs_runs if not r[0])
+        on_ = sorted(r[col] for r in obs_runs if r[0])
+        print(f"phase 18 TSP_OBS cost, eil51 {what} (s), ABBA x2 off/on/on/off: {[r[col] for r in obs_runs]}; "
+              f"off median {_median(off):.3f} (spread {off[0]}-{off[-1]}), on median {_median(on_):.3f} (spread "
+              f"{on_[0]}-{on_[-1]}), on - off {(_median(on_) - _median(off)) / _median(off) * 100:+.1f}%; card {smi}")
+    print(f"phase 18 TSP_OBS: the sampler's own meter (StepSampler.METER_NS) {sampler_ns / 1e3:.1f} us over the "
+          f"four on runs ({sampler_ns / 4 / 1e9 / _median([r[2] for r in obs_runs if r[0]]) * 100:.5f}% of a search)")
+
+    # --- (c) TSP_CONTRACTS strict against off on the same eil51 solve
+    ct = {}
+    for lv in ("strict", "off"):
+        os.environ["TSP_CONTRACTS"] = lv
+        try:
+            ct[lv] = run_bnb_cli(base_argv)
+        finally:
+            os.environ.pop("TSP_CONTRACTS", None)
+    require(all(ct["strict"][f] == ct["off"][f] for f in ("nodes_expanded", "cost", "lower_bound", "steps_run")),
+            "eil51: TSP_CONTRACTS=strict and off give different searches")
+    print(f"phase 18 TSP_CONTRACTS eil51: strict == off ({ct['off']['nodes_expanded']} nodes, cost "
+          f"{ct['off']['cost']}, LB {ct['off']['lower_bound']}); time to proof strict {ct['strict']['time_to_proof_s']} "
+          f"s, off {ct['off']['time_to_proof_s']} s; card {smi}")
+
+    # --- (d) the full-size pipeline with contracts on and off (ABBA), and
+    # the float64 parity config with contracts on
+    pipe = []
+    for lv in ("on", "off", "off", "on") * 2:
+        os.environ["TSP_CONTRACTS"] = lv
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_pipeline(N_FULL, B_FULL, GRID_FULL, GRID_FULL, dtype=torch.float32, device="cuda")
+            pipe.append((lv, (time.perf_counter() - t0) * 1e3, res.phase_seconds["merge_fold"], res.cost))
+        finally:
+            os.environ.pop("TSP_CONTRACTS", None)
+    require(len({c for *_, c in pipe}) == 1, "pipeline: contracts on and off give different costs")
+    folds = {lv: sorted(mf for x, _, mf, _ in pipe if x == lv) for lv in ("on", "off")}
+    print("phase 18 TSP_CONTRACTS pipeline at full size (wall ms / merge fold s), ABBA x2 on/off/off/on: "
+          + ", ".join(f"{lv} {ms:.1f} / {mf:.4f}" for lv, ms, mf, _ in pipe)
+          + f"; merge fold median on {_median(folds['on']):.4f} s, off {_median(folds['off']):.4f} s; card {smi}")
+    # the checks' own host time: one fold's 2 x 1023 checks on the fold's
+    # operand types (a 16,385-slot tour on the card)
+    from tsp_mpi_reduction_tpu_torch.ops.merge import PaddedTour
+
+    tour = PaddedTour(torch.zeros(N_FULL * B_FULL + 1, dtype=torch.int32, device="cuda"),
+                      torch.tensor(N_FULL + 1, dtype=torch.int32, device="cuda"),
+                      torch.tensor(1.0, device="cuda"))
+    os.environ["TSP_CONTRACTS"] = "on"
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2 * (B_FULL - 1)):
+            contracts.check_padded_tour(tour, where="merge_tours.t1")
+        checks_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        os.environ.pop("TSP_CONTRACTS", None)
+    print(f"phase 18 TSP_CONTRACTS=on: one fold's {2 * (B_FULL - 1)} metadata checks take {checks_ms:.2f} ms of host "
+          f"time ({checks_ms / 2 / (B_FULL - 1) * 1e3:.2f} us a check), {checks_ms / 1e3 / _median(folds['off']) * 100:.2f}% "
+          f"of the off merge fold's median")
+    os.environ["TSP_CONTRACTS"] = "on"
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["10", "6", "500", "500", "--dtype=float64"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        require(rc == 0 and line.endswith(" and the trip cost 3720.557435"), f"contracts on: {line!r}")
+        g = json.loads((GOLDENS / "full_10x6_500x500.json").read_text())
+        res = run_pipeline(10, 6, 500, 500, dtype=torch.float64, device="cuda")
+        require(res.cost == g["final"]["cost"] and list(res.tour_ids) == g["final"]["ids"]
+                and res.block_costs.tolist() == [b["cost"] for b in g["block_solutions"]],
+                "contracts on: the float64 pipeline differs from goldens/full_10x6_500x500.json")
+        require(contracts.level() == "on", "TSP_CONTRACTS=on not in force")
+    finally:
+        os.environ.pop("TSP_CONTRACTS", None)
+    print(f"phase 18 contracts on, float64: {line.split(' ms ')[-1]}; goldens/full_10x6_500x500.json "
+          "block costs, final tour and cost bit for bit")
+
+    # --- (e) eil51 R = 8 pair, batched and over processes: one rank view
+    pair_argv = SHARD_CLI["pair"][0] + ["--backend=cuda"]
+
+    def pair_batched():
+        from tsp_mpi_reduction_tpu_torch.obs import rankview
+
+        rankview.RankSampler.METER_NS = [0]
+        try:
+            out = run_bnb_cli(pair_argv)
+        finally:
+            hook, rankview.RankSampler.METER_NS = rankview.RankSampler.METER_NS[0], None
+        out["_rank_hook_ns"] = hook
+        return out
+
+    def pair_procs():
+        (out, _), rec = mesh.spawn_ranks(procs_bnb_rank, 8, args=(pair_argv + ["--transport=procs"],),
+                                         timeout_s=PROCS_DEADLINE_S)
+        out["_rank_hook_ns"] = rec["rank_hook_ns"]
+        return out
+
+    views = {"batched": _shared("pair_batched", pair_batched), "procs": _shared("pair_procs", pair_procs)}
+    for tr, out in views.items():
+        _check_rank_view(f"eil51 R=8 {tr}", out["rank_series"], out["obs"]["rank_balance"], out["nodes_per_rank"],
+                         {"events": out["spill_events"], "to_host": out["spill_bytes_to_host"],
+                          "to_device": out["spill_bytes_to_device"]})
+    require(views["batched"]["rank_series"] == views["procs"]["rank_series"],
+            "eil51 R=8: rank_series differs between the transports")
+    require(views["batched"]["obs"]["rank_balance"] == views["procs"]["obs"]["rank_balance"],
+            "eil51 R=8: obs.rank_balance differs between the transports")
+    bal = views["batched"]["obs"]["rank_balance"]
+    hooks = {tr: (out["_rank_hook_ns"], out["wall_s"]) for tr, out in views.items()}
+    print(f"phase 18 eil51 --ranks=8 --k=128 pair: rank_series ({len(views['batched']['rank_series']['rows'])} "
+          f"windows of {views['batched']['rank_series']['window']} dispatches) and obs.rank_balance equal batched "
+          f"and over 8 processes; per-rank series nodes == nodes_per_rank {bal['nodes_per_rank']}; straggler rank "
+          f"{bal['straggler_rank']} score {bal['straggler_score']}, occupancy CV {bal['occupancy_cv']}, starved "
+          f"{bal['starved_ranks']}; rank hook (RankSampler.METER_NS, rank 0) "
+          + ", ".join(f"{tr} {ns / 1e6:.2f} ms of a {w} s search ({ns / 1e9 / w * 100:.3f}%)"
+                      for tr, (ns, w) in hooks.items()) + f"; card {smi}")
+
+    # --- (f) the 4-rank spill-forcing 12-city solve on both transports
+    (n_s, seed_s), kw_s, pinned_s = SHARD_SMALL["spill"]
+    d_s = small_instance(n_s, seed_s)
+
+    def spill_procs():
+        small, _ = mesh.spawn_ranks(procs_small_rank, 4, args=([("spill", d_s, kw_s)],),
+                                    timeout_s=PROCS_DEADLINE_S)
+        return small["spill"][0]
+
+    spills = {"batched": _shared("spill_batched", lambda: bb.solve_sharded(d_s, 4, device="cuda", **kw_s)),
+              "procs": _shared("spill_procs", spill_procs)}
+    for tr, res in spills.items():
+        require(res.spill_events == pinned_s["spill_events"] and res.nodes_expanded == pinned_s["nodes_expanded"],
+                f"spill {tr}: not phase 16's pins")
+        _check_rank_view(f"spill {tr}", res.rank_series, res.rank_balance, res.nodes_per_rank,
+                         {"events": res.spill_events, "to_host": res.spill_bytes_to_host,
+                          "to_device": res.spill_bytes_to_device})
+        require(all(sum(res.rank_balance[key]) > 0 for key in ("spill_events_per_rank",
+                                                               "spill_bytes_to_host_per_rank",
+                                                               "spill_bytes_to_device_per_rank")),
+                f"spill {tr}: the per-rank spill attribution is zero")
+    require(spills["batched"].rank_series == spills["procs"].rank_series
+            and spills["batched"].rank_balance == spills["procs"].rank_balance,
+            "spill: the rank view differs between the transports")
+    b = spills["batched"].rank_balance
+    print(f"phase 18 spill-forcing 12-city (4 ranks): per-rank spill events {b['spill_events_per_rank']}, bytes to "
+          f"host {b['spill_bytes_to_host_per_rank']}, to device {b['spill_bytes_to_device_per_rank']} add up to "
+          f"{spills['batched'].spill_events} / {spills['batched'].spill_bytes_to_host} / "
+          f"{spills['batched'].spill_bytes_to_device} on both transports, rank views equal")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    torch.cuda.synchronize()
+
 
 def main(argv=None) -> int:
     import argparse
@@ -2533,7 +2830,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-17) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-18) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -2598,6 +2895,8 @@ def main(argv=None) -> int:
             procs_launches = phase_procs(smi)
             for k in kernels:  # summed over the rank processes of phase 17's main paths
                 k["launches_procs"] = procs_launches[k["name"]]
+        if want(18):
+            phase_telemetry(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -342,12 +342,26 @@ def test_cli_proves_burma14_on_cpu(capsys):
     assert out["device"] == "cpu" and out["time_to_proof_s"] is not None
     assert {"retries", "fallback_restores", "faults_injected"} <= out["health"].keys()
     assert set(out["compile_cache"]) == {"ascent_memo_hits", "ascent_memo_misses"}
-    for key in ("series", "anomalies", "rank_series"):
-        assert out[key] is None
-    # the JAX payload's obs block without its XLA keys; no rank telemetry
-    # and no balance controller on a single device
+    # the telemetry blocks: one series row a host-loop dispatch whose nodes
+    # add up to the count, ending with no open work; the sentinels' block;
+    # no rank view on a single device (null in the JAX payload too)
+    series = out["series"]
+    assert series["columns"] == ["step", "wall_s", "nodes", "nodes_per_s", "frontier", "spill_to_host",
+                                 "spill_to_device", "incumbent", "lb_floor", "reservoir"]
+    assert series["rows"] and sum(r[2] for r in series["rows"]) == out["nodes_expanded"]
+    assert series["rows"][-1][4] + series["rows"][-1][9] == 0
+    assert series["samples_total"] == len(series["rows"]) and series["samples_dropped"] == 0
+    assert series["row_bytes"] == 4 * (4 + 1 + 4) and series["frontier_layout"] == 2
+    assert set(out["anomalies"]) == {"events", "fired"}
+    assert out["anomalies"]["fired"] == len(out["anomalies"]["events"])
+    assert out["rank_series"] is None
+    # the JAX payload's obs block without its XLA compile phases; no rank
+    # view and no balance controller on a single device; device_costs with
+    # the JAX block's keys, and no entry, since the CPU launches no kernel
+    costs = out["obs"].pop("device_costs")
     assert out["obs"] == {"enabled": True, "trace": None, "metrics_port": None,
                           "rank_balance": None, "balance": None}
+    assert costs == {"schema": 1, "entries": {}, "peaks": {}}
     assert out["ranks"] == 1 and out["nodes_per_rank"] is None and out["balance"] is None
 
 

@@ -89,6 +89,10 @@ def test_chunked_campaign_of_two_fresh_processes(tmp_path):
     assert c2["setup_ils_s"] == 0.0 and c2["lower_bound"] >= c1["lower_bound"]
     assert summary["lb_certified"] == c2["lb_certified"] and summary["cost"] == c2["cost"]
     assert summary["gap"] == round(c2["cost"] - c2["lb_certified"], 3)
+    # each chunk's line carries its own telemetry, as the JAX driver's do
+    for c in (c1, c2):
+        assert sum(r[2] for r in c["series"]["rows"]) == c["nodes_expanded"] > 0
+        assert set(c["anomalies"]) == {"events", "fired"} and c["rank_series"] is None
     spans = tracing.read_trace(trace)
     trees = tracing.build_trees(spans)
     assert len(trees) == 1

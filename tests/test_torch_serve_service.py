@@ -32,6 +32,7 @@ import torch
 from tsp_mpi_reduction_tpu.serve import ladder as jladder
 from tsp_mpi_reduction_tpu.serve import scheduler as jsched
 from tsp_mpi_reduction_tpu.serve import service as jservice
+from tsp_mpi_reduction_tpu_torch.resilience.health import HEALTH as THEALTH
 from tsp_mpi_reduction_tpu_torch.serve import ladder as tladder
 from tsp_mpi_reduction_tpu_torch.serve import scheduler as tsched
 from tsp_mpi_reduction_tpu_torch.serve import service as tservice
@@ -44,6 +45,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 def _one_torch_thread():
     before = torch.get_num_threads()
     torch.set_num_threads(1)
+    # the port's health counters are process-global, as the JAX package's
+    # that the conftest resets before every test: an anomaly event a B&B
+    # solve of an earlier test in this worker fired must not appear as a
+    # key of this session's health block
+    THEALTH.reset_for_testing()
     yield
     torch.set_num_threads(before)
 

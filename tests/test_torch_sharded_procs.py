@@ -198,11 +198,22 @@ def test_cli_procs_payload_equals_batched(capsys):
     want, w_info = _cli(argv, capsys)
     got, info = _cli(argv + ["--transport=procs"], capsys)
     timing = {"nodes_per_sec", "time_to_best_s", "wall_s", "setup_s", "setup_ascent_s", "setup_ils_s",
-              "time_to_proof_s", "health", "compile_cache", "obs", "checkpoint_save_s", "checkpoint_restore_s"}
+              "time_to_proof_s", "health", "compile_cache", "obs", "checkpoint_save_s", "checkpoint_restore_s",
+              "series", "anomalies"}
     assert set(got) == set(want)
     for key in set(want) - timing:
         assert got[key] == want[key], key
     assert got["obs"]["balance"] == want["obs"]["balance"]
+    assert got["obs"]["rank_balance"] == want["obs"]["rank_balance"] and got["rank_series"]["ranks"] == 4
+    # the series' columns but wall_s and nodes_per_s, and the sentinels'
+    # events but the nodes/s collapse, read no clock
+    clocked = [want["series"]["columns"].index(c) for c in ("wall_s", "nodes_per_s")]
+    for pay in (got, want):
+        for row in pay["series"]["rows"]:
+            for i in clocked:
+                row[i] = None
+        pay["anomalies"]["events"] = [e for e in pay["anomalies"]["events"] if e["kind"] != "nodes_rate_collapse"]
+    assert got["series"] == want["series"] and got["anomalies"]["events"] == want["anomalies"]["events"]
     assert w_info == {"transport": "batched", "ranks": 4}
     assert info["transport"] == "procs" and info["backend"] == "gloo" and len(info["launches_per_rank"]) == 4
     for key in ("prim_chain", "push_rows"):

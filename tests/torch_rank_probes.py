@@ -135,3 +135,23 @@ def sharded(ranks, cases):
         its = ranks.gather_objects(res.iterations)
         out.append((_fields(res), hits, its))
     return out if ranks.is_root else None
+
+
+def telemetry_rank(ranks, d: np.ndarray, kw: dict):
+    """``solve_sharded`` of ``d`` -> rank 0's telemetry blocks (the series
+    with its timing columns reduced to their row count), after checking
+    that every rank process returns the same rank view."""
+    res = bb.solve_sharded(d, ranks.num_ranks, device=ranks_device(ranks), ranks=ranks, **kw)
+    cols = res.series["columns"]
+    keep = [cols.index(c) for c in ("step", "nodes", "frontier", "spill_to_host", "spill_to_device",
+                                    "incumbent", "lb_floor", "reservoir")]
+    series = {k: v for k, v in res.series.items() if k != "rows"}
+    series["rows"] = [[r[i] for i in keep] for r in res.series["rows"]]
+    series["timing_rows"] = len(res.series["rows"])
+    views = ranks.gather_objects((res.rank_series, res.rank_balance, series))
+    if views is None:
+        return None
+    if any(v != views[0] for v in views):
+        raise AssertionError("the rank processes disagree on the rank view")
+    return dict(rank_series=res.rank_series, rank_balance=res.rank_balance, series=series,
+                anomalies=res.anomalies, spill_events=res.spill_events)

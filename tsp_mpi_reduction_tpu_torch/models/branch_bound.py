@@ -52,6 +52,18 @@ The MST bound's kernel is selectable (``MST_KERNELS``): the Prim chain
 (:func:`_mst_conn_boruvka`, plain torch ops). The root ascent runs on the
 host in float64 (memoized, ``perf/ascent_memo.py``) or, with
 ``ascent="device"``, on the solve's device in float32.
+
+Telemetry (``obs/``, off under ``TSP_OBS=off``): one ``series`` row a
+host-loop iteration, i.e. a dispatch, as in the JAX package: the host
+loop's ``inner_steps`` batch, or in the device loop a run of
+:func:`_guarded_expand_steps` that ends at a reservoir exchange, a
+checkpoint, the int32 cap or the end of the search (an eil51 proof at
+k = 1024 is one row); never one a device-loop step. The stall sentinel
+rides the series; :func:`solve_sharded` adds the per-rank windows
+(``rank_series``, ``rank_balance``). Runtime contracts
+(``analysis/contracts.py``, ``TSP_CONTRACTS``) check the frontier at the
+entries, the reservoir exchanges and, by ``data_ptr``, that every
+dispatch wrote the frontier buffer in place.
 """
 
 from __future__ import annotations
@@ -64,7 +76,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import contracts as _contracts
+from ..obs import anomaly as _obs_anomaly
 from ..obs import metrics as _obs_metrics
+from ..obs import rankview as _obs_rank
+from ..obs import timeseries as _obs_series
 from ..obs import tracing as _obs_tracing
 from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
@@ -290,6 +306,14 @@ class BnBResult:
     checkpoint_restore_s: float = 0.0  # host seconds of the restore (in setup_seconds)
     nodes_per_rank: Optional[np.ndarray] = None  # per-rank expansions (solve_sharded only)
     balance: Optional[dict] = None  # the balance controller's summary (solve_sharded only)
+    # the telemetry blocks (None under TSP_OBS=off): one row a host-loop
+    # dispatch (obs.timeseries), the sentinels' verdicts (obs.anomaly), and
+    # for solve_sharded the per-rank windows and the imbalance accounting
+    # (obs.rankview)
+    series: Optional[dict] = None
+    anomalies: Optional[dict] = None
+    rank_series: Optional[dict] = None
+    rank_balance: Optional[dict] = None
 
 
 # ---------------------------------------------------------------------------
@@ -1183,6 +1207,7 @@ class _Reservoir:
         if keep is None:
             return fr
         take = keep.shape[0]
+        _contracts.check_exchange_count(take, capacity, where="_Reservoir.refill")
         self.stats.rounds += 1
         self.stats.events += 1
         self.stats.bytes_to_device += keep.nbytes
@@ -1224,6 +1249,7 @@ class _Reservoir:
         the global alive minimum, merge everything and put the best-bound
         ``capacity // 2`` back on the device; else keep the best half of the
         live rows only and spill the rest. Only the kept slice goes up."""
+        _contracts.check_frontier(fr, where="_Reservoir.exchange")
         cnt = int(fr.count)
         live = _fetch_live_rows(fr.nodes, cnt)
         lb = _np_bound_col(live)
@@ -1238,6 +1264,7 @@ class _Reservoir:
         if keep is None:
             return Frontier(fr.nodes, _count_like(fr.count, 0), fr.overflow)
         take = keep.shape[0]
+        _contracts.check_exchange_count(take, capacity, where="_Reservoir.exchange")
         self.stats.bytes_to_device += keep.nbytes
         fr.nodes[:take].copy_(torch.from_numpy(keep))
         return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
@@ -1572,6 +1599,7 @@ def solve(
         inc_tour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device)
         fr = make_root_frontier(n, capacity, min_out_np, device=device, pad_rows=k * n)
         reservoir = _Reservoir(stats=spill_stats)
+    _contracts.check_frontier_packed(fr, n, where="solve")
     headroom = _spill_headroom(capacity, inner_steps, k, n)
 
     step_kw = dict(use_mst=mst_prune, node_ascent=node_ascent, mst_kernel=mst_kernel,
@@ -1594,6 +1622,16 @@ def solve(
     # the profiler step range, resolved once (a shared nullcontext unless a
     # device_trace capture runs around this solve)
     step_ann = _obs_tracing.step_annotation_factory()
+    # one telemetry row a host-loop iteration, from host values the loop
+    # already has (no device read of its own); the stall sentinel rides the
+    # sampler's ring. None under TSP_OBS=off: one is-None check a dispatch
+    sampler = _obs_series.StepSampler.maybe()
+    if sampler is not None:
+        sampler.row_bytes = int(fr.nodes.shape[-1]) * 4
+        sampler.frontier_layout = FRONTIER_LAYOUT_VERSION
+    sentinel = _obs_anomaly.StallSentinel.maybe()
+    if sampler is not None:
+        sampler.sentinel = sentinel
 
     def timed_save():
         t_save = time.perf_counter()
@@ -1602,6 +1640,11 @@ def solve(
         save_s.append(time.perf_counter() - t_save)
 
     while it < max_iters:
+        t_iter = time.perf_counter()
+        sp_h0, sp_d0 = spill_stats.bytes_to_host, spill_stats.bytes_to_device
+        # every step (the push_rows kernel included), compaction and re-sort
+        # writes the frontier buffer in place
+        prev_ptr = _contracts.donation_ptr(fr.nodes)
         if device_loop:
             budget = _dispatch_budget(max_iters - it, (2**31 - 1) // max(k, 1),
                                       checkpoint_every - (it - last_ckpt) if periodic else None)
@@ -1609,6 +1652,7 @@ def solve(
                 fr, inc_cost, inc_tour, d32, bd, k, n, budget, reorder_every, it, deadline,
                 step_ann=step_ann, **step_kw
             )
+            _contracts.check_donated(fr.nodes, prev_ptr, where="solve._guarded_expand_steps")
             nodes += popped
             steps_run += expanded
             if t_improved is not None:
@@ -1621,6 +1665,7 @@ def solve(
             fr, inc_cost, inc_tour, popped, steps = _expand_loop(
                 fr, inc_cost, inc_tour, d32, bd, k, n, inner, it, step_ann, **step_kw
             )
+            _contracts.check_donated(fr.nodes, prev_ptr, where="solve._expand_loop")
             nodes += popped
             steps_run += steps
             it += inner
@@ -1646,6 +1691,12 @@ def solve(
         if periodic and it - last_ckpt >= checkpoint_every:
             timed_save()
             last_ckpt = it
+        if sampler is not None:
+            # positional, in the order of obs.timeseries.COLUMNS
+            now = time.perf_counter()
+            sampler.sample(it, now - t0, popped, popped / max(now - t_iter, 1e-9), cnt,
+                           spill_stats.bytes_to_host - sp_h0, spill_stats.bytes_to_device - sp_d0,
+                           ic, lbf, len(reservoir))
         if cnt == 0:
             break
         if time_limit_s is not None and time.perf_counter() - t0 > time_limit_s:
@@ -1690,6 +1741,8 @@ def solve(
         device_loop=device_loop,
         checkpoint_save_s=tuple(save_s),
         checkpoint_restore_s=restore_s,
+        series=sampler.series() if sampler is not None else None,
+        anomalies=sentinel.summary() if sentinel is not None else None,
     )
 
 
@@ -1733,7 +1786,8 @@ def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = 
     optimality; otherwise ``result`` is the best so far and ``handle``
     resumes where this slice stopped. ``solve_kw`` goes to :func:`solve`
     unchanged and must be the same for every slice (``max_iters`` there
-    caps each slice's iterations).
+    caps each slice's iterations). Each slice's result carries its own
+    telemetry series, as the JAX package's does.
     """
     path = handle.checkpoint_path if handle is not None else checkpoint_path
     if not path:
@@ -1944,7 +1998,7 @@ def solve_sharded(
     """
     from ..parallel import balance as _balance
     from ..parallel.mesh import BatchedRanks
-    from ..parallel.reduce import rank_alive_counts, rank_alive_min
+    from ..parallel.reduce import make_rank_stats, rank_alive_counts, rank_alive_min
 
     t_setup = time.perf_counter()
     n = d.shape[0]
@@ -2006,6 +2060,7 @@ def solve_sharded(
         fr = _seed_rank_frontiers(d_np, bd, num_ranks, capacity_per_rank, k, seed_mode, device, ranks.ids)
         ic = torch.full((local,), inc_cost0, dtype=torch.float32, device=device)
         itour = torch.as_tensor(inc_tour_np, dtype=torch.int32, device=device).repeat(local, 1)
+    _contracts.check_frontier_packed(fr, n, where="solve_sharded")
 
     t_slots = int(transfer) if transfer is not None else max(k, 64)
     t_slots = min(t_slots, capacity_per_rank // 4)
@@ -2025,23 +2080,36 @@ def solve_sharded(
     def inc32(v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=device)
 
-    def spill_refill(fr: Frontier, inc_best: float):
+    # per-rank spill attribution over EVERY rank of the group, on every
+    # process (``branch_bound.py:3108-3116``): each rank's events and bytes
+    # each way follow from the counts and keep widths spill_refill gathers
+    # anyway, so their sums equal the aggregate SpillStats on either
+    # transport without a collective of their own
+    rank_spill_events = np.zeros(num_ranks, np.int64)
+    rank_spill_to_host = np.zeros(num_ranks, np.int64)
+    rank_spill_to_device = np.zeros(num_ranks, np.int64)
+    row_bytes = int(fr.nodes.shape[-1]) * 4
+
+    def spill_refill(fr: Frontier, inc_best: float, popped: Optional[np.ndarray] = None):
         """Per-rank reservoir exchange and refill between dispatches
         (``branch_bound.py:3130-3231``): a rank past ``capacity -
         headroom`` fetches only its live prefix and keeps its best half
         (merging its reservoir only when that holds a better open node
         than the rank's live rows); an empty rank with spilled nodes
-        refills. Every rank sees every rank's count and whether its
-        reservoir is empty, so all take part in the same rounds. Returns
-        ``(frontier, total count, counts [R])``."""
+        refills. Every rank sees every rank's count, reservoir rows and
+        nodes expanded in the dispatch (``popped``, local ``[L]``), so all
+        take part in the same rounds. Returns ``(frontier, total count,
+        counts [R], popped [R], reservoir rows [R])``."""
         mine = fr.count.cpu().numpy()
-        flags = np.stack([mine, np.asarray([len(rv) > 0 for rv in reservoirs], np.int32)], 1)
+        popped = np.zeros(local, np.int64) if popped is None else popped
+        flags = np.stack([mine.astype(np.int64), np.asarray([len(rv) for rv in reservoirs], np.int64),
+                          popped.astype(np.int64)], 1)
         flags = ranks.all_gather(torch.from_numpy(flags)).numpy()
-        counts = flags[:, 0]
+        counts, res_rows, popped_all = flags[:, 0], flags[:, 1], flags[:, 2]
         spilling = counts > capacity_per_rank - headroom
-        refilling = (counts == 0) & (flags[:, 1] > 0)
+        refilling = (counts == 0) & (res_rows > 0)
         if not (spilling.any() or refilling.any()):
-            return fr, int(counts.sum()), counts
+            return fr, int(counts.sum()), counts, popped_all, res_rows
         with _obs_tracing.span("bnb.spill_round", ranks=num_ranks, spilling=int(spilling.sum()),
                                refilling=int(refilling.sum())) as sp:
             live_min = None
@@ -2075,14 +2143,27 @@ def solve_sharded(
                     keeps[j] = keep
                 sp.event("rank_spill", rank=int(r), mode=mode, merge=bool(merge),
                          kept=int(new_counts[j]), reservoir=len(rv))
+                _contracts.check_exchange_count(int(new_counts[j]), capacity_per_rank,
+                                                where="solve_sharded.spill_refill")
             # every rank pads its write to the widest keep of the group, as
             # one rectangular write over the stacked ranks does
-            kept = np.stack([new_counts, np.asarray([keeps[j].shape[0] if j in keeps else -1
-                                                     for j in range(local)], np.int32)], 1)
+            kept = np.stack([new_counts.astype(np.int64),
+                             np.asarray([keeps[j].shape[0] if j in keeps else -1 for j in range(local)],
+                                        np.int64),
+                             np.asarray([len(rv) for rv in reservoirs], np.int64)], 1)
             kept = ranks.all_gather(torch.from_numpy(kept)).numpy()
-            fr = _apply_keeps(fr, keeps, new_counts, spill_stats, width=int(kept[:, 1].max()))
+            width = int(kept[:, 1].max())
+            fr = _apply_keeps(fr, keeps, new_counts, spill_stats, width=width)
+            _contracts.check_frontier(fr, n=n, where="solve_sharded.spill_refill")
+            # the attribution: an exchange always counts (its live prefix
+            # went to the host), a refill when it kept rows; every kept
+            # slice went up padded to the widest, as _apply_keeps writes it
+            has_keep = kept[:, 1] > 0
+            rank_spill_events[spilling | (refilling & has_keep)] += 1
+            rank_spill_to_host[spilling] += counts[spilling] * row_bytes
+            rank_spill_to_device[has_keep] += width * row_bytes
             counts = kept[:, 0]
-            return fr, int(counts.sum()), counts
+            return fr, int(counts.sum()), counts, popped_all, kept[:, 2]
 
     def run_round(fr: Frontier, ic, itour, action: str, round_i: int, step0: int, guarded: bool):
         """One round: every local rank's steps on its view with its own
@@ -2130,10 +2211,11 @@ def solve_sharded(
                  num_ranks=num_ranks)
         save_s.append(time.perf_counter() - t_save)
 
+    res_now = np.zeros(num_ranks, np.int64)  # every rank's reservoir rows
     if resume_from:
         # a snapshot written with a smaller k can restore counts past this
         # run's logical capacity: shed the overhang before the first dispatch
-        fr, _, _ = spill_refill(fr, inc_cost0)
+        fr, _, _, _, res_now = spill_refill(fr, inc_cost0)
     counts_now = _rank_counts(fr.count, ranks)
 
     if device.type == "cuda":
@@ -2149,12 +2231,40 @@ def solve_sharded(
     t_best = 0.0
     last_inc = inc_cost0
     it = steps_run = 0
-    rank_nodes = np.zeros(local, np.int64)
+    rank_nodes = np.zeros(num_ranks, np.int64)  # every rank's, gathered each dispatch
     total0 = 1
     last_ckpt = last_reorder = 0
     unit = inner_steps
     periodic = bool(checkpoint_every and checkpoint_path)
+    # the mesh-global series (one row a dispatch) and its stall sentinel,
+    # as in solve(); the rank sampler reads one [R, 3] device stats row a
+    # window (make_rank_stats on each process's ranks, one all_gather), the
+    # host columns from the per-rank arrays every process holds
+    sampler = _obs_series.StepSampler.maybe()
+    if sampler is not None:
+        sampler.row_bytes = row_bytes
+        sampler.frontier_layout = FRONTIER_LAYOUT_VERSION
+    sentinel = _obs_anomaly.StallSentinel.maybe()
+    if sampler is not None:
+        sampler.sentinel = sentinel
+    rank_sampler = _obs_rank.RankSampler.maybe(num_ranks)
+
+    def rank_sample(step_now: int, inc_now: float) -> None:
+        # the whole window hook, shared by the loop and the tail flush, both
+        # billed to METER_NS: the stats row, its gather and the ring append
+        m = _obs_rank.RankSampler.METER_NS
+        if m is not None:
+            t_meter = time.perf_counter_ns()
+        row = ranks.all_gather(make_rank_stats(fr.nodes, fr.count, inc32(inc_now), integral).cpu()).numpy()
+        _obs_tracing.add_event("reduce.rank_stats", step=step_now, ranks=num_ranks)
+        rank_sampler.sample(step_now, row[:, 0], row[:, 1], rank_nodes, res_now, rank_spill_events,
+                            rank_spill_to_host, rank_spill_to_device, row[:, 2])
+        if m is not None:
+            m[0] += time.perf_counter_ns() - t_meter
+
     while it < max_iters:
+        t_iter = time.perf_counter()
+        sp_h0, sp_d0 = int(rank_spill_to_host.sum()), int(rank_spill_to_device.sum())
         prev_action = controller.last_action
         action = controller.decide(
             counts_now,
@@ -2180,6 +2290,9 @@ def solve_sharded(
                 bsp.event("rank_participation", **controller.participation(counts_now))
         popped = np.zeros(local, np.int64)
         moved = torch.zeros(local, dtype=torch.int32, device=device)
+        # every step, compaction, re-sort and balance writes the stacked
+        # frontier buffer in place
+        prev_ptr = _contracts.donation_ptr(fr.nodes)
         if device_loop:
             budget = _dispatch_budget((max_iters - it) // unit,
                                       (2**31 - 1) // max(k * unit * num_ranks, 1),
@@ -2202,8 +2315,8 @@ def solve_sharded(
             fr, ic, itour, popped, steps, moved = run_round(fr, ic, itour, action, it // unit, it, False)
             steps_run += steps
             rounds_done = 1
+        _contracts.check_donated(fr.nodes, prev_ptr, where="solve_sharded.run_round")
         controller.record(it, action, _rank_counts(moved, ranks))
-        rank_nodes += popped
         it += rounds_done * inner_steps
         best = float(ic[0])
         if best < last_inc:
@@ -2212,7 +2325,8 @@ def solve_sharded(
             for rv in reservoirs:
                 if len(rv):
                     rv.prune(best, integral)
-        fr, total0, counts_now = spill_refill(fr, best)
+        fr, total0, counts_now, popped_all, res_now = spill_refill(fr, best, popped)
+        rank_nodes += popped_all
         if reorder_every and not device_loop and it - last_reorder >= reorder_every:
             with _obs_tracing.span("bnb.reorder", step=it, ranks=num_ranks) as rsp:
                 rsp.event("rank_participation", ranks=list(range(num_ranks)))
@@ -2223,6 +2337,24 @@ def solve_sharded(
         if periodic and it - last_ckpt >= checkpoint_every:
             timed_save()
             last_ckpt = it
+        if sampler is not None:
+            # positional, in the order of obs.timeseries.COLUMNS
+            now = time.perf_counter()
+            step_n = int(popped_all.sum())
+            sampler.sample(it, now - t0, step_n, step_n / max(now - t_iter, 1e-9), total0,
+                           int(rank_spill_to_host.sum()) - sp_h0, int(rank_spill_to_device.sum()) - sp_d0,
+                           best, lbf, int(res_now.sum()))
+        if rank_sampler is not None:
+            # one counter compare a dispatch, one stats row a window; every
+            # process counts the same dispatches, so all enter the gather
+            rkm = _obs_rank.RankSampler.METER_NS
+            if rkm is not None:
+                t_rk = time.perf_counter_ns()
+            rk_due = rank_sampler.due()
+            if rkm is not None:
+                rkm[0] += time.perf_counter_ns() - t_rk
+            if rk_due:
+                rank_sample(it, best)
         if total0 == 0:
             break
         if past_deadline():
@@ -2246,7 +2378,6 @@ def solve_sharded(
     least = float(ranks.all_reduce(torch.as_tensor(open_min, dtype=torch.float64), "min"))
     lb_raw = _final_lower_bound(proven, cost, bd.root_lb, [np.asarray([least])] if least < np.inf else [],
                                 overflow=overflow)
-    rank_nodes = _rank_counts(torch.from_numpy(rank_nodes), ranks)
     nodes = int(rank_nodes.sum())
     steps_run = int(ranks.all_reduce(torch.as_tensor([steps_run]), "sum"))
     # rounds are counted alike on every rank; the rest is each rank's own
@@ -2255,6 +2386,18 @@ def solve_sharded(
     spill_stats.events, spill_stats.full_merges, spill_stats.bytes_to_host, spill_stats.bytes_to_device = (
         int(x) for x in ranks.all_reduce(own, "sum").tolist())
     _obs_metrics.fold_bnb_solve(nodes, wall, spill_stats)
+    rank_series = rank_bal = None
+    if rank_sampler is not None:
+        if rank_sampler.pending():
+            # the tail: the last window's deltas reach the series even when
+            # the loop ends between sampling windows
+            rank_sample(it, last_inc)
+        rank_series = rank_sampler.series()
+        rank_bal = _obs_rank.rank_balance(
+            rank_series, rank_nodes, spill_events=rank_spill_events,
+            spill_bytes_to_host=rank_spill_to_host, spill_bytes_to_device=rank_spill_to_device,
+            reservoir=res_now, events=rank_sampler.watch.events)
+        _obs_rank.fold_rank_view(rank_bal)
     return BnBResult(
         cost=cost,
         tour=itour[0].cpu().numpy(),
@@ -2284,5 +2427,11 @@ def solve_sharded(
         checkpoint_restore_s=restore_s,
         nodes_per_rank=rank_nodes,
         balance=controller.summary(),
+        series=sampler.series() if sampler is not None else None,
+        # stall and rank-starvation verdicts on one step-ordered timeline
+        anomalies=_obs_anomaly.merge_summaries(
+            sentinel, rank_sampler.watch if rank_sampler is not None else None),
+        rank_series=rank_series,
+        rank_balance=rank_bal,
     )
 

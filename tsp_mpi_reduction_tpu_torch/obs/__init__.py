@@ -1,7 +1,6 @@
-"""Telemetry of the port: the metrics registry and span tracing.
+"""Telemetry of the port: metrics, tracing, the B&B line's series and views.
 
-Counterpart of ``tsp_mpi_reduction_tpu/obs``, as far as the B&B
-checkpoint paths and the chunked campaign need it:
+Counterpart of ``tsp_mpi_reduction_tpu/obs``:
 
 - :mod:`.metrics` — the process-global :data:`~.metrics.REGISTRY` of
   counters / gauges / histograms with labeled series, snapshot/delta
@@ -16,14 +15,27 @@ checkpoint paths and the chunked campaign need it:
 - :mod:`.slo` — per-tier latency objectives of the serve layer: the
   session verdicts (:func:`~.slo.evaluate`) and the live burn meter the
   scheduler and the ladder steer by (:class:`~.slo.BurnMeter`).
+- :mod:`.timeseries` — the B&B host loops' ring-buffered sampler, one
+  row a dispatch (nodes/s, frontier occupancy, spill bytes each way,
+  incumbent and certified floor), flushed as ``series``.
+- :mod:`.anomaly` — the sentinels that watch it: nodes/s collapse and
+  certified-LB stagnation, and per-rank starvation, fired on the health
+  block, the registry, the active span and ``anomalies``.
+- :mod:`.rankview` — the sharded search's per-rank windows
+  (``rank_series``), fed by ``parallel.reduce.make_rank_stats``, and the
+  imbalance block ``obs.rank_balance``.
+- :mod:`.costs` — the hand kernels' analytic flops, bytes and roofline
+  estimate per kernel and shape (``obs.device_costs``).
 
-Not ported yet: the time-series sampler, the stall sentinel, and the
-rank and bench-history views.
+Not ported yet: the bench-history view (``obs/bench_history.py``), whose
+only writer is the root ``bench.py`` harness.
 
 Gating: ``TSP_OBS=off`` disables the *optional-overhead* telemetry (span
-tracing). Plain registry counters stay on regardless: correctness paths
-and the stats JSON depend on them, and they cost one locked dict add per
-*event* (a save, a restore, a fault), never per expansion step.
+tracing, the sampler, the sentinels and the rank view: their result
+blocks are then None). Plain registry counters stay on regardless:
+correctness paths and the stats JSON depend on them, and they cost one
+locked dict add per *event* (a save, a restore, a fault), never per
+expansion step.
 """
 
 from __future__ import annotations
@@ -31,8 +43,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-#: env knob: "off"/"0"/"false"/"none" disables tracing (counters stay on;
-#: see module docstring)
+#: env knob: "off"/"0"/"false"/"none" disables tracing, the sampler and the
+#: rank view (counters stay on; see module docstring)
 ENV_VAR = "TSP_OBS"
 _OFF = ("off", "0", "false", "none", "disabled")
 
@@ -40,7 +52,7 @@ _override: Optional[bool] = None
 
 
 def enabled() -> bool:
-    """Is the optional-overhead telemetry (tracing) on?"""
+    """Is the optional-overhead telemetry (tracing, sampler, rank view) on?"""
     if _override is not None:
         return _override
     return os.environ.get(ENV_VAR, "on").strip().lower() not in _OFF

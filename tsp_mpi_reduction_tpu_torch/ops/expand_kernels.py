@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels import _build
+from ..obs import costs as _costs
 
 #: city ids packed per int32 path word (``branch_bound.PATH_PACK``)
 PATH_PACK = 4
@@ -232,4 +233,20 @@ def push_rows(nodes: torch.Tensor, parents: torch.Tensor, dest: torch.Tensor,
             msg = lib.push_error_string(code).decode()
             raise RuntimeError(f"push_rows: CUDA error {code}: {msg}")
         LAUNCHES["push_rows"] += 1
+        key = (f"F{nodes.shape[0]}", f"k{k}", f"n{n}")
+        _costs.record_launch("push_rows", key, lambda: _launch_costs(nodes, dest, n), nodes.device)
     return nodes
+
+
+def _launch_costs(nodes: torch.Tensor, dest: torch.Tensor, n: int) -> dict:
+    """The raw ``obs.costs`` record of one ``push_rows`` launch (the pushed
+    children counted from ``dest``)."""
+    f_rows, cols = nodes.shape
+    k = dest.shape[0]
+    n_push = int(((dest >= 0) & (dest < f_rows)).sum())
+    nbytes, ops = _costs.push_rows_counts(k, n, cols, n_push)
+    buf = 4 * f_rows * cols  # updated in place: an argument and the output
+    return {"flops": ops, "bytes_accessed": nbytes,
+            "argument_bytes": buf + 4 * k * cols + 4 * 4 * k * n, "output_bytes": buf,
+            "alias_bytes": buf, "dtype": "int32",
+            "shape": {"rows": f_rows, "cols": cols, "k": k, "n": n, "n_push": n_push}}

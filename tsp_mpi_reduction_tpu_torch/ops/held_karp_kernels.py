@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from ..kernels import _build
+from ..obs import costs as _costs
 
 MAX_M = 17  # n - 1 for MAX_BLOCK_CITIES = 18; the kernels' register arrays
 _MAX_GRID_Y = 65535  # blocks ride gridDim.y
@@ -90,7 +91,18 @@ def relax_minplus(g: torch.Tensor, d_t: torch.Tensor) -> Tuple[torch.Tensor, tor
         )
         _build.check(code, "relax_minplus")
         LAUNCHES["relax_minplus"] += 1
+        dt = str(g.dtype).removeprefix("torch.")
+        _costs.record_launch("relax_minplus", (f"B{b}", f"J{j}", f"M{m}", dt),
+                             lambda: _minplus_costs(b, j, m, g.element_size(), dt), g.device)
     return cost, parent
+
+
+def _minplus_costs(b: int, j: int, m: int, elt: int, dt: str) -> dict:
+    """The raw ``obs.costs`` record of one ``relax_minplus`` launch."""
+    nbytes, ops = _costs.relax_minplus_counts(b, j, m, elt)
+    return {"flops": ops, "bytes_accessed": nbytes,
+            "argument_bytes": elt * b * (j * m + m * m), "output_bytes": (elt + 4) * b * j * m,
+            "dtype": dt, "shape": {"B": b, "J": j, "M": m}}
 
 
 #: the relax_minplus kernel's schedule: at most 256 threads a block, P =
@@ -330,4 +342,17 @@ def relax_dense_sweep(cost: torch.Tensor, d_sub: torch.Tensor) -> torch.Tensor:
         )
         _build.check(code, "relax_dense_sweep")
         LAUNCHES["relax_dense"] += 1
+    dt = str(cost.dtype).removeprefix("torch.")
+    _costs.record_launch("relax_dense_sweep", (f"B{b}", f"m{m}", dt),
+                         lambda: _sweep_costs(b, m, cost.element_size(), dt), cost.device)
     return cost
+
+
+def _sweep_costs(b: int, m: int, elt: int, dt: str) -> dict:
+    """The raw ``obs.costs`` record of one whole sweep (its h + 1
+    launches; the table is updated in place)."""
+    nbytes, ops = _costs.relax_dense_counts(b, m, elt)
+    table = elt * b * m * (1 << m)
+    return {"flops": ops, "bytes_accessed": nbytes, "argument_bytes": table + elt * b * m * m,
+            "output_bytes": table, "alias_bytes": table, "dtype": dt,
+            "shape": {"B": b, "m": m, "launches": sweep_launches(m)}}

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..analysis import contracts
 from .distance import edge_length
 
 
@@ -88,6 +89,8 @@ def merge_tours(t1: PaddedTour, t2: PaddedTour, dist: torch.Tensor) -> PaddedTou
     The caller guarantees ``t1.length + t2.length - 1 <= P1`` and that both
     tours hold >= 3 cities (2-city tours hang the reference, quirk #6).
     """
+    contracts.check_padded_tour(t1, where="merge_tours.t1")
+    contracts.check_padded_tour(t2, where="merge_tours.t2")
     a, b, r1, r2 = _tour_edges(t1, t2)
     # swapPairCost (tsp.cpp:197-200) in its order of additions:
     # ((d(a, r2) + d(b, r1)) - d(a, b)) - d(r1, r2)
@@ -170,7 +173,8 @@ def make_padded(ids, length, cost, capacity: int, device=None) -> PaddedTour:
     buf = torch.nn.functional.pad(ids, (0, pad))
     length = torch.as_tensor(length, device=dev).to(torch.int32)
     buf = torch.where(torch.arange(capacity, device=dev) < length, buf, 0).to(torch.int32)
-    return PaddedTour(buf, length, torch.as_tensor(cost, device=dev))
+    return contracts.check_padded_tour(PaddedTour(buf, length, torch.as_tensor(cost, device=dev)),
+                                       capacity=capacity, where="make_padded")
 
 
 def fold_tours(

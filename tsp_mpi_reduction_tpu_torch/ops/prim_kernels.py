@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import _build
+from ..obs import costs as _costs
 
 MAX_N = 200  # MAX_BNB_CITIES: at most 7 cities per thread of a warp
 
@@ -175,4 +176,16 @@ def prim_chain(
             msg = lib.prim_error_string(code).decode()
             raise RuntimeError(f"prim_chain: CUDA error {code}: {msg}")
         LAUNCHES["prim_chain"] += 1
+        key = (f"k{k}", f"n{n}") + (() if lam is None else ("lam",))
+        _costs.record_launch("prim_chain", key, lambda: _launch_costs(unvis, n, lam), unvis.device)
     return tot, deg
+
+
+def _launch_costs(unvis: torch.Tensor, n: int, lam: Optional[torch.Tensor]) -> dict:
+    """The raw ``obs.costs`` record of one ``prim_chain`` launch."""
+    k = unvis.shape[0]
+    nbytes, ops = _costs.prim_chain_counts(unvis, lam is not None)
+    return {"flops": ops, "bytes_accessed": nbytes,
+            "argument_bytes": 4 * n * n + k * n + (0 if lam is None else 4 * k * n),
+            "output_bytes": 4 * k + 4 * k * n, "dtype": "float32",
+            "shape": {"k": k, "n": n, "lam": lam is not None}}

@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from ..analysis import contracts
 from ..ops.merge import PaddedTour, merge_tours
 
 
@@ -137,7 +138,10 @@ def tree_reduce_single_device(
     """
     pk, l = tours.shape
     if pk % num_ranks:
+        # a hard precondition of the slicing below, not an optional
+        # contract: it holds under TSP_CONTRACTS=off too
         raise ValueError(f"{pk} block slots not divisible by {num_ranks} ranks")
+    _check_reduce_inputs(tours, costs, valid, dist, capacity, num_ranks)
     if capacity < l:
         raise ValueError(f"capacity {capacity} below block tour length {l}")
     k = pk // num_ranks
@@ -191,6 +195,7 @@ def reduce_tours_on_mesh(ranks, tours: torch.Tensor, costs: torch.Tensor, valid:
     :func:`tree_reduce_single_device` gives for the same rank count.
     """
     num_ranks, local = ranks.num_ranks, ranks.local
+    _check_reduce_inputs(tours, costs, valid, dist, capacity, local)
     lk, l = tours.shape
     if lk % local or costs.shape != (lk,) or valid.shape != (lk,):
         raise ValueError(f"reduce: tours {tuple(tours.shape)}, costs {tuple(costs.shape)} and valid "
@@ -209,6 +214,29 @@ def reduce_tours_on_mesh(ranks, tours: torch.Tensor, costs: torch.Tensor, valid:
         folds = [_combine(folds[j], PaddedTour(*(x[j] for x in recv)), dist) if r in dsts else folds[j]
                  for j, r in enumerate(ranks.ids)]
     return folds[0].ids, folds[0].length, folds[0].cost
+
+
+def _check_reduce_inputs(tours, costs, valid, dist, capacity: int, num_ranks: int) -> None:
+    """Boundary contract of the reductions (``reduce.py:186-217``): the
+    slot layout below is silent corruption when violated (rows land on the
+    wrong rank; a short capacity truncates the splice). Metadata only."""
+    if contracts.level() == "off":
+        return
+    if tours.ndim != 2:
+        raise contracts.ContractError(f"reduce: tours must be [P*K, L] block tours, got {tuple(tours.shape)}")
+    pk, l = tours.shape
+    if tuple(costs.shape) != (pk,) or tuple(valid.shape) != (pk,):
+        raise contracts.ContractError(
+            f"reduce: costs {tuple(costs.shape)} / valid {tuple(valid.shape)} must both be [{pk}] to "
+            f"match the {pk} block rows")
+    if pk % num_ranks:
+        raise contracts.ContractError(f"reduce: {pk} block rows not divisible by {num_ranks} ranks")
+    if dist.ndim != 2 or dist.shape[0] != dist.shape[1]:
+        raise contracts.ContractError(f"reduce: dist must be a square [N, N] matrix, got {tuple(dist.shape)}")
+    if valid.dtype != torch.bool:
+        raise contracts.ContractError(f"reduce: valid must be bool, got {valid.dtype}")
+    if capacity < l:
+        raise contracts.ContractError(f"reduce: capacity {capacity} below block tour length {l}")
 
 
 def rank_block_counts(num_blocks: int, num_ranks: int) -> list[int]:
@@ -269,3 +297,24 @@ def rank_alive_counts(nodes: torch.Tensor, counts: torch.Tensor, inc, integral: 
     [R]`` int32."""
     alive, _ = _rank_alive(nodes, counts, inc, integral)
     return alive.sum(dim=1, dtype=torch.int32)
+
+
+#: column order of the ``[R, K]`` row :func:`make_rank_stats` returns
+#: (``reduce.py:337``), shared with ``obs.rankview.RankSampler``
+RANK_STAT_COLUMNS = ("count", "alive", "best_bound")
+
+
+def make_rank_stats(nodes: torch.Tensor, counts: torch.Tensor, inc, integral: bool = False) -> torch.Tensor:
+    """Each rank's frontier stats as one ``[R, K]`` float32 row
+    (``make_rank_stats``, ``reduce.py:340-393``): the rows it holds
+    (``count``), how many of those the incumbent has not closed (``alive``)
+    and its best open bound (``best_bound``, +inf for a rank with no open
+    row), K = ``len(RANK_STAT_COLUMNS)``. ``(nodes [R, F, C] packed rows,
+    counts [R], inc) -> [R, 3]``; the bound column is read as the float32
+    bits of column ``C - 2`` and the alive predicate is the integral one
+    (``bound <= inc - 1``) or the float one. The caller reads the small
+    row back once, never the buffer; over a rank-process group each
+    process computes its own ranks' rows and gathers them."""
+    alive, b = _rank_alive(nodes, counts, inc, integral)
+    return torch.stack([counts.to(torch.float32), alive.sum(dim=1).to(torch.float32),
+                        torch.where(alive, b, float("inf")).amin(dim=1)], dim=1)

@@ -24,9 +24,11 @@ embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
 computes (the host reservoir's ``spill_*`` counters, the ``health``
 block, and a ``compile_cache`` block that holds the root-ascent memo's
-``ascent_memo_hits``/``ascent_memo_misses``), ``null`` for the telemetry
-blocks it does not port yet,
-the resolved ``mst_kernel``, ``step_kernel`` and ``device_loop``, the
+``ascent_memo_hits``/``ascent_memo_misses``), the telemetry blocks
+(``series``, ``anomalies``, ``rank_series``, ``obs.rank_balance``, and
+``obs.device_costs``, the kernels' analytic roofline records; ``null``
+blocks under ``TSP_OBS=off`` or where a single-device solve has no rank
+view), the resolved ``mst_kernel``, ``step_kernel`` and ``device_loop``, the
 launches of the ``prim_chain`` and ``push_rows`` kernels in the solve, and
 the host seconds of the snapshot's saves and restore. On a GPU the
 defaults run the device loop with both kernels. ``--backend=auto`` and
@@ -52,9 +54,10 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
                    ckpt_bytes: Optional[int], memo: dict, trace_path: Optional[str] = None) -> dict:
     """The one-line JSON payload (schema of the JAX driver's
     ``result_payload`` plus the port's own keys). ``obs`` holds the port's
-    ``obs_block`` (the JAX block's XLA compile phases and cost analyses
-    have no counterpart here), ``rank_balance`` (not ported yet: null) and
-    the balance controller's summary (sharded solves)."""
+    ``obs_block`` (with ``device_costs``; the JAX block's XLA compile
+    phases have no counterpart here), the rank imbalance accounting
+    (``rank_balance``) and the balance controller's summary (both for
+    sharded solves)."""
     from ..utils import reporting
 
     opt = inst.known_optimum
@@ -100,10 +103,13 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
         "spill_bytes_to_device": res.spill_bytes_to_device,
         "health": health,
         "compile_cache": memo,
-        "series": None,
-        "anomalies": None,
-        "rank_series": None,
-        "obs": {**reporting.obs_block(trace_path=trace_path), "rank_balance": None,
+        # one row a host-loop dispatch (obs.timeseries), the sentinels'
+        # verdicts (obs.anomaly) and the per-rank windows (obs.rankview);
+        # null under TSP_OBS=off, rank_series also for a single device
+        "series": res.series,
+        "anomalies": res.anomalies,
+        "rank_series": res.rank_series,
+        "obs": {**reporting.obs_block(trace_path=trace_path), "rank_balance": res.rank_balance,
                 "balance": res.balance},
         "iterations": res.iterations,
         "steps_run": res.steps_run,

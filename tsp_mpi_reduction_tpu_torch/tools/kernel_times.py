@@ -27,9 +27,11 @@ Needs one CUDA device. It measures, and prints as one JSON line:
 Every recorded or rebuilt input is checked bit for bit against the plain
 versions. The functions are shared with ``chip_smoke.py``. The module
 measures whatever ``tsp_mpi_reduction_tpu_torch`` it imports, so a copy
-dropped into an older checkout of the port times that checkout's kernels
-(the per-level ``relax_dense`` before ``relax_dense_sweep``): that is how
-two trees are compared within one call on one card.
+dropped into an older checkout of the port (with ``obs/costs.py``, which
+holds the counts and the peak row, where that checkout lacks it) times
+that checkout's kernels (the per-level ``relax_dense`` before
+``relax_dense_sweep``): that is how two trees are compared within one
+call on one card.
 """
 
 from __future__ import annotations
@@ -45,10 +47,11 @@ from typing import Callable, List, Optional
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and the
-# non-tensor-core float32 / float64 rates
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# the H100 SXM data-sheet peak row, the bound formula and the kernels'
+# byte and operation counts live in obs/costs.py, which the kernel
+# wrappers' roofline records (obs.device_costs) read as well
+from tsp_mpi_reduction_tpu_torch.obs import costs
+from tsp_mpi_reduction_tpu_torch.obs.costs import bound_ms
 
 EIL51_ARGV = ["eil51", "--backend=cuda", "--k=1024", "--capacity=262144"]
 KRO_ARGV = ["kroA100", "--backend=cuda", "--k=1024", "--capacity=524288", "--node-ascent=6",
@@ -90,14 +93,6 @@ def graph_ms(fn: Callable[[], object], reps: int) -> float:
         fn()
     graph.replay()
     return cuda_ms(graph.replay, reps)
-
-
-def bound_ms(nbytes: float, ops: float, dtype_name: str):
-    """The least time for the work: bytes over HBM bandwidth or operations
-    over the peak rate, whichever is larger, and which one it is."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 @contextlib.contextmanager
@@ -170,18 +165,6 @@ def synthetic_prim_calls(k: int = 1024):
     return [(bd.dbar, unvis, n, None), (bd.dbar, unvis, n, lam), (bd.dbar, unvis, n, lam)]
 
 
-def prim_bound(unvis, has_lam: bool):
-    """Bytes and operations one Prim-chain launch needs on these lanes:
-    unvis (1 B), lam (4 B, when given) and dbar read once, tot and deg
-    written once; per lane |U|-1 steps over |U| cities, each city one
-    argmin compare, one relaxation compare and, with lam, two adds."""
-    k, n = unvis.shape
-    u = unvis.sum(dim=1).double()
-    nbytes = k * n * (1 + 4 + (4 if has_lam else 0)) + 4 * n * n + 4 * k
-    ops = float(((u - 1.0).clamp(min=0.0) * u).sum()) * (2 + (2 if has_lam else 0))
-    return nbytes, ops
-
-
 def prim_check(calls) -> int:
     """Hold the kernel against the plain chain on every recorded launch,
     bit for bit (``tot`` as int32 bits, ``deg`` exactly); the plain chain
@@ -231,7 +214,7 @@ def time_prim(calls, what: str, reps: int = 5, plain_sample: int = 12) -> dict:
     eager = cuda_ms(kernel_all, reps) / len(calls)
     device = graph_ms(kernel_all, reps) / len(calls)
     plain = cuda_ms(plain_some, 1) / len(sample)
-    bounds = [prim_bound(c[1], c[3] is not None) for c in calls]
+    bounds = [costs.prim_chain_counts(c[1], c[3] is not None) for c in calls]
     b_ms, b_by = bound_ms(sum(b for b, _ in bounds) / len(calls), sum(o for _, o in bounds) / len(calls),
                           "float32")
     steps = [int((c[1].sum(dim=1).max() - 1).clamp(min=0)) for c in calls]
@@ -243,15 +226,12 @@ def time_prim(calls, what: str, reps: int = 5, plain_sample: int = 12) -> dict:
 
 
 def push_bound(calls, k: int, n: int):
-    """Bytes and operations one ``push_rows`` launch needs, averaged over
-    the recorded steps: the k parent rows and ``dest`` [k, n] read once,
-    the three float columns read only at the n_push pushed children (4 B
-    each, not charged per 32 B sector), the n_push pushed rows written
-    once; one operation per written word. Returns (bytes, ops, n_push)."""
+    """Bytes and operations one ``push_rows`` launch needs
+    (``obs.costs.push_rows_counts``) at the mean n_push of the recorded
+    steps. Returns (bytes, ops, n_push)."""
     cols = calls[0][1].shape[1]
     n_push = sum(int(((c[2] >= 0) & (c[2] < c[0][0])).sum()) for c in calls) / len(calls)
-    nbytes = 4 * (k * cols + k * n) + 4 * 3 * n_push + 4 * n_push * cols
-    return nbytes, n_push * cols, n_push
+    return (*costs.push_rows_counts(k, n, cols, n_push), n_push)
 
 
 def push_stats(calls) -> dict:
@@ -332,14 +312,6 @@ def time_push(calls, n: int, what: str, reps: int = 5) -> dict:
             "floor_ms": push_floor_ms(k, n, reps, len(calls)), **push_stats(calls)}
 
 
-def minplus_bound(bsz: int, j: int, m: int, elt: int):
-    """Bytes and operations of one compact step: g, d_t in; cost, int32
-    parent out; M adds and M-1 compares per output."""
-    nbytes = bsz * (elt * (2 * j * m + m * m) + 4 * j * m)
-    ops = bsz * j * m * (2 * m - 1)
-    return nbytes, ops
-
-
 def minplus_inputs(tab, d_sub):
     """The compact step inputs ``g`` of every step of the ``--impl=pallas``
     solve (m - 1 of them, each padded to the widest cardinality), rebuilt
@@ -383,20 +355,10 @@ def time_minplus(gs, d_t, reps: int = 5) -> dict:
     device = graph_ms(minplus_all, reps) / len(gs)
     bsz, j, m = gs[0].shape
     dt_name = str(gs[0].dtype).removeprefix("torch.")
-    b_ms, b_by = bound_ms(*minplus_bound(bsz, j, m, gs[0].element_size()), dt_name)
+    b_ms, b_by = bound_ms(*costs.relax_minplus_counts(bsz, j, m, gs[0].element_size()), dt_name)
     return {"what": f"relax_minplus m={m} J={j} B={bsz} {dt_name}", "launches": len(gs), "ms": eager,
             "device_ms": device, "plain_ms": sum(plain) / len(plain), "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": 0.0}
-
-
-def dense_bound(bsz: int, m: int, elt: int):
-    """Bytes and operations of the whole dense DP: every computed state
-    (popcount 1..m-1, endpoint outside the mask) written once, the init row
-    and ``d_sub`` read once; c adds and c-1 mins per state of popcount c."""
-    states = sum(math.comb(m, c) * (m - c) for c in range(1, m))
-    nbytes = bsz * elt * (states + m + m * m)
-    ops = bsz * sum(math.comb(m, c) * (m - c) * (2 * c - 1) for c in range(1, m))
-    return nbytes, ops
 
 
 def dense_inputs(n: int, nb: int, grid: int, dtype=torch.float32):
@@ -451,7 +413,7 @@ def time_dense(d_sub, tab, reps: int = 5) -> dict:
     eager = cuda_ms(solve, reps)
     device = graph_ms(solve, reps)
     dt_name = str(tab.dtype).removeprefix("torch.")
-    b_ms, b_by = bound_ms(*dense_bound(bsz, m, tab.element_size()), dt_name)
+    b_ms, b_by = bound_ms(*costs.relax_dense_counts(bsz, m, tab.element_size()), dt_name)
     return {"what": f"relax_dense m={m} B={bsz} {dt_name}", "launches_per_solve": launches,
             "ms_per_solve": eager, "device_ms_per_solve": device, "plain_ms_per_solve": plain,
             "bound_ms_per_solve": b_ms, "bound_by": b_by, "max_abs_err": 0.0}

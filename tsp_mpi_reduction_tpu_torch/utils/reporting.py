@@ -75,14 +75,17 @@ def obs_block(
     trace_path: Optional[str] = None,
     metrics_port: Optional[int] = None,
 ) -> Dict:
-    """The ``obs`` sub-block of the serve stats JSON: whether the
-    optional-overhead telemetry is on, where spans go, and the bound
-    metrics port. The JAX package's block also carries XLA compile phases
-    and XLA cost analyses; the port compiles no XLA, so those keys are
-    absent."""
+    """The ``obs`` sub-block of the driver and serve stats JSON: whether
+    the optional-overhead telemetry is on, where spans go, the bound
+    metrics port, and ``device_costs``: the hand kernels' analytic cost
+    and roofline records (``obs.costs``), one per kernel and shape
+    launched in this process. The JAX block also carries XLA compile
+    phases; the port compiles no XLA, so that key is absent."""
+    from ..obs import costs as obs_costs
     from ..obs import enabled as obs_enabled
 
-    return {"enabled": obs_enabled(), "trace": trace_path, "metrics_port": metrics_port}
+    return {"enabled": obs_enabled(), "trace": trace_path, "metrics_port": metrics_port,
+            "device_costs": obs_costs.device_costs_block()}
 
 
 def service_stats_json(
