@@ -185,6 +185,23 @@ Phases, each printing its own line; any failure exits non-zero:
     (``RankSampler.METER_NS``) against the search; the 4-rank
     spill-forcing solve's per-rank spill attribution is nonzero and adds
     up to the aggregate counters on both transports.
+19. the static lint and the card's own account of its host syncs:
+    ``python -m tsp_mpi_reduction_tpu_torch.analysis --json --sarif
+    build/lint.sarif`` in a fresh process on this tree exits 0 (per-rule
+    new/baselined/waived counts and the pass's wall time beside the host's
+    CPU; the SARIF parses and says 2.1.0) and importing its CLI loads
+    neither torch nor jax nor the JAX package; then, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (reset in a ``finally``),
+    the full-size pipeline once (phase 4's size, float32: its 7
+    ``relax_dense`` launches and the merge fold), eil51 through the
+    default CLI (the device loop) and eil51 under ``--device-loop=off``
+    (host-loop dispatches): every warning is attributed to its innermost
+    frame in the port, the syncs a fold and a B&B step print with the
+    distinct sites, and every site in a lexically hot context (a loop body
+    or a hot function, by the lint's own rules) must be a lint finding
+    (new, baselined or waived inline); the sites outside hot contexts
+    print, and so does whether ``ops/merge.py``'s ``inf`` fill is one.
+    Phase 12's sweep must print the gate's pass line.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
@@ -365,7 +382,7 @@ def max_abs_err(a, b) -> float:
     fa, fb = torch.isfinite(a), torch.isfinite(b)
     if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
         return math.inf
-    if not fa.any():
+    if not bool(fa.any()):
         return 0.0
     return float((a[fa].double() - b[fb].double()).abs().max())
 
@@ -401,7 +418,7 @@ def phase_build():
     return smi
 
 
-def phase_kernel_parity(errs):
+def phase_kernel_parity(errs):  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R2
     import numpy as np
     import torch
 
@@ -482,7 +499,7 @@ def phase_kernel_parity(errs):
     print(f"phase 2 kernel parity: {checked} exact comparisons, argmin/argmax first-index on ties")
 
 
-def phase_oracle():
+def phase_oracle():  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R1,R2
     import numpy as np
     import torch
 
@@ -967,7 +984,7 @@ def phase_bnb_full(smi, errs):
 SPECIAL_BITS = (0x7FC00000, 0x7FC00123, 0x80000000, 0x7F800000, 0xFF800000)
 
 
-def push_inputs(n: int, k: int, case: str, seed: int):
+def push_inputs(n: int, k: int, case: str, seed: int):  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R2
     """A frontier buffer, k parent rows, dest and the float columns on the
     card from a numpy seed: nothing, some (in random order, some parked at
     -1 or past F), everything pushed (then ending at row F-1), or parent 0
@@ -1266,7 +1283,7 @@ def cli_line(argv):
     return rc, lines[-1] if lines else "", time.perf_counter() - t0
 
 
-def first_tree_difference(tours, costs, dist, xy):
+def first_tree_difference(tours, costs, dist, xy):  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R1
     """The first (round, pair) where the coordinate merge and the gather
     merge of the tree fold disagree, with both results."""
     import torch
@@ -1296,7 +1313,7 @@ def first_tree_difference(tours, costs, dist, xy):
     return "no merge differs"
 
 
-def phase_pipeline_options(smi, full_phases):
+def phase_pipeline_options(smi, full_phases):  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R2
     import numpy as np
     import torch
 
@@ -1383,11 +1400,15 @@ def phase_pipeline_options(smi, full_phases):
     out = OPTIONS_DIR / "sweep_quick.csv"
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    err = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         rc = sweep.main(["--quick", f"--out={out}", "--force"])
     lines = out.read_text().splitlines()
     require(rc == 0 and lines[0] == "numCities,numBlocks,numProcs,time,cost" and len(lines) == 9,
             f"quick sweep: exit {rc}, {len(lines)} lines")
+    gate = [ln for ln in err.getvalue().splitlines() if ln.startswith("graftlint: 0 new,")]
+    require(len(gate) == 1, f"quick sweep: no lint gate pass line in {err.getvalue()!r}")
+    print(f"phase 12 sweep's lint gate: {gate[0]}")
     print(f"phase 12 quick sweep: 8 rows in {time.perf_counter() - t0:.2f} s: " + " | ".join(lines[1:]))
     print(f"phase 12 card: {smi}")
 
@@ -2820,6 +2841,228 @@ def phase_telemetry(smi):
     torch.cuda.synchronize()
 
 
+LINT_SARIF = ROOT / "build" / "lint.sarif"
+SYNC_TEXT = "synchronizing CUDA operation"
+PORT_DIR = ROOT / "tsp_mpi_reduction_tpu_torch"
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``), its
+    architecture and this process's core count."""
+    import os
+    import platform
+
+    name = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.strip().lower().startswith("model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if name is None:
+        try:
+            name = next((ln.split(":", 1)[1].strip() for ln in
+                         pathlib.Path("/proc/cpuinfo").read_text().splitlines()
+                         if ln.lower().startswith("model name")), None)
+        except OSError:
+            pass
+    return f"{name or 'CPU model not reported'} ({platform.machine()}, {os.cpu_count()} cores)"
+
+
+def statement_span(source: str, line: int):
+    """The lines of the innermost statement holding ``line``: a simple
+    statement whole, a compound one its header only (``if``/``while``
+    test lines, not the body)."""
+    import ast
+
+    best = None
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.stmt) and node.lineno <= line <= node.end_lineno:
+            if best is None or node.lineno >= best.lineno and node.end_lineno <= best.end_lineno:
+                best = node
+    if best is None:
+        return range(line, line + 1)
+    body = getattr(best, "body", None)
+    end = best.end_lineno
+    if isinstance(body, list) and body and isinstance(body[0], ast.stmt):
+        end = body[0].lineno - 1
+        if isinstance(best, ast.If) and best.orelse and line >= best.orelse[0].lineno:
+            return range(line, line + 1)
+    return range(best.lineno, max(end, best.lineno) + 1)
+
+
+def capture_syncs(fn, marks=()):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` with
+    every warning recorded. Returns ``(fn's result, sites, marked,
+    at_warning)``: ``sites`` counts each sync by its innermost frame under
+    the port package (``path:line``), ``marked[name]`` the syncs whose
+    stack passes through a port function of that name, ``at_warning`` how
+    many warnings' own filename/lineno named the same port line."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+    marked = collections.Counter()
+    at_warning = [0, 0]
+    prefix = str(PORT_DIR) + "/"
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_TEXT not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if f.filename.startswith(prefix)]
+        if port:
+            inner = port[-1]
+            key = f"{pathlib.Path(inner.filename).relative_to(ROOT).as_posix()}:{inner.lineno}"
+            at_warning[0] += 1
+            at_warning[1] += int(filename == inner.filename and lineno == inner.lineno)
+        else:
+            key = f"<outside the port> {filename}:{lineno}"
+        sites[key] += 1
+        names = {f.name for f in port}
+        for m in marks:
+            if m in names:
+                marked[m] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sites, marked, at_warning
+
+
+def phase_lint(smi):
+    """Phase 19: the lint CLI on this tree, then the card's sync reports
+    held against the lint's findings."""
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.analysis import graftlint
+    from tsp_mpi_reduction_tpu_torch.analysis.__main__ import _DEFAULT_TARGETS, run_analyses
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
+    from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+
+    # --- the CLI in a fresh process, and what importing it loads
+    LINT_SARIF.parent.mkdir(parents=True, exist_ok=True)
+    LINT_SARIF.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.analysis", "--json",
+                           "--sarif", str(LINT_SARIF)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"lint CLI exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    sarif = json.loads(LINT_SARIF.read_text())
+    require(sarif.get("version") == "2.1.0" and len(sarif.get("runs", [])) == 1,
+            f"SARIF: version {sarif.get('version')!r}, {len(sarif.get('runs', []))} runs")
+    probe = subprocess.run([sys.executable, "-c", "import sys, json; "
+                            "import tsp_mpi_reduction_tpu_torch.analysis.__main__; "
+                            "print(json.dumps(sorted(m for m in ('torch', 'jax', 'tsp_mpi_reduction_tpu') "
+                            "if m in sys.modules)))"], cwd=ROOT, capture_output=True, text=True,
+                           timeout=120)
+    loaded = json.loads(probe.stdout.strip().splitlines()[-1]) if probe.returncode == 0 else None
+    require(loaded == [], f"importing the lint CLI loaded {loaded} (exit {probe.returncode}: {probe.stderr[-500:]})")
+    per_rule = " ".join(f"{r} {c['new']}/{c['baselined']}/{c['waived']}"
+                        for r, c in sorted(rep["per_rule"].items(), key=lambda kv: int(kv[0][1:])))
+    print(f"phase 19 lint CLI: exit 0, {rep['new']} new, {rep['baselined']} baselined, stale "
+          f"{len(rep['stale'])}, dead {len(rep['dead'])}; per rule new/baselined/waived: {per_rule}")
+    print(f"phase 19 lint CLI wall {wall:.3f} s (both passes, the process's start included) on "
+          f"{host_cpu()}; SARIF {sarif['version']} with {len(sarif['runs'][0]['results'])} results; "
+          "the CLI's import loads no torch, jax or tsp_mpi_reduction_tpu")
+
+    # --- the lint's findings (new, baselined and waived) and its hot lines
+    waived = []
+    findings = run_analyses([p for p in _DEFAULT_TARGETS if p.exists()], set(graftlint.RULES) | {
+        "R9", "R10", "R11", "R12"}, waived)
+    found = {}
+    for v in findings + waived:
+        found.setdefault(v.path, []).append(v)
+    sources, hot = {}, {}
+
+    def judge(site):
+        path, _, line = site.rpartition(":")
+        line = int(line)
+        if path not in sources:
+            sources[path] = (ROOT / path).read_text()
+            hot[path] = graftlint.hot_lines(sources[path])
+        span = statement_span(sources[path], line)
+        hits = [f"{v.rule}{' (waived)' if v in waived else ''}" for v in found.get(path, ())
+                if v.line in span]
+        return line in hot[path], hits
+
+    # --- the three runs under the card's sync reports
+    n, nb = N_FULL, B_FULL
+    hkk.reset_launches()
+    res, fold_sites, fold_marked, fold_attr = capture_syncs(
+        lambda: run_pipeline(n, nb, GRID_FULL, GRID_FULL, dtype=torch.float32, device=torch.device("cuda")),
+        marks=("fold_tours",))
+    launches = dict(hkk.LAUNCHES)
+    require(launches["relax_dense"] == hkk.sweep_launches(n - 1),
+            f"phase 19 pipeline launched relax_dense {launches['relax_dense']} times")
+    require(math.isfinite(res.cost) and res.num_cities == n * nb, f"phase 19 pipeline: {res.cost}, {res.num_cities}")
+    argv = ["eil51", "--backend=cuda", "--k=1024", "--capacity=262144"]
+    dev_out, dev_sites, dev_marked, dev_attr = capture_syncs(
+        lambda: run_bnb_cli(argv), marks=("_guarded_expand_steps", "_expand_loop", "solve"))
+    host_out, host_sites, host_marked, host_attr = capture_syncs(
+        lambda: run_bnb_cli(argv + ["--device-loop=off"]), marks=("_guarded_expand_steps", "_expand_loop", "solve"))
+    for what, out in (("device loop", dev_out), ("host loop", host_out)):
+        require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST,
+                f"phase 19 eil51 ({what}): {out.get('cost')} proven {out.get('proven_optimal')}")
+    require(dev_out["device_loop"] and not host_out["device_loop"],
+            f"phase 19: device_loop {dev_out['device_loop']} / {host_out['device_loop']}")
+    fold_syncs = fold_marked["fold_tours"]
+    print(f"phase 19 pipeline ({n} {nb} {GRID_FULL} {GRID_FULL}, float32): {sum(fold_sites.values())} syncs, "
+          f"{fold_syncs} of them in the merge fold ({nb - 1} merges: {fold_syncs / (nb - 1):.3f} a merge); "
+          f"launches {launches}; cost {res.cost:f}")
+    for what, out, sites, marked in (("device loop", dev_out, dev_sites, dev_marked),
+                                     ("host loop", host_out, host_sites, host_marked)):
+        steps = out["iterations"]
+        search = marked["_guarded_expand_steps"] + marked["_expand_loop"]
+        print(f"phase 19 eil51 {what}: {out['nodes_expanded']} nodes in {steps} steps; "
+              f"{sum(sites.values())} syncs, {marked['solve']} in solve(), {search} in its step loop: "
+              f"{search / max(steps, 1):.3f} a step")
+    attributed = fold_attr[0] + dev_attr[0] + host_attr[0]
+    same = fold_attr[1] + dev_attr[1] + host_attr[1]
+    print(f"phase 19 attribution: {same} of {attributed} port-attributed warnings carried the port line "
+          "itself as their filename/lineno (the rest: a torch frame above it)")
+
+    all_sites = {}
+    for tag, sites in (("fold", fold_sites), ("eil51-device", dev_sites), ("eil51-host", host_sites)):
+        for site, c in sites.items():
+            all_sites.setdefault(site, {})[tag] = c
+    misses, cold = [], []
+    merge_src = (PORT_DIR / "ops" / "merge.py").read_text().splitlines()
+    inf_line = next(i + 1 for i, ln in enumerate(merge_src) if 'torch.tensor(float("inf")' in ln)
+    inf_site = f"tsp_mpi_reduction_tpu_torch/ops/merge.py:{inf_line}"
+    for site in sorted(all_sites):
+        counts = ", ".join(f"{k} {v}" for k, v in sorted(all_sites[site].items()))
+        if site.startswith("<outside"):
+            cold.append(site)
+            print(f"phase 19 sync site {site} [{counts}]: outside the port")
+            continue
+        is_hot, hits = judge(site)
+        tag = "hot" if is_hot else "cold"
+        code = (ROOT / site.rpartition(":")[0]).read_text().splitlines()[int(site.rpartition(":")[2]) - 1].strip()
+        print(f"phase 19 sync site {site} [{counts}] {tag}, lint: {', '.join(hits) or 'none'}: {code[:100]}")
+        if is_hot and not hits:
+            misses.append(site)
+        elif not is_hot:
+            cold.append(site)
+    print(f"phase 19 {len(all_sites)} distinct sync sites: {len(all_sites) - len(cold)} in hot contexts, all "
+          f"lint findings: {not misses}; {len(cold)} outside hot contexts")
+    print(f"phase 19 the card reports {inf_site} (the merge's inf fill) as a sync: {inf_site in all_sites}")
+    print(f"phase 19 card: {smi}")
+    require(not misses, f"sync sites in hot contexts that the lint does not name: {misses}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2830,7 +3073,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-18) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-19) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -2897,6 +3140,8 @@ def main(argv=None) -> int:
                 k["launches_procs"] = procs_launches[k["name"]]
         if want(18):
             phase_telemetry(smi)
+        if want(19):
+            phase_lint(smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

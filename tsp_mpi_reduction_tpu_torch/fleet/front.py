@@ -679,7 +679,7 @@ def fleet_cli(argv: Optional[List[str]] = None) -> int:
                 if args.outp == "-"
                 # a live JSONL response stream, flushed per line — atomic
                 # publish would defeat it (same waiver as serve_cli)
-                else stack.enter_context(open(args.outp, "w"))
+                else stack.enter_context(open(args.outp, "w"))  # graftlint: disable=R6
             )
             try:
                 run_jsonl(inp, outp, service=front)

@@ -964,6 +964,7 @@ def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
             fr, inc_cost, inc_tour, take = _expand_step(fr, inc_cost, inc_tour, d, bd, k, n, **step_kw)
         popped = popped + take
         steps += 1
+    # one read a dispatch, after the loop  # graftlint: disable=R1
     return fr, inc_cost, inc_tour, int(popped), steps
 
 
@@ -985,6 +986,7 @@ def reset_frontier_stats() -> None:
 def _read_count(fr: Frontier, *flags) -> Tuple:
     """Count, overflow flag and any further 0-d bool ``flags`` in one
     device-to-host read."""
+    # the one count read a step, by design: the loop's stop reads it  # graftlint: disable=R1
     cnt, *bits = torch.stack([fr.count] + [f.to(torch.int32) for f in (fr.overflow, *flags)]).tolist()
     FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], cnt)
     return (cnt, *map(bool, bits))
@@ -1068,6 +1070,7 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
             fr = _reorder_frontier(fr, rows=f_cap)
         if cnt > f_cap - headroom:
             fr = _compact_frontier(fr, inc_cost, bd.integral, rows=f_cap)
+            # a compaction changed the count: read once more (ROADMAP §3)  # graftlint: disable=R1
             cnt = int(fr.count)
         full = cnt > f_cap - headroom
         i += 1
@@ -1082,6 +1085,7 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
                 t_improved = time.perf_counter()
             if deadline is not None and time.perf_counter() > deadline:
                 break
+    # one read a dispatch, after the loop  # graftlint: disable=R1
     return fr, inc_cost, inc_tour, int(popped), i, t_improved, expanded
 
 
@@ -1223,6 +1227,8 @@ class _Reservoir:
         self.chunks = []
         chunks = [c for c in chunks if c.shape[0]]
         if not chunks:
+            # nothing to drop: only empty chunks existed, so this early
+            # return loses no state  # graftlint: disable=R5
             return None
         merged = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
         bounds = _np_bound_col(merged)
@@ -1250,6 +1256,7 @@ class _Reservoir:
         ``capacity // 2`` back on the device; else keep the best half of the
         live rows only and spill the rest. Only the kept slice goes up."""
         _contracts.check_frontier(fr, where="_Reservoir.exchange")
+        # one count read a spill event: it sizes the live-prefix fetch  # graftlint: disable=R1
         cnt = int(fr.count)
         live = _fetch_live_rows(fr.nodes, cnt)
         lb = _np_bound_col(live)
@@ -1656,9 +1663,11 @@ def solve(
             nodes += popped
             steps_run += expanded
             if t_improved is not None:
+                # one read a dispatch that improved the incumbent  # graftlint: disable=R1
                 last_inc = float(inc_cost)
                 t_best = t_improved - t0
             it += max(steps, 1)
+            # one read a dispatch  # graftlint: disable=R1
             if bool(fr.overflow):
                 break  # exactness already lost (only if the guard was bypassed)
         else:
@@ -1669,7 +1678,9 @@ def solve(
             nodes += popped
             steps_run += steps
             it += inner
+        # one read a dispatch  # graftlint: disable=R1
         cnt = int(fr.count)
+        # one read a dispatch  # graftlint: disable=R1
         ic = float(inc_cost)
         if ic < last_inc:
             last_inc = ic
@@ -1679,9 +1690,11 @@ def solve(
             last_pruned = last_inc
         if cnt == 0 and len(reservoir):
             fr = reservoir.refill(fr, ic, integral, capacity)
+            # one read a spill event (a refill)  # graftlint: disable=R1
             cnt = int(fr.count)
         elif cnt > capacity - headroom:
             fr = reservoir.exchange(fr, ic, integral, capacity)
+            # one read a spill event (an exchange)  # graftlint: disable=R1
             cnt = int(fr.count)
         if reorder_every and not device_loop and it - last_reorder >= reorder_every:
             fr = _reorder_frontier(fr, rows=capacity)
@@ -1824,6 +1837,7 @@ def _rank_counts(count: torch.Tensor, ranks) -> np.ndarray:
     """Host copy of every rank's int32 count, ``[R]``: the one per-round
     readback of the sharded loop (``branch_bound.py:2568``), gathered
     over the group."""
+    # the one count readback a round of the sharded loop  # graftlint: disable=R1
     return ranks.all_gather(count.cpu()).numpy()
 
 
@@ -1844,7 +1858,9 @@ def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: Spill
         for i, r in enumerate(ridx):
             block[i, : keeps[r].shape[0]] = keeps[r]
         stats.bytes_to_device += block.nbytes
+        # one upload a spill round: the kept rows and their rank slots  # graftlint: disable=R2
         nodes[torch.as_tensor(ridx, device=nodes.device), :mt] = torch.from_numpy(block).to(nodes.device)
+    # one upload a spill round: the local counts  # graftlint: disable=R2
     count = torch.as_tensor(new_counts.astype(np.int32), device=nodes.device)
     return Frontier(nodes, count, fr.overflow)
 
@@ -2100,6 +2116,7 @@ def solve_sharded(
         nodes expanded in the dispatch (``popped``, local ``[L]``), so all
         take part in the same rounds. Returns ``(frontier, total count,
         counts [R], popped [R], reservoir rows [R])``."""
+        # one count read a spill round  # graftlint: disable=R1
         mine = fr.count.cpu().numpy()
         popped = np.zeros(local, np.int64) if popped is None else popped
         flags = np.stack([mine.astype(np.int64), np.asarray([len(rv) for rv in reservoirs], np.int64),
@@ -2119,6 +2136,7 @@ def solve_sharded(
             spill_stats.rounds += 1
             keeps = {}
             new_counts = mine.copy()
+            # one pass over the local ranks a spill round, not a step  # graftlint: disable=R4
             for j, r in enumerate(ranks.ids):
                 if not (spilling[r] or refilling[r]):
                     continue
@@ -2306,6 +2324,7 @@ def solve_sharded(
                 steps_run += ran
                 moved += mv
                 rounds_done += 1
+                # one read a round: every rank's count and overflow  # graftlint: disable=R1
                 cnt = ranks.all_gather(torch.stack([fr.count, fr.overflow.to(torch.int32)], 1).cpu()).tolist()
                 done = (sum(c for c, _ in cnt) == 0 or max(c for c, _ in cnt) > capacity_per_rank - loop_headroom
                         or any(o for _, o in cnt))
@@ -2318,6 +2337,7 @@ def solve_sharded(
         _contracts.check_donated(fr.nodes, prev_ptr, where="solve_sharded.run_round")
         controller.record(it, action, _rank_counts(moved, ranks))
         it += rounds_done * inner_steps
+        # one read a round  # graftlint: disable=R1
         best = float(ic[0])
         if best < last_inc:
             last_inc = best

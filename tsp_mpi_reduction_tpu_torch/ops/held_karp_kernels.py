@@ -127,7 +127,8 @@ def minplus_copy_split(count: int, sh: int, v: int) -> Tuple[int, int, int]:
     return head, nvec, head + nvec * v
 
 
-def relax_minplus_tiles_reference(g: torch.Tensor, d_t: torch.Tensor,
+# the kernel's tile schedule mirrored on the CPU for its tests, on no device path
+def relax_minplus_tiles_reference(g: torch.Tensor, d_t: torch.Tensor,  # graftlint: disable=R1
                                   sh0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain mirror of the relax_minplus kernel's schedule (tests only).
 
@@ -239,7 +240,9 @@ def relax_dense_reference(cost: torch.Tensor, d_sub: torch.Tensor, c: int) -> to
     return torch.where(upd, new, cost)
 
 
-def relax_dense_tiles_reference(cost: torch.Tensor, d_sub: torch.Tensor, l: int) -> torch.Tensor:
+# the kernel's tile schedule mirrored on the CPU for its tests, on no device path
+def relax_dense_tiles_reference(  # graftlint: disable=R1
+        cost: torch.Tensor, d_sub: torch.Tensor, l: int) -> torch.Tensor:
     """Plain mirror of the sweep kernel's tile schedule (tests only).
 
     Runs the whole DP the way ``relax_dense_sweep``'s kernel does and returns

@@ -197,6 +197,7 @@ def fold_tours(
     if capacity is None:
         capacity = b * (l - 1) + 1
     acc = make_padded(tours[0], l, costs[0], capacity)
+    # once a fold, before the loop  # graftlint: disable=R2
     length = torch.tensor(l, dtype=torch.int32, device=tours.device)
     for i in range(1, b):
         acc = merge_tours(acc, PaddedTour(tours[i], length, costs[i]), dist)

@@ -116,6 +116,7 @@ def prim_chain_early_exit_reference(
     tot = torch.zeros(k, dtype=dbar.dtype, device=dev)
     for _ in range(n - 1):
         live = (unvis & ~intree).any(dim=1)  # lanes whose U is not yet spanned
+        # the plain version's early exit (the CPU path and the checks)  # graftlint: disable=R1
         if not bool(live.any()):
             break
         key = _float_keys(torch.where(intree, big, mind))

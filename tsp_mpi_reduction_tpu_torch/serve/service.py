@@ -602,7 +602,7 @@ def serve_cli(argv: Optional[List[str]] = None) -> int:
             if args.outp == "-"
             # a live JSONL response stream, flushed per line by the writer
             # thread — atomic publish would defeat its purpose
-            else stack.enter_context(open(args.outp, "w"))
+            else stack.enter_context(open(args.outp, "w"))  # graftlint: disable=R6
         )
         try:
             svc = run_jsonl(inp, outp, cfg)

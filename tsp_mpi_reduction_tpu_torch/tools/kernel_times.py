@@ -52,6 +52,7 @@ import torch
 # wrappers' roofline records (obs.device_costs) read as well
 from tsp_mpi_reduction_tpu_torch.obs import costs
 from tsp_mpi_reduction_tpu_torch.obs.costs import bound_ms
+from tsp_mpi_reduction_tpu_torch.resilience.checkpoint import write_json_atomic
 
 EIL51_ARGV = ["eil51", "--backend=cuda", "--k=1024", "--capacity=262144"]
 KRO_ARGV = ["kroA100", "--backend=cuda", "--k=1024", "--capacity=524288", "--node-ascent=6",
@@ -188,6 +189,7 @@ def prim_check(calls) -> int:
         deg = torch.cat([g for _, g in got])
         torch.cuda.synchronize()
         if not (torch.equal(tot.view(torch.int32), ref_tot.view(torch.int32)) and torch.equal(deg, ref_deg)):
+            # a failed check counts the differing lanes once  # graftlint: disable=R1
             bad = int((tot.view(torch.int32) != ref_tot.view(torch.int32)).sum())
             raise RuntimeError(f"prim_chain != plain on recorded inputs (n={n}, {bad} lanes' tot differ)")
         lanes += unvis.shape[0]
@@ -450,10 +452,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     torch.cuda.empty_cache()
     for r in rows:
         print(json.dumps(r), flush=True)
-    line = json.dumps({"card": smi, "kernel_times": rows})
+    result = {"card": smi, "kernel_times": rows}
+    line = json.dumps(result)
     if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
+        write_json_atomic(args.out, result, indent=None)
     print(line)
     return 0
 

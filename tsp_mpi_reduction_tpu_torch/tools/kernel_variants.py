@@ -26,6 +26,7 @@ from typing import List, Optional
 import torch
 
 from ..kernels import _build
+from ..resilience.checkpoint import write_json_atomic
 from . import kernel_times as kt
 
 MINPLUS_PASSES = "constexpr int kMinplusPasses = 16;"
@@ -160,10 +161,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     rows += time_minplus_variants(gs, d_t)
     for r in rows:
         print(json.dumps(r), flush=True)
-    line = json.dumps({"card": smi, "kernel_variants": rows})
+    result = {"card": smi, "kernel_variants": rows}
+    line = json.dumps(result)
     if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
+        write_json_atomic(args.out, result, indent=None)
     print(line)
     return 0
 

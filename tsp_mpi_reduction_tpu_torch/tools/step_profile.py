@@ -45,6 +45,8 @@ import sys
 import time
 from typing import List, Optional
 
+from ..resilience.checkpoint import write_json_atomic
+
 COMPONENTS = ("full_prim_chain", "full_boruvka", "nomst", "bound_prim_chain", "bound_boruvka",
               "guarded")
 FINE_COMPONENTS = ("popgather", "sort", "scatter")
@@ -215,8 +217,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     path = args.out or os.path.join(_ROOT, "build", "step_profile_fine.json" if args.fine
                                     else "step_profile.json")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
+    write_json_atomic(path, out)
     print(json.dumps(out))
     return 0
 

@@ -16,13 +16,20 @@ block assignment and merge tree on one device).
 under ``--quick`` (2 x 2 x 2 configurations), so no run of the port writes
 the committed ``results.csv``; overwriting a file of 100 or more rows
 needs ``--force``, and ``--resume`` appends, skipping the configurations
-the file already holds. The JAX driver's graftlint gate before a sweep
-waits for the port of the lint framework.
+the file already holds.
+
+Before any device is touched the sweep runs the port's lint gate
+(``python -m tsp_mpi_reduction_tpu_torch.analysis --quiet``, as the JAX
+sweep runs its own): a host sync or relaunching loop in a hot path
+invalidates the timing columns this harness exists to produce. Its
+summary line goes to stderr, so stdout stays the CSV rows; on new findings
+the sweep exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -76,6 +83,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         if existing >= 100:
             ap.error(f"{args.out} holds {existing} data rows; refusing to overwrite a full sweep "
                      "artifact (use --resume, --force, or a different --out)")
+
+    # lint gate before burning hours of sweep (stdlib only: no device yet)
+    from ..analysis.__main__ import main as graftlint
+
+    with contextlib.redirect_stdout(sys.stderr):
+        gate = graftlint(["--quiet"])
+    if gate != 0:
+        print("sweep: graftlint found new violations; fix or baseline them first "
+              "(python -m tsp_mpi_reduction_tpu_torch.analysis)", file=sys.stderr)
+        return 2
 
     from ..models.distributed import run_pipeline_ranks
     from ..utils.backend import default_dtype, parse_dtype, resolve_device

@@ -77,7 +77,8 @@ def padded_tour_from_numpy(ids, length: int, cost: float, device, dtype=torch.fl
     )
 
 
-def frontier_from_numpy(nodes, count, overflow, device) -> Frontier:
+# host arrays in: this builds the device buffer, there is none to write in place
+def frontier_from_numpy(nodes, count, overflow, device) -> Frontier:  # graftlint: disable=R7
     """A B&B :class:`Frontier` from numpy: packed int32 rows ``[F, C]``
     (uint32 mask words keep their bits), the stack height and the
     overflow flag."""
