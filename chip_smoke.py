@@ -202,14 +202,37 @@ Phases, each printing its own line; any failure exits non-zero:
     (new, baselined or waived inline); the sites outside hot contexts
     print, and so does whether ``ops/merge.py``'s ``inf`` fill is one.
     Phase 12's sweep must print the gate's pass line.
+20. the bench harness (``tools/bench.py``): each of its modes
+    ``pipeline``, ``bnb``, ``faults``, ``obs`` and ``serve`` once with
+    ``--quick`` in a fresh process, its history in
+    ``build/bench_torch/history.jsonl`` (removed first) and its artifacts in
+    ``build/chip_smoke_bench/``; every one exits 0 with ``ok`` true, a
+    parseable last line and the card in its artifact. Pins: the ``scan``
+    fold's cost at 16 x 100 is the cost ``16 100 1000 1000
+    --dtype=float32`` prints through the CLI here (7 ``relax_dense``
+    launches a run); ``bnb`` proves eil51 at 426 in ``bnb_solve``'s node
+    count with the same arguments here (153,747, phase 7's pin) with both
+    B&B kernels launched; ``faults``' two files hold identical arrays;
+    ``obs`` leaves no orphan span; ``serve``'s batched tours equal its
+    sequential ones. Launches, from the counts each mode writes for its
+    windows (reset just before each, read just after): ``relax_dense``
+    7 a pipeline run; ``prim_chain`` and ``push_rows`` in every bnb
+    proof; ``push_rows`` in faults' B&B run and in both obs arms (the
+    fused step); ``relax_dense`` in each of serve's four timed legs and
+    ``prim_chain`` and ``push_rows`` in both service legs (the 38-city
+    proof); ``relax_minplus`` in no window. The kernels line's
+    ``launches_bench`` sums every window. Then the port's ``bench_check check`` on that history
+    exits 0 with every verdict ``insufficient``, and ``bench_check
+    append`` of the pipeline artifact writes one record. Each headline
+    prints with the card's name and power limit.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
 13's Boruvka run, phase 14's request traffic, phase 15's F1 and F2 in
-the replica processes, phase 16's three eil51 runs and phase 17's runs in
-every rank process) runs with the kernels' launch counts reset just before
-and read just after; a kernel of the path that never launched fails the
-run.
+the replica processes, phase 16's three eil51 runs, phase 17's runs in
+every rank process and phase 20's bench windows, see above) runs with
+the kernels' launch counts reset just before and read just after; a
+kernel of the path that never launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
 the JSON every kernel's ``ms`` is its eager time by CUDA events (the
 host's launch gaps included) and ``device_ms`` the same launches replayed
@@ -227,6 +250,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -3063,6 +3087,146 @@ def phase_lint(smi):
     require(not misses, f"sync sites in hot contexts that the lint does not name: {misses}")
 
 
+# -- phase 20: the bench harness ----------------------------------------------
+
+BENCH_DIR = ROOT / "build" / "chip_smoke_bench"
+BENCH_HISTORY = ROOT / "build" / "bench_torch" / "history.jsonl"
+BENCH_MODES = ("pipeline", "bnb", "faults", "obs", "serve")
+
+
+def run_bench_mode(mode: str):
+    """``tools/bench --mode=<mode> --quick`` in a fresh process on the card
+    -> (its last line, seconds); a failed or unparseable run fails the phase."""
+    env = dict(os.environ, TSP_BENCH_HISTORY=str(BENCH_HISTORY))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bench",
+                           f"--mode={mode}", "--quick", f"--out-dir={BENCH_DIR}"],
+                          cwd=ROOT, capture_output=True, text=True, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    try:
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        last = None
+    require(proc.returncode == 0 and last is not None and last.get("ok") is True,
+            f"bench --mode={mode} --quick: exit {proc.returncode}, last line {proc.stdout[-1500:]!r}, "
+            f"stderr {proc.stderr[-2000:]}")
+    return last, secs
+
+
+def bench_windows(mode: str, art) -> dict:
+    """A bench artifact's launch-count windows -> {window: {kernel: count}};
+    each window's counts were reset just before it and read just after."""
+    if mode == "pipeline":
+        return {"timed runs": art["launches"]}
+    if mode == "bnb":
+        return {f"proof {i}": r["launches"] for i, r in enumerate(art["runs"])}
+    if mode == "obs":
+        return {**{f"telemetry {arm}": c for arm, c in art["bnb"]["launches"].items()},
+                "serve session": art["serve"]["launches"]}
+    return dict(art["launches"])  # faults: seed solve and saves; serve: its five legs
+
+
+def run_bench_check(*argv):
+    """The port's ``bench_check`` in a fresh process -> (exit code, stdout)."""
+    proc = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bench_check", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    return proc.returncode, proc.stdout
+
+
+def phase_bench(smi):
+    """Phase 20: every mode of the port's bench harness once with --quick,
+    its pins, and the history's gate."""
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    BENCH_HISTORY.unlink(missing_ok=True)
+    out, secs = {}, {}
+    for mode in BENCH_MODES:
+        out[mode], secs[mode] = run_bench_mode(mode)
+        print(f"phase 20 bench {mode}: {out[mode]['metric']} = {out[mode]['value']} {out[mode]['unit']} "
+              f"(vs_baseline {out[mode]['vs_baseline']}) in {secs[mode]:.1f} s on {smi}")
+        require(out[mode]["device"]["name"] and out[mode]["device"]["backend"] == "cuda",
+                f"{mode}: the artifact names no card: {out[mode]['device']}")
+
+    # --- pipeline: the scan fold is the CLI's instance and fold
+    pipe = out["pipeline"]
+    rc, line, _ = cli_line(["16", "100", "1000", "1000", "--dtype=float32"])
+    require(rc == 0 and "trip cost" in line, f"pipeline CLI: exit {rc}, {line!r}")
+    scan = pipe["folds"]["scan"]
+    require(f"{scan['cost']:f}" == line.rpartition("trip cost ")[2],
+            f"bench scan cost {scan['cost']:f} != the CLI's {line!r}")
+    require(pipe["relax_dense_launches_per_run"] == 7 and pipe["launches"]["relax_dense"] == 7 * pipe["runs"],
+            f"pipeline: {pipe['launches']} over {pipe['runs']} runs, not 7 relax_dense launches a run")
+    print("phase 20 pipeline folds (quick, ms median [min, max] over reps): " + ", ".join(
+        f"{k} {v['ms']:.3f} [{v['ms_min']:.3f}, {v['ms_max']:.3f}] x{v['reps']} cost {v['cost']:f}"
+        for k, v in pipe["folds"].items()) + f"; scan == the CLI's {line.rpartition('trip cost ')[2]}")
+
+    # --- bnb: eil51 proved at 426 in the CLI's nodes
+    bnb = out["bnb"]
+    cli = run_bnb_cli(["eil51", f"--k={bnb['k']}", f"--capacity={bnb['capacity']}",
+                       f"--node-ascent={bnb['node_ascent']}"])
+    require(bnb["cost"] == BNB_FULL_COST and bnb["proven_optimal"], f"bench bnb: cost {bnb['cost']}, "
+            f"proven {bnb['proven_optimal']}")
+    require(bnb["nodes_expanded"] == cli["nodes_expanded"] == BNB_FULL_NODES,
+            f"bench bnb nodes {bnb['nodes_expanded']}, bnb_solve {cli['nodes_expanded']}, "
+            f"pinned {BNB_FULL_NODES}")
+    require(bnb["device_loop"] and all(r["launches"]["prim_chain"] > 0 and r["launches"]["push_rows"] > 0
+                                       for r in bnb["runs"]),
+            f"bench bnb: launches {[r['launches'] for r in bnb['runs']]}, device loop {bnb['device_loop']}")
+    print(f"phase 20 bnb eil51 (k={bnb['k']}, capacity={bnb['capacity']}): {bnb['nodes_expanded']} nodes "
+          f"== bnb_solve's {cli['nodes_expanded']}, time to proof {bnb['time_to_proof_s']:.3f} s (bnb_solve "
+          f"{cli['time_to_proof_s']} s), launches prim_chain {bnb['prim_chain_launches']}, push_rows "
+          f"{bnb['push_rows_launches']}")
+
+    # --- faults, obs, serve: each B&B leg pushes through push_rows (the
+    # fused step is the default on CUDA), serve's legs flush Held-Karp
+    # batches through relax_dense and its 38-city proof runs both B&B kernels
+    faults, obs, serve = out["faults"], out["obs"], out["serve"]
+    require(faults["step_kernel"] == "fused" and faults["launches"]["seed_solve"]["push_rows"] > 0,
+            f"faults: step kernel {faults['step_kernel']}, launches {faults['launches']}")
+    require(obs["bnb"]["step_kernel"] == "fused"
+            and all(obs["bnb"]["launches"][arm]["push_rows"] > 0 for arm in ("on", "off")),
+            f"obs: step kernel {obs['bnb']['step_kernel']}, launches {obs['bnb']['launches']}")
+    legs = serve["launches"]
+    require(all(legs[leg]["relax_dense"] > 0 for leg in
+                ("sequential", "microbatch", "request_level", "iteration_level")),
+            f"serve: a leg flushed no relax_dense launch: {legs}")
+    require(all(legs[leg][k] > 0 for leg in ("request_level", "iteration_level")
+                for k in ("prim_chain", "push_rows")),
+            f"serve: the proof did not run both B&B kernels in each leg: {legs}")
+    windows = {f"{mode} {w}": c for mode in BENCH_MODES for w, c in bench_windows(mode, out[mode]).items()}
+    totals = {k: sum(c[k] for c in windows.values()) for k in ("relax_dense", "relax_minplus", "prim_chain",
+                                                               "push_rows")}
+    require(totals["relax_minplus"] == 0, "impl auto launched relax_minplus in a bench window: " + ", ".join(
+        f"{w} {c['relax_minplus']}" for w, c in windows.items() if c["relax_minplus"]))
+    print("phase 20 launches by window: " + "; ".join(
+        f"{w} " + " ".join(f"{k} {v}" for k, v in c.items()) for w, c in windows.items()))
+    require(out["faults"]["payload_identical"] is True, "faults: payloads differ")
+    require(out["obs"]["serve"]["orphan_spans"] == 0, f"obs: {out['obs']['serve']['orphan_spans']} orphan spans")
+    require(out["serve"]["tours_match"] is True, "serve: batched tours != sequential tours")
+    print(f"phase 20 faults: atomic {out['faults']['atomic_ms']:.3f} ms / direct {out['faults']['direct_ms']:.3f} "
+          f"ms a save over {out['faults']['reps']} pairs, payloads identical; obs: metered "
+          f"{out['obs']['bnb']['overhead_pct']:.4f}%, {out['obs']['bnb']['us_per_dispatch']:.3f} us a dispatch, "
+          f"0 orphan spans; serve: microbatch {out['serve']['value']:.3f}x, service "
+          f"{out['serve']['service_ratio']:.3f}x, tours equal")
+
+    # --- the gate on this history, and an append of the pipeline artifact
+    rc, text = run_bench_check("check", "--history", str(BENCH_HISTORY), "--json")
+    doc = json.loads(text)
+    statuses = sorted({v["status"] for v in doc["verdicts"]})
+    require(rc == 0 and statuses == ["insufficient"] and doc["records"] == 8,
+            f"bench_check check: exit {rc}, {doc['records']} records, statuses {statuses}")
+    tmp_hist = BENCH_DIR / "append.jsonl"
+    tmp_hist.unlink(missing_ok=True)
+    rc, _ = run_bench_check("append", str(BENCH_DIR / "BENCH_PIPELINE.json"), "--mode", "pipeline",
+                            "--backend", "cuda", "--history", str(tmp_hist))
+    lines = tmp_hist.read_text().splitlines() if tmp_hist.exists() else []
+    require(rc == 0 and len(lines) == 1 and json.loads(lines[0])["metric"] == pipe["metric"],
+            f"bench_check append: exit {rc}, {len(lines)} records")
+    print(f"phase 20 bench_check: exit 0 on {doc['records']} records, every verdict insufficient; append "
+          f"of BENCH_PIPELINE.json gave 1 record; modes {sum(secs.values()):.1f} s")
+    print(f"phase 20 card: {smi}")
+    return totals
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3073,7 +3237,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-19) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-20) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -3142,6 +3306,10 @@ def main(argv=None) -> int:
             phase_telemetry(smi)
         if want(19):
             phase_lint(smi)
+        if want(20):
+            bench_launches = phase_bench(smi)
+            for k in kernels:  # summed over every counted window of the five modes
+                k["launches_bench"] = bench_launches[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

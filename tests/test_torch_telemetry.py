@@ -220,7 +220,10 @@ def test_rank_balance_edge_cases_equal_jax():
 def test_fold_rank_view_exports_rank_gauges():
     bal = trankview.rank_balance(None, [10, 30], spill_events=[1, 2], spill_bytes_to_host=[64, 0],
                                  spill_bytes_to_device=[0, 128])
-    tmetrics.REGISTRY.clear_metric("bnb_rank_nodes_total")
+    # the registry is process-wide: an earlier sharded solve in this
+    # process may have counted ranks' nodes and spill bytes already
+    for name in ("bnb_rank_nodes_total", "bnb_rank_spill_bytes_total"):
+        tmetrics.REGISTRY.clear_metric(name)
     trankview.fold_rank_view(bal)
     assert tmetrics.REGISTRY.value("bnb_rank_nodes_total", rank=1) == 30
     assert tmetrics.REGISTRY.value("bnb_rank_spill_bytes_total", rank=1, direction="to_device") == 128

@@ -26,9 +26,10 @@ Counterpart of ``tsp_mpi_reduction_tpu/obs``:
   imbalance block ``obs.rank_balance``.
 - :mod:`.costs` — the hand kernels' analytic flops, bytes and roofline
   estimate per kernel and shape (``obs.device_costs``).
-
-Not ported yet: the bench-history view (``obs/bench_history.py``), whose
-only writer is the root ``bench.py`` harness.
+- :mod:`.bench_history` — the bench history (``bench_history_torch.jsonl``)
+  that ``tools/bench.py`` appends to, and the median/MAD regression gate
+  that ``tools/bench_check.py`` runs on it; stdlib only, so importing it
+  (this package does not) loads no torch.
 
 Gating: ``TSP_OBS=off`` disables the *optional-overhead* telemetry (span
 tracing, the sampler, the sentinels and the rank view: their result
