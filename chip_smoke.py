@@ -34,8 +34,8 @@ Phases, each printing its own line; any failure exits non-zero:
 6. B&B proofs through the CLI entry point (``tools/bnb_solve``, defaults:
    the device loop, ``mst_kernel`` and ``step_kernel`` auto): burma14 3323,
    ulysses16 6859, berlin52 7542; and ulysses16 under min-out with no ILS
-   (host loop) expands the same nodes under the kernel and under the plain
-   chain;
+   (host loop, 500 steps) expands the JAX package's 16,336 nodes under
+   the kernel and under the plain chain;
 7. the B&B full-size run through the default CLI: eil51 at k = 1024,
    capacity 2^18, one-tree, node_ascent 2, the device loop with the fused
    push — proves 426 from root bound 423 in 153,747 nodes, with one
@@ -82,8 +82,9 @@ Phases, each printing its own line; any failure exits non-zero:
     coordinate folds of phase 4's block tours (each a closed tour of all
     16,384 cities; the coordinate tree fold equals the gather tree fold id
     for id and in cost, in float64 and float32) with their seconds;
-    ``--improve`` through the CLI (no dearer than the unimproved cost; at
-    ``10 6 500 500 --dtype=float64`` the JAX package's cost); ``--trace``
+    ``--improve`` through the CLI at 256 blocks of 16 (cut from 1024 for
+    time; no dearer than the unimproved cost; at ``10 6 500 500
+    --dtype=float64`` the JAX package's cost); ``--trace`` at 256 blocks
     (the trace parses and holds the pipeline's CPU ranges; its device
     kernel events and the device-busy share of the traced window);
     ``--backend=native 10 6 500 500`` (the oracle's cost); a ``--quick``
@@ -202,9 +203,10 @@ Phases, each printing its own line; any failure exits non-zero:
     (new, baselined or waived inline); the sites outside hot contexts
     print, and so does whether ``ops/merge.py``'s ``inf`` fill is one.
     Phase 12's sweep must print the gate's pass line.
-20. the bench harness (``tools/bench.py``): each of its modes
-    ``pipeline``, ``bnb``, ``faults``, ``obs`` and ``serve`` once with
-    ``--quick`` in a fresh process, its history in
+20. the bench harness (``tools/bench.py``): each of its ten modes
+    ``pipeline``, ``bnb``, ``faults``, ``obs``, ``serve``, ``spill``,
+    ``shard``, ``balance``, ``step`` and ``fleet`` once with ``--quick``
+    in a fresh process, its history in
     ``build/bench_torch/history.jsonl`` (removed first) and its artifacts in
     ``build/chip_smoke_bench/``; every one exits 0 with ``ok`` true, a
     parseable last line and the card in its artifact. Pins: the ``scan``
@@ -220,10 +222,22 @@ Phases, each printing its own line; any failure exits non-zero:
     proof; ``push_rows`` in faults' B&B run and in both obs arms (the
     fused step); ``relax_dense`` in each of serve's four timed legs and
     ``prim_chain`` and ``push_rows`` in both service legs (the 38-city
-    proof); ``relax_minplus`` in no window. The kernels line's
-    ``launches_bench`` sums every window. Then the port's ``bench_check check`` on that history
-    exits 0 with every verdict ``insufficient``, and ``bench_check
-    append`` of the pipeline artifact writes one record. Each headline
+    proof); ``relax_minplus`` in no window. ``spill``'s reservoir
+    counters equal the JAX package's on its call (609 rounds, 4,206
+    events); ``shard``'s nodes, nodes per rank, spill bytes and starved
+    ranks equal the JAX mode's, its hook under 2%; ``balance``'s legs'
+    nodes per rank, moved rows, collective dispatches, actions and
+    switches equal the JAX legs', with every gate; ``step``'s legs reach
+    the JAX chain's incumbent (511) at its 1,024 nodes a step; ``fleet``'s demo answers all 48 requests exactly
+    once through two kills and a hang and leaves no replica context on
+    the card. Launches: ``push_rows`` and no ``prim_chain`` in the spill
+    solve, every shard solve and each balance leg; exactly steps x
+    dispatches ``push_rows`` in step's fused leg and none in its
+    reference leg (the fleet's replicas report no counts; phase 15
+    counts theirs). The kernels line's ``launches_bench`` sums every
+    window. Then the port's ``bench_check check`` on that history (15
+    records) exits 0 with every verdict ``insufficient``, and
+    ``bench_check append`` of the pipeline artifact writes one record. Each headline
     prints with the card's name and power limit.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
@@ -261,6 +275,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDENS = ROOT / "goldens"
 
 N_FULL, B_FULL, GRID_FULL = 16, 1024, 1000
+#: phase 12's ``--improve`` and ``--trace`` depth: a quarter of the full
+#: run's blocks (the polish took 88.8 s and the trace 16.9-24.9 s at 1024)
+OPTIONS_BLOCKS = 256
 KERNEL_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/held_karp_relax.cu"
 PRIM_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/prim_chain.cu"
 PUSH_SOURCE = "tsp_mpi_reduction_tpu_torch/kernels/csrc/push_rows.cu"
@@ -273,8 +290,9 @@ REPLACES = {
 # the B&B full-size run (BENCHMARKS.md:112): eil51 at the width users run
 BNB_FULL = ("eil51", 1024, 1 << 18)
 BNB_FULL_NODES, BNB_FULL_COST, BNB_FULL_ROOT_LB = 153_747, 426.0, 423.0
-# ulysses16, min-out, no ILS, k = 32, 3000 steps: the JAX host loop's count
-TRAJECTORY_NODES = 96_208
+# ulysses16, min-out, no ILS, k = 32, 500 steps: the JAX host loop's count
+# (96,208 at 3000 steps, the depth before phase 20 grew)
+TRAJECTORY_STEPS, TRAJECTORY_NODES = 500, 16_336
 # one chunk of the kroA100 campaign (tools/tpu_bench.sh:130-134) and the
 # JAX package's numbers for the same call on the CPU (solve(d, k=1024,
 # capacity=1 << 19, node_ascent=6, reorder_every=16, device_loop=True,
@@ -835,9 +853,9 @@ def phase_bnb_proofs():
         print(f"phase 6 {name}: proved {out['cost']} in {out['nodes_expanded']} nodes, "
               f"{out['prim_chain_launches']} prim_chain + {out['push_rows_launches']} push_rows launches, "
               f"time to proof {out['time_to_proof_s']} s")
-    # the host loop, whose node count at 3000 steps the JAX host loop pinned
+    # the host loop, whose node count the JAX host loop pinned
     walk = ["ulysses16", "--backend=cuda", "--bound=min-out", "--ils-rounds=0", "--k=32",
-            "--capacity=16384", "--max-iters=3000", "--device-loop=off"]
+            "--capacity=16384", f"--max-iters={TRAJECTORY_STEPS}", "--device-loop=off"]
     kern = run_bnb_cli(walk + ["--mst-kernel=auto"])
     plain = run_bnb_cli(walk + ["--mst-kernel=prim"])
     require(kern["mst_kernel"] == "prim_chain" and plain["prim_chain_launches"] == 0
@@ -847,7 +865,7 @@ def phase_bnb_proofs():
             and kern["lower_bound"] == plain["lower_bound"] and kern["cost"] == plain["cost"],
             f"trajectory: kernel {kern['nodes_expanded']} / plain {plain['nodes_expanded']} nodes "
             f"(want {TRAJECTORY_NODES}), LB {kern['lower_bound']} / {plain['lower_bound']}")
-    print(f"phase 6 trajectory (ulysses16 min-out, no ILS, k=32, 3000 steps): "
+    print(f"phase 6 trajectory (ulysses16 min-out, no ILS, k=32, {TRAJECTORY_STEPS} steps): "
           f"{kern['nodes_expanded']} nodes under prim_chain == plain chain, LB {kern['lower_bound']}; "
           f"search {kern['wall_s']} s kernel vs {plain['wall_s']} s plain")
 
@@ -1352,7 +1370,6 @@ def phase_pipeline_options(smi, full_phases):  # a check harness: it builds inpu
 
     n, nb = N_FULL, B_FULL
     dev = torch.device("cuda")
-    size = [str(n), str(nb), str(GRID_FULL), str(GRID_FULL)]
     OPTIONS_DIR.mkdir(parents=True, exist_ok=True)
 
     # --- the three folds of phase 4's block tours
@@ -1385,11 +1402,13 @@ def phase_pipeline_options(smi, full_phases):  # a check harness: it builds inpu
         torch.cuda.empty_cache()
     require(not diffs, "the coordinate tree fold differs from the gather tree fold: " + "; ".join(diffs))
 
-    # --- --improve through the CLI, the main path's kernels counted
-    rc, plain, plain_s = cli_line(size)
+    # --- --improve through the CLI, the main path's kernels counted, at
+    # OPTIONS_BLOCKS blocks
+    improve_size = [str(n), str(OPTIONS_BLOCKS), str(GRID_FULL), str(GRID_FULL)]
+    rc, plain, plain_s = cli_line(improve_size)
     hkk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    rc2, improved, improve_s = cli_line(size + ["--improve"])
+    rc2, improved, improve_s = cli_line(improve_size + ["--improve"])
     launches = dict(hkk.LAUNCHES)
     cost_of = lambda line: float(line.rsplit(" ", 1)[-1])  # noqa: E731
     require(rc == rc2 == 0 and cost_of(improved) <= cost_of(plain),
@@ -1399,20 +1418,21 @@ def phase_pipeline_options(smi, full_phases):  # a check harness: it builds inpu
     rc, small, _ = cli_line(["10", "6", "500", "500", "--dtype=float64", "--improve"])
     require(rc == 0 and small.endswith(f" for 60 cities and the trip cost {IMPROVED_10_6_COST}"),
             f"--improve 10 6 500 500 float64: {small!r}, want the JAX package's {IMPROVED_10_6_COST}")
-    print(f"phase 12 --improve (full size, float32): {improved} in {improve_s:.3f} s, peak device memory "
+    print(f"phase 12 --improve ({OPTIONS_BLOCKS} blocks of {n}, float32): {improved} in {improve_s:.3f} s, "
+          "peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; unimproved {plain} in {plain_s:.3f} s; "
           f"launches {launches}; 10 6 500 500 float64: {small}")
 
     # --- --trace through the CLI
     tdir = OPTIONS_DIR / "trace"
     shutil.rmtree(tdir, ignore_errors=True)
-    rc, traced, trace_s = cli_line(size + [f"--trace={tdir}"])
+    rc, traced, trace_s = cli_line(improve_size + [f"--trace={tdir}"])
     tfile = tdir / profiling.TRACE_FILE
     require(rc == 0 and tfile.exists(), f"--trace: exit {rc}, {tfile} missing")
     st = trace_stats(tfile)
     require(st["cpu_ops"] > 0 and any(nm.startswith("aten::") for nm in st["names"]),
             f"--trace: no CPU ranges in {tfile}")
-    print(f"phase 12 --trace (full size): {traced} in {trace_s:.3f} s; {tfile.stat().st_size} bytes, "
+    print(f"phase 12 --trace ({OPTIONS_BLOCKS} blocks of {n}): {traced} in {trace_s:.3f} s; {tfile.stat().st_size} bytes, "
           f"{st['cpu_ops']} CPU op ranges, {st['kernels']} device kernel events, device busy "
           f"{st['busy_share']:.4f} of the traced window ({st['window_ms']:.1f} ms)")
 
@@ -3091,7 +3111,25 @@ def phase_lint(smi):
 
 BENCH_DIR = ROOT / "build" / "chip_smoke_bench"
 BENCH_HISTORY = ROOT / "build" / "bench_torch" / "history.jsonl"
-BENCH_MODES = ("pipeline", "bnb", "faults", "obs", "serve")
+BENCH_MODES = ("pipeline", "bnb", "faults", "obs", "serve", "spill", "shard", "balance", "step", "fleet")
+#: the JAX package's ``bench.py`` spill call (8 ranks, 14 cities, 96 rows a
+#: rank) on the CPU: its reservoir counters
+BENCH_SPILL_PINS = {"spill_rounds": 609, "spill_events": 4206, "spill_full_merges": 153,
+                    "spill_bytes_to_host": 7260264, "spill_bytes_to_device": 7265412}
+#: the JAX shard configuration (4 ranks, 12 cities, ring, 4-row slab)
+BENCH_SHARD_PINS = {"cost": 2913.0, "nodes_expanded": 22852, "nodes_per_rank": [8740, 7914, 4753, 1445],
+                    "spill_bytes_to_host": 939232, "spill_bytes_to_device": 939232, "starved_ranks": [2, 3],
+                    "starvation_events": 12}
+#: the JAX balance legs: cost, nodes per rank, moved rows, collective
+#: dispatches, actions, switches
+#: the JAX step chain (eil51, k 1024, 6 dispatches of 8 steps from 10 warm
+#: steps, capacity 409,600): its final incumbent and nodes a step
+BENCH_STEP_PINS = (511.0, 1024)
+BENCH_BALANCE_PINS = {
+    "ring": (2913.0, [8740, 7914, 4753, 1445], 7377, 1119, {"ring": 1119}, 1),
+    "adaptive": (2913.0, [6011, 5776, 5676, 5389], 2800, 177, {"steal": 75, "pair": 102, "skip": 606}, 202),
+    "balanced": (3077.0, [13, 3, 13, 3], 0, 0, {"skip": 6}, 0),
+}
 
 
 def run_bench_mode(mode: str):
@@ -3123,7 +3161,64 @@ def bench_windows(mode: str, art) -> dict:
     if mode == "obs":
         return {**{f"telemetry {arm}": c for arm, c in art["bnb"]["launches"].items()},
                 "serve session": art["serve"]["launches"]}
-    return dict(art["launches"])  # faults: seed solve and saves; serve: its five legs
+    if mode == "spill":
+        return {"solve": art["launches"]}
+    if mode == "fleet":
+        return {}  # the replicas are serve CLI processes, which report no counts
+    # faults: seed solve and saves; serve: its five legs; shard: each run;
+    # balance: each leg; step: each leg
+    return dict(art["launches"])
+
+
+#: the history records of one run of every mode: a governed series each
+#: (pipeline, bnb, faults, spill, step, fleet 1; obs, shard, balance 2;
+#: serve 3)
+BENCH_RECORDS = 15
+
+
+def bench_pins_new_modes(out, windows):
+    """Phase 20's pins of the spill, shard, balance, step and fleet modes:
+    the JAX package's counters, every gate, and each window's kernels."""
+    spill, shard, bal, step, fleet = (out[m] for m in ("spill", "shard", "balance", "step", "fleet"))
+    require(all(spill[k] == v for k, v in BENCH_SPILL_PINS.items()) and spill["proven_optimal"],
+            f"spill: {[(k, spill[k]) for k in BENCH_SPILL_PINS]}, want the JAX package's {BENCH_SPILL_PINS}")
+    got = {k: shard[k] for k in BENCH_SHARD_PINS}
+    require(got == BENCH_SHARD_PINS and shard["coherent"] and shard["bnb"]["ok"],
+            f"shard: {got}, coherent {shard['coherent']}, hook gate {shard['bnb']}; want {BENCH_SHARD_PINS}")
+    for leg, (cost, per_rank, moved, coll, actions, switches) in BENCH_BALANCE_PINS.items():
+        g = bal["legs"][leg]
+        require((g["cost"], g["nodes_per_rank"], g["moved_rows"], g["collective_dispatches"], g["actions"],
+                 g["switches"], g["runs_agree"]) == (cost, per_rank, moved, coll, actions, switches, True),
+                f"balance {leg}: {g}")
+    require(all(bal["gates"][k] for k in ("imbalance_reduction_ok", "wall_ratio_ok", "exactness_ok",
+                                           "balanced_zero_dispatches_ok")), f"balance gates: {bal['gates']}")
+    ref, fus = step["reference"], step["fused"]
+    require(step["incumbent_match"] and step["row_bytes_packed"] == 76 and step["fused_mode"] == "cuda"
+            and all((leg["final_incumbent"], leg["nodes_per_step"]) == BENCH_STEP_PINS for leg in (ref, fus)),
+            f"step: incumbents {ref['final_incumbent']} / {fus['final_incumbent']}, nodes a step "
+            f"{ref['nodes_per_step']} / {fus['nodes_per_step']}, rows {step['row_bytes_packed']} B")
+    demo = fleet["demo"]
+    require(fleet["ok"] and demo["answered_exactly_once"] and demo["valid_tours"] == demo["requests"]
+            and fleet["gpu_contexts"]["none_left"] and fleet["launches"] is None,
+            f"fleet: demo {demo}, contexts {fleet['gpu_contexts']}")
+    # the launch windows: the fused step pushes in every sharded solve; no
+    # window of a min-out bound or an MST-free step runs prim_chain
+    for name, c in windows.items():
+        if name.startswith(("spill", "shard", "balance")):
+            require(c["push_rows"] > 0 and c["prim_chain"] == 0, f"{name}: launches {c}")
+    steps_timed = step["steps"] * step["dispatches"]
+    require(step["launches"]["fused"]["push_rows"] == steps_timed and step["launches"]["fused"]["prim_chain"] == 0
+            and step["launches"]["reference"]["push_rows"] == step["launches"]["reference"]["prim_chain"] == 0,
+            f"step: launches {step['launches']}, want push_rows {steps_timed} in the fused leg only")
+    print(f"phase 20 spill: {spill['value']:.1f} bytes a round over {spill['spill_rounds']} rounds (the JAX "
+          f"package's counters), solve {spill['solve_s']:.3f} s; shard: metered {shard['value']:.4f}%, "
+          f"{shard['bnb']['us_per_dispatch']:.3f} us a dispatch, starved {shard['starved_ranks']}; balance: "
+          f"imbalance {bal['legs']['ring']['imbalance']:.3f} -> {bal['value']:.3f}, wall ratio "
+          f"{bal['wall_ratio']:.3f}; step: reference {ref['ms_per_step']:.4f} / fused {fus['ms_per_step']:.4f} "
+          f"ms a step ({step['value']:.3f}x), incumbent {fus['final_incumbent']}; fleet: demo "
+          f"{demo['valid_tours']}/{demo['requests']} exactly once, restarts {demo['restarts']}, re-dispatches "
+          f"{demo['redispatches']}, contexts {fleet['gpu_contexts']['before']} -> "
+          f"{fleet['gpu_contexts']['after']}")
 
 
 def run_bench_check(*argv):
@@ -3208,11 +3303,13 @@ def phase_bench(smi):
           f"0 orphan spans; serve: microbatch {out['serve']['value']:.3f}x, service "
           f"{out['serve']['service_ratio']:.3f}x, tours equal")
 
+    bench_pins_new_modes(out, windows)
+
     # --- the gate on this history, and an append of the pipeline artifact
     rc, text = run_bench_check("check", "--history", str(BENCH_HISTORY), "--json")
     doc = json.loads(text)
     statuses = sorted({v["status"] for v in doc["verdicts"]})
-    require(rc == 0 and statuses == ["insufficient"] and doc["records"] == 8,
+    require(rc == 0 and statuses == ["insufficient"] and doc["records"] == BENCH_RECORDS,
             f"bench_check check: exit {rc}, {doc['records']} records, statuses {statuses}")
     tmp_hist = BENCH_DIR / "append.jsonl"
     tmp_hist.unlink(missing_ok=True)
@@ -3258,61 +3355,72 @@ def main(argv=None) -> int:
         return only is None or phase in only
 
     kernels = []
+    secs = {}  # seconds by phase, for the time budget
+
+    def timed(phase: int, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            secs[phase] = round(time.perf_counter() - t, 1)
+
     try:
-        smi = phase_build()
+        smi = timed(1, phase_build)
         if want(2):
-            phase_kernel_parity(errs)
+            timed(2, phase_kernel_parity, errs)
         if want(3):
-            phase_oracle()
+            timed(3, phase_oracle)
         full_phases = None
         if want(4) or want(12):
-            full_phases, kernels = phase_full(smi, errs)
+            full_phases, kernels = timed(4, phase_full, smi, errs)
         if want(5):
-            phase_prim_parity(errs)
+            timed(5, phase_prim_parity, errs)
         if want(6):
-            phase_bnb_proofs()
+            timed(6, phase_bnb_proofs)
         if want(7):
-            kernels += phase_bnb_full(smi, errs)
+            kernels += timed(7, phase_bnb_full, smi, errs)
         if want(8):
-            phase_push_parity(errs)
+            timed(8, phase_push_parity, errs)
         if want(9):
-            phase_kroa100(smi, errs)
+            timed(9, phase_kroa100, smi, errs)
         if want(10):
-            phase_spill(smi)
+            timed(10, phase_spill, smi)
         if want(11):
-            phase_campaign(smi)
+            timed(11, phase_campaign, smi)
         if want(12):
-            phase_pipeline_options(smi, full_phases)
+            timed(12, phase_pipeline_options, smi, full_phases)
         if want(13):
-            phase_bnb_options(smi)
+            timed(13, phase_bnb_options, smi)
         serve_a = None
         if want(14):
-            serve_launches, serve_a = phase_serve(smi)
+            serve_launches, serve_a = timed(14, phase_serve, smi)
             for k in kernels:  # the serve traffic's own counts beside the main paths'
                 k["launches_serve"] = serve_launches[k["name"]]
         if want(15):
-            fleet_launches = phase_fleet(smi, serve_a)
+            fleet_launches = timed(15, phase_fleet, smi, serve_a)
             for k in kernels:  # summed over the fleet's replica processes
                 k["launches_fleet"] = fleet_launches[k["name"]]
         if want(16):
-            sharded_launches = phase_sharded(smi, errs)
+            sharded_launches = timed(16, phase_sharded, smi, errs)
             for k in kernels:  # run 1 of phase 16 (eil51, 8 ranks, pair)
                 k["launches_sharded"] = sharded_launches.get(k["name"], 0)
         if want(17):
-            procs_launches = phase_procs(smi)
+            procs_launches = timed(17, phase_procs, smi)
             for k in kernels:  # summed over the rank processes of phase 17's main paths
                 k["launches_procs"] = procs_launches[k["name"]]
         if want(18):
-            phase_telemetry(smi)
+            timed(18, phase_telemetry, smi)
         if want(19):
-            phase_lint(smi)
+            timed(19, phase_lint, smi)
         if want(20):
-            bench_launches = phase_bench(smi)
+            bench_launches = timed(20, phase_bench, smi)
             for k in kernels:  # summed over every counted window of the five modes
                 k["launches_bench"] = bench_launches[k["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        print(f"chip_smoke: seconds by phase {secs}")
     for k in kernels:
         if k["max_abs_err"] != 0.0:
             print(f"chip_smoke: FAILED: {k['name']} max_abs_err {k['max_abs_err']}", file=sys.stderr)

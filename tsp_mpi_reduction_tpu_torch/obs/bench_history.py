@@ -278,8 +278,9 @@ class MetricRule:
 
 
 #: the governed metrics the port's harness emits, each with the JAX
-#: module's direction and thresholds (``bench_history.py:250-336`` there).
-#: A later mode of the harness adds its entry with it.
+#: module's direction and thresholds (``bench_history.py:250-336`` there):
+#: every JAX rule but ``compile_once_warm_start``, whose mode times the
+#: XLA executable store and has no counterpart in the port.
 DEFAULT_RULES: Dict[str, MetricRule] = {
     "pipeline_16x100_wall_ms": MetricRule(direction="lower", rel_threshold=0.15),
     "bnb_eil51_nodes_per_sec": MetricRule(direction="higher", rel_threshold=0.15),
@@ -302,6 +303,24 @@ DEFAULT_RULES: Dict[str, MetricRule] = {
     "serve_tight_deadline_exact_rate": MetricRule(
         direction="higher", rel_threshold=0.0, abs_threshold=0.02, min_samples=4
     ),
+    "sharded_spill_transfer_bytes_per_round": MetricRule(direction="lower", rel_threshold=0.15),
+    "fused_vs_reference_expansion_step": MetricRule(direction="higher", rel_threshold=0.15),
+    "shard_rank_obs_overhead": MetricRule(
+        direction="lower", rel_threshold=0.0, abs_threshold=2.5, min_samples=4
+    ),
+    "shard_rank_us_per_dispatch": MetricRule(
+        direction="lower", rel_threshold=0.0, abs_threshold=8.0, min_samples=4
+    ),
+    # answered exactly once under kills and hangs: any dropped or doubled
+    # request fails the gate
+    "fleet_chaos_answered_rate": MetricRule(
+        direction="higher", rel_threshold=0.0, abs_threshold=0.001, min_samples=4
+    ),
+    # a ratio near 1 when healthy (the stranded ring measures ~6): absolute
+    "shard_balance_imbalance": MetricRule(
+        direction="lower", rel_threshold=0.0, abs_threshold=5.0, min_samples=4
+    ),
+    "shard_steal_bytes_per_node": MetricRule(direction="lower", rel_threshold=0.50, min_samples=4),
 }
 
 
