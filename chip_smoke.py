@@ -16,7 +16,10 @@ Phases, each printing its own line; any failure exits non-zero:
    first index on CUDA;
 3. oracle parity: the CLI's ``10 6 500 500`` cost, and the goldens'
    block solutions, fold costs and final tour in float64 under the
-   ``fused`` and ``pallas`` impls; ``--ranks=4`` equal under fused/compact;
+   ``fused`` and ``pallas`` impls, the final tour also through
+   ``fold_tours`` with the graph store on and under
+   ``TSP_COMPILE_CACHE=off`` (bit for bit both); ``--ranks=4`` equal under
+   fused/compact;
 4. full size: n = 16 cities per block (the reference's cap), 1024 blocks,
    1000x1000, float32, impl ``auto`` — phase times, the final line, the
    sweep's h + 1 launches, fused against plain compact on one distance
@@ -114,8 +117,7 @@ Phases, each printing its own line; any failure exits non-zero:
     Prints A's requests/s, latency quantiles per tier, the flushes, the
     B&B slices with their save seconds, the cache hit rate and the
     launches; then a lone 1024-city request split into flush, fold and
-    polish, and C's four requests at once without the other traffic,
-    under the interpreter's switch interval and one 20x shorter;
+    polish, and C's four requests at once without the other traffic;
 15. the ``fleet`` entry point: an in-process ``FleetFront`` over 2 replica
     processes (``chip_smoke.py --fleet-replica``: the port's serve CLI on
     ``--backend cuda --threads 4 --warm 16 --stats``, each with its own
@@ -201,12 +203,17 @@ Phases, each printing its own line; any failure exits non-zero:
     distinct sites, and every site in a lexically hot context (a loop body
     or a hot function, by the lint's own rules) must be a lint finding
     (new, baselined or waived inline); the sites outside hot contexts
-    print, and so does whether ``ops/merge.py``'s ``inf`` fill is one.
-    Phase 12's sweep must print the gate's pass line.
-20. the bench harness (``tools/bench.py``): each of its ten modes
+    print, and so do the sites in ``ops/merge.py`` and the merge fold's
+    syncs a merge: the fold replays one captured step, so its syncs must
+    stay at most ``FOLD_SYNC_LIMIT`` (the eager fold synced once a merge,
+    1023 a fold). Phase 12's sweep must print the gate's pass line.
+20. the bench harness (``tools/bench.py``): each of its eleven modes
     ``pipeline``, ``bnb``, ``faults``, ``obs``, ``serve``, ``spill``,
-    ``shard``, ``balance``, ``step`` and ``fleet`` once with ``--quick``
-    in a fresh process, its history in
+    ``shard``, ``balance``, ``step``, ``fleet`` and ``compile`` once with
+    ``--quick``
+    in a fresh process (``spill``, ``compile``, ``pipeline``, ``bnb``,
+    ``faults`` and ``step`` last and at once, ``BENCH_OVERLAP``: none
+    gates on a time), its history in
     ``build/bench_torch/history.jsonl`` (removed first) and its artifacts in
     ``build/chip_smoke_bench/``; every one exits 0 with ``ok`` true, a
     parseable last line and the card in its artifact. Pins: the ``scan``
@@ -230,15 +237,27 @@ Phases, each printing its own line; any failure exits non-zero:
     switches equal the JAX legs', with every gate; ``step``'s legs reach
     the JAX chain's incumbent (511) at its 1,024 nodes a step; ``fleet``'s demo answers all 48 requests exactly
     once through two kills and a hang and leaves no replica context on
-    the card. Launches: ``push_rows`` and no ``prim_chain`` in the spill
+    the card; ``compile``'s chunk processes agree in cost and certified LB
+    (the warm one reading the root ascent from the shared directory, the
+    cold one not), its served tours agree, and its fold at 16 x 100 replays
+    a graph captured before it (0 captures) equal to the eager fold. Launches: ``push_rows`` and no ``prim_chain`` in the spill
     solve, every shard solve and each balance leg; exactly steps x
     dispatches ``push_rows`` in step's fused leg and none in its
     reference leg (the fleet's replicas report no counts; phase 15
     counts theirs). The kernels line's ``launches_bench`` sums every
-    window. Then the port's ``bench_check check`` on that history (15
+    window. Then the port's ``bench_check check`` on that history (16
     records) exits 0 with every verdict ``insufficient``, and
     ``bench_check append`` of the pipeline artifact writes one record. Each headline
     prints with the card's name and power limit.
+21. the graph store (``perf/compile_cache.py``): the merge fold of phase
+    4's block tours (and of 16 x 100, the bench's) on a cold key, the
+    first fold capturing ``_fold_step`` once, a second fold of the same
+    shapes inside ``RecompilationGuard({"fold_tours": FOLD}, limit=0)``
+    and an eager fold under ``TSP_COMPILE_CACHE=off``: ids, length and cost
+    equal (``torch.equal``), the capture, replayed-fold and eager-fold
+    seconds and the store's ``stats_dict()`` (the one-shot CLI with and
+    without the store is ``tools/bench.py --mode=compile --blocks=1024``'s
+    ``cli`` leg).
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
@@ -429,6 +448,24 @@ def max_abs_err(a, b) -> float:
     return float((a[fa].double() - b[fb].double()).abs().max())
 
 
+@contextlib.contextmanager
+def compile_cache_setting(value):
+    """``TSP_COMPILE_CACHE`` set to ``value`` (None: unset, the graph store
+    on) for the ``with`` body, restored after it."""
+    saved = os.environ.get("TSP_COMPILE_CACHE")
+    if value is None:
+        os.environ.pop("TSP_COMPILE_CACHE", None)
+    else:
+        os.environ["TSP_COMPILE_CACHE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("TSP_COMPILE_CACHE", None)
+        else:
+            os.environ["TSP_COMPILE_CACHE"] = saved
+
+
 def wall_s(fn):
     import torch
 
@@ -548,8 +585,9 @@ def phase_oracle():  # a check harness: it builds inputs and reads results once 
     from tsp_mpi_reduction_tpu_torch.models.distributed import run_pipeline_ranks
     from tsp_mpi_reduction_tpu_torch.ops import held_karp
     from tsp_mpi_reduction_tpu_torch.ops.generator import generate_instance
-    from tsp_mpi_reduction_tpu_torch.ops.merge import PaddedTour, make_padded, merge_tours
+    from tsp_mpi_reduction_tpu_torch.ops.merge import PaddedTour, fold_tours, make_padded, merge_tours
     from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
     from tsp_mpi_reduction_tpu_torch.utils import cli
     from tsp_mpi_reduction_tpu_torch.utils.state import instance_from_numpy
 
@@ -591,8 +629,19 @@ def phase_oracle():  # a check harness: it builds inputs and reads results once 
             require(float(acc.cost) == g["final"]["cost"]
                     and acc.ids[:final_len].cpu().tolist() == g["final"]["ids"],
                     f"{name} {impl}: final tour differs")
+            # fold_tours through the graph store and with the store off
+            for setting in (None, "off"):
+                misses = compile_cache.stats_dict()["aot_misses"]
+                with compile_cache_setting(setting):
+                    ids, length, cost = fold_tours(gtours, costs, dist)
+                captured = compile_cache.stats_dict()["aot_misses"] - misses
+                require(float(cost) == g["final"]["cost"]
+                        and ids[: int(length)].cpu().tolist() == g["final"]["ids"],
+                        f"{name} {impl}: fold_tours (TSP_COMPILE_CACHE={setting}) differs from the golden")
+                require(setting is None or captured == 0, f"{name}: the store captured under off")
         print(f"phase 3 golden {name}: block costs+tours, {nb - 1} fold costs, final tour "
-              f"and cost {g['final']['cost']!r} exact under fused and pallas (float64)")
+              f"and cost {g['final']['cost']!r} exact under fused and pallas (float64); fold_tours "
+              "equal through the graph store and with TSP_COMPILE_CACHE=off")
 
     got = {}
     for impl in ("fused", "compact"):
@@ -1626,12 +1675,11 @@ def phase_serve(smi):
         split = solo.timer.snapshot()
     require(alone.get("tier") == "pipeline", f"serve: the lone C request answered {alone}")
     # C's requests again at once on a fresh service, without the other
-    # traffic: the request threads' contention alone, under the
-    # interpreter's switch interval and one 20x shorter (the threads hand
-    # the interpreter lock over at every torch call)
+    # traffic: the request threads' contention alone (a 20x shorter switch
+    # interval read the same; that second run was cut for the time budget)
     crowd = {}
     rng = np.random.default_rng(SERVE_SEED + 2)
-    for interval in (sys.getswitchinterval(), sys.getswitchinterval() / 20):
+    for interval in (sys.getswitchinterval(),):
         reqs = [{"id": f"C{i}", "deadline_ms": SERVE_GROUPS["C"][2],
                  "xy": rng.uniform(0, 1000, (SERVE_GROUPS["C"][1], 2)).tolist()}
                 for i in range(SERVE_GROUPS["C"][0])]
@@ -2777,8 +2825,10 @@ def phase_telemetry(smi):
     print("phase 18 TSP_CONTRACTS pipeline at full size (wall ms / merge fold s), ABBA x2 on/off/off/on: "
           + ", ".join(f"{lv} {ms:.1f} / {mf:.4f}" for lv, ms, mf, _ in pipe)
           + f"; merge fold median on {_median(folds['on']):.4f} s, off {_median(folds['off']):.4f} s; card {smi}")
-    # the checks' own host time: one fold's 2 x 1023 checks on the fold's
-    # operand types (a 16,385-slot tour on the card)
+    # the checks' own host time: an eager fold's (TSP_COMPILE_CACHE=off)
+    # 2 x 1023 checks on the fold's operand types (a 16,385-slot tour on
+    # the card); the replayed fold runs the step's 2 at capture and 2 at
+    # its boundary
     from tsp_mpi_reduction_tpu_torch.ops.merge import PaddedTour
 
     tour = PaddedTour(torch.zeros(N_FULL * B_FULL + 1, dtype=torch.int32, device="cuda"),
@@ -2792,9 +2842,10 @@ def phase_telemetry(smi):
         checks_ms = (time.perf_counter() - t0) * 1e3
     finally:
         os.environ.pop("TSP_CONTRACTS", None)
-    print(f"phase 18 TSP_CONTRACTS=on: one fold's {2 * (B_FULL - 1)} metadata checks take {checks_ms:.2f} ms of host "
-          f"time ({checks_ms / 2 / (B_FULL - 1) * 1e3:.2f} us a check), {checks_ms / 1e3 / _median(folds['off']) * 100:.2f}% "
-          f"of the off merge fold's median")
+    print(f"phase 18 TSP_CONTRACTS=on: an eager fold's (TSP_COMPILE_CACHE=off) {2 * (B_FULL - 1)} metadata checks "
+          f"take {checks_ms:.2f} ms of host time ({checks_ms / 2 / (B_FULL - 1) * 1e3:.2f} us a check), "
+          f"{checks_ms / 1e3 / _median(folds['off']) * 100:.2f}% of the replayed fold's median with contracts off; "
+          "the replayed fold runs 2 at its capture and 2 at its boundary")
     os.environ["TSP_CONTRACTS"] = "on"
     try:
         buf = io.StringIO()
@@ -2886,6 +2937,9 @@ def phase_telemetry(smi):
 
 
 LINT_SARIF = ROOT / "build" / "lint.sarif"
+#: the merge fold's host syncs a phase 19 pipeline may show: a small
+#: constant (a capture's own), where the eager fold synced once a merge
+FOLD_SYNC_LIMIT = 16
 SYNC_TEXT = "synchronizing CUDA operation"
 PORT_DIR = ROOT / "tsp_mpi_reduction_tpu_torch"
 
@@ -2993,6 +3047,7 @@ def phase_lint(smi):
     from tsp_mpi_reduction_tpu_torch.analysis.__main__ import _DEFAULT_TARGETS, run_analyses
     from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
     from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
 
     # --- the CLI in a fresh process, and what importing it loads
     LINT_SARIF.parent.mkdir(parents=True, exist_ok=True)
@@ -3045,10 +3100,12 @@ def phase_lint(smi):
     # --- the three runs under the card's sync reports
     n, nb = N_FULL, B_FULL
     hkk.reset_launches()
+    misses = compile_cache.stats_dict()["aot_misses"]
     res, fold_sites, fold_marked, fold_attr = capture_syncs(
         lambda: run_pipeline(n, nb, GRID_FULL, GRID_FULL, dtype=torch.float32, device=torch.device("cuda")),
         marks=("fold_tours",))
     launches = dict(hkk.LAUNCHES)
+    fold_captures = compile_cache.stats_dict()["aot_misses"] - misses
     require(launches["relax_dense"] == hkk.sweep_launches(n - 1),
             f"phase 19 pipeline launched relax_dense {launches['relax_dense']} times")
     require(math.isfinite(res.cost) and res.num_cities == n * nb, f"phase 19 pipeline: {res.cost}, {res.num_cities}")
@@ -3064,8 +3121,11 @@ def phase_lint(smi):
             f"phase 19: device_loop {dev_out['device_loop']} / {host_out['device_loop']}")
     fold_syncs = fold_marked["fold_tours"]
     print(f"phase 19 pipeline ({n} {nb} {GRID_FULL} {GRID_FULL}, float32): {sum(fold_sites.values())} syncs, "
-          f"{fold_syncs} of them in the merge fold ({nb - 1} merges: {fold_syncs / (nb - 1):.3f} a merge); "
-          f"launches {launches}; cost {res.cost:f}")
+          f"{fold_syncs} of them in the merge fold ({nb - 1} merges: {fold_syncs / (nb - 1):.4f} a merge; "
+          f"{fold_captures} graph capture(s) in the fold); launches {launches}; cost {res.cost:f}")
+    # the fold replays one captured step: its syncs are a constant, not one a merge
+    require(fold_syncs <= FOLD_SYNC_LIMIT,
+            f"phase 19: {fold_syncs} syncs in the merge fold (limit {FOLD_SYNC_LIMIT}, {nb - 1} merges)")
     for what, out, sites, marked in (("device loop", dev_out, dev_sites, dev_marked),
                                      ("host loop", host_out, host_sites, host_marked)):
         steps = out["iterations"]
@@ -3083,9 +3143,6 @@ def phase_lint(smi):
         for site, c in sites.items():
             all_sites.setdefault(site, {})[tag] = c
     misses, cold = [], []
-    merge_src = (PORT_DIR / "ops" / "merge.py").read_text().splitlines()
-    inf_line = next(i + 1 for i, ln in enumerate(merge_src) if 'torch.tensor(float("inf")' in ln)
-    inf_site = f"tsp_mpi_reduction_tpu_torch/ops/merge.py:{inf_line}"
     for site in sorted(all_sites):
         counts = ", ".join(f"{k} {v}" for k, v in sorted(all_sites[site].items()))
         if site.startswith("<outside"):
@@ -3102,7 +3159,9 @@ def phase_lint(smi):
             cold.append(site)
     print(f"phase 19 {len(all_sites)} distinct sync sites: {len(all_sites) - len(cold)} in hot contexts, all "
           f"lint findings: {not misses}; {len(cold)} outside hot contexts")
-    print(f"phase 19 the card reports {inf_site} (the merge's inf fill) as a sync: {inf_site in all_sites}")
+    merge_sites = {site: c for site, c in all_sites.items() if "/ops/merge.py:" in site}
+    print(f"phase 19 sync sites in ops/merge.py: {merge_sites or 'none'}; the merge fold's syncs a merge "
+          f"{fold_syncs / (nb - 1):.4f}")
     print(f"phase 19 card: {smi}")
     require(not misses, f"sync sites in hot contexts that the lint does not name: {misses}")
 
@@ -3111,7 +3170,15 @@ def phase_lint(smi):
 
 BENCH_DIR = ROOT / "build" / "chip_smoke_bench"
 BENCH_HISTORY = ROOT / "build" / "bench_torch" / "history.jsonl"
-BENCH_MODES = ("pipeline", "bnb", "faults", "obs", "serve", "spill", "shard", "balance", "step", "fleet")
+BENCH_MODES = ("pipeline", "bnb", "faults", "obs", "serve", "spill", "shard", "balance", "step", "fleet",
+               "compile")
+#: modes phase 20 runs at once, after the others, for the time budget:
+#: none gates on a time (their pins are counts and equalities: costs,
+#: nodes, incumbents, payloads), and each keeps about one core of the
+#: card's host busy. Their seconds in the log are not measurements; the
+#: modes whose gates read a time (obs, serve, shard, balance, fleet) run
+#: alone
+BENCH_OVERLAP = ("spill", "compile", "pipeline", "bnb", "faults", "step")
 #: the JAX package's ``bench.py`` spill call (8 ranks, 14 cities, 96 rows a
 #: rank) on the CPU: its reservoir counters
 BENCH_SPILL_PINS = {"spill_rounds": 609, "spill_events": 4206, "spill_full_merges": 153,
@@ -3132,23 +3199,54 @@ BENCH_BALANCE_PINS = {
 }
 
 
-def run_bench_mode(mode: str):
-    """``tools/bench --mode=<mode> --quick`` in a fresh process on the card
-    -> (its last line, seconds); a failed or unparseable run fails the phase."""
+def start_bench_mode(mode: str):
+    """Start ``tools/bench --mode=<mode> --quick`` in a fresh process on the
+    card, its output in unnamed temporary files (no pipe to fill while
+    another mode is waited for) -> (process, start time, the two files)."""
+    import tempfile
+
     env = dict(os.environ, TSP_BENCH_HISTORY=str(BENCH_HISTORY))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bench",
-                           f"--mode={mode}", "--quick", f"--out-dir={BENCH_DIR}"],
-                          cwd=ROOT, capture_output=True, text=True, env=env, timeout=600)
-    secs = time.perf_counter() - t0
+    files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bench",
+                             f"--mode={mode}", "--quick", f"--out-dir={BENCH_DIR}"],
+                            cwd=ROOT, stdout=files[0], stderr=files[1], text=True, env=env)
+    return proc, time.perf_counter(), files
+
+
+def finish_bench_mode(mode: str, started):
+    """Wait for a mode started by :func:`start_bench_mode` -> (its last line,
+    its seconds); a failed, hung or unparseable run fails the phase."""
+    proc, t0, files = started
+
+    def text(f) -> str:
+        f.seek(0)
+        out = f.read()
+        f.close()
+        return out
+
     try:
-        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        proc.wait(timeout=max(600 - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        text(files[0])
+        raise SmokeFailure(f"bench --mode={mode} --quick: no end within 600 s, stderr {text(files[1])[-2000:]}")
+    secs = time.perf_counter() - t0
+    stdout, stderr = text(files[0]), text(files[1])
+    try:
+        last = json.loads(stdout.strip().splitlines()[-1])
     except (IndexError, json.JSONDecodeError):
         last = None
     require(proc.returncode == 0 and last is not None and last.get("ok") is True,
-            f"bench --mode={mode} --quick: exit {proc.returncode}, last line {proc.stdout[-1500:]!r}, "
-            f"stderr {proc.stderr[-2000:]}")
+            f"bench --mode={mode} --quick: exit {proc.returncode}, last line {stdout[-1500:]!r}, "
+            f"stderr {stderr[-2000:]}")
     return last, secs
+
+
+def run_bench_mode(mode: str):
+    """``tools/bench --mode=<mode> --quick`` in a fresh process on the card
+    -> (its last line, seconds)."""
+    return finish_bench_mode(mode, start_bench_mode(mode))
 
 
 def bench_windows(mode: str, art) -> dict:
@@ -3163,17 +3261,19 @@ def bench_windows(mode: str, art) -> dict:
                 "serve session": art["serve"]["launches"]}
     if mode == "spill":
         return {"solve": art["launches"]}
-    if mode == "fleet":
-        return {}  # the replicas are serve CLI processes, which report no counts
+    if mode in ("fleet", "compile"):
+        # fleet: the replicas are serve CLI processes, which report no
+        # counts; compile: its children neither, and its fold runs no hand kernel
+        return {}
     # faults: seed solve and saves; serve: its five legs; shard: each run;
     # balance: each leg; step: each leg
     return dict(art["launches"])
 
 
 #: the history records of one run of every mode: a governed series each
-#: (pipeline, bnb, faults, spill, step, fleet 1; obs, shard, balance 2;
-#: serve 3)
-BENCH_RECORDS = 15
+#: (pipeline, bnb, faults, spill, step, fleet, compile 1; obs, shard,
+#: balance 2; serve 3)
+BENCH_RECORDS = 16
 
 
 def bench_pins_new_modes(out, windows):
@@ -3234,12 +3334,24 @@ def phase_bench(smi):
     BENCH_DIR.mkdir(parents=True, exist_ok=True)
     BENCH_HISTORY.unlink(missing_ok=True)
     out, secs = {}, {}
-    for mode in BENCH_MODES:
-        out[mode], secs[mode] = run_bench_mode(mode)
+
+    def report(mode):
         print(f"phase 20 bench {mode}: {out[mode]['metric']} = {out[mode]['value']} {out[mode]['unit']} "
-              f"(vs_baseline {out[mode]['vs_baseline']}) in {secs[mode]:.1f} s on {smi}")
+              f"(vs_baseline {out[mode]['vs_baseline']}) in {secs[mode]:.1f} s on {smi}"
+              + (" (beside the other overlapped modes)" if mode in BENCH_OVERLAP else ""))
         require(out[mode]["device"]["name"] and out[mode]["device"]["backend"] == "cuda",
                 f"{mode}: the artifact names no card: {out[mode]['device']}")
+
+    t_modes = time.perf_counter()
+    for mode in BENCH_MODES:
+        if mode not in BENCH_OVERLAP:
+            out[mode], secs[mode] = run_bench_mode(mode)
+            report(mode)
+    started = {mode: start_bench_mode(mode) for mode in BENCH_OVERLAP}
+    for mode in BENCH_OVERLAP:
+        out[mode], secs[mode] = finish_bench_mode(mode, started[mode])
+        report(mode)
+    modes_s = time.perf_counter() - t_modes
 
     # --- pipeline: the scan fold is the CLI's instance and fold
     pipe = out["pipeline"]
@@ -3301,9 +3413,29 @@ def phase_bench(smi):
           f"ms a save over {out['faults']['reps']} pairs, payloads identical; obs: metered "
           f"{out['obs']['bnb']['overhead_pct']:.4f}%, {out['obs']['bnb']['us_per_dispatch']:.3f} us a dispatch, "
           f"0 orphan spans; serve: microbatch {out['serve']['value']:.3f}x, service "
-          f"{out['serve']['service_ratio']:.3f}x, tours equal")
+          f"{out['serve']['service_ratio']:.3f}x, tours equal, iteration-level latency p50 / max "
+          f"{out['serve']['iteration_level']['latency_ms']['p50']:.1f} / "
+          f"{out['serve']['iteration_level']['latency_ms']['max']:.1f} ms behind "
+          f"{len(out['serve']['iteration_level']['bnb_slice_s'])} proof slices of at most "
+          f"{max(out['serve']['iteration_level']['bnb_slice_s']):.3f} s")
 
     bench_pins_new_modes(out, windows)
+
+    # --- compile: the chunk and serve legs agree, the warm chunk reads the
+    # ascent memo, and the fold replays a graph captured before it
+    comp = out["compile"]
+    chunk, fold = comp["chunk"], comp["fold"]
+    require(chunk["costs_equal"] and chunk["lb_equal"] and comp["serve"]["tours_match"]
+            and chunk["warm_compile_cache"]["ascent_memo_hits"] >= 1
+            and chunk["cold_compile_cache"]["ascent_memo_hits"] == 0,
+            f"compile: chunk {chunk}, serve {comp['serve']}")
+    require(fold["graph"] and fold["equal"] and fold["captures_in_fold"] == 0 and fold["capture_s"] > 0,
+            f"compile: fold {fold}")
+    print(f"phase 20 compile: chunk cold {chunk['cold_startup_s']:.3f} s / warm {chunk['warm_startup_s']:.3f} s "
+          f"({comp['value']:.3f}x), setup {chunk['cold_setup_s']:.3f} / {chunk['warm_setup_s']:.3f} s; serve "
+          f"first flush cold {comp['serve']['cold_first_flush_s']:.3f} / warm "
+          f"{comp['serve']['warm_first_flush_s']:.3f} s; fold {fold['n']} x {fold['blocks']}: capture "
+          f"{fold['capture_s']:.4f} s, replayed {fold['replayed_fold_s']:.4f} s, eager {fold['eager_fold_s']:.4f} s")
 
     # --- the gate on this history, and an append of the pipeline artifact
     rc, text = run_bench_check("check", "--history", str(BENCH_HISTORY), "--json")
@@ -3319,9 +3451,66 @@ def phase_bench(smi):
     require(rc == 0 and len(lines) == 1 and json.loads(lines[0])["metric"] == pipe["metric"],
             f"bench_check append: exit {rc}, {len(lines)} records")
     print(f"phase 20 bench_check: exit 0 on {doc['records']} records, every verdict insufficient; append "
-          f"of BENCH_PIPELINE.json gave 1 record; modes {sum(secs.values()):.1f} s")
+          f"of BENCH_PIPELINE.json gave 1 record; modes {modes_s:.1f} s wall ({sum(secs.values()):.1f} s "
+          f"summed)")
     print(f"phase 20 card: {smi}")
     return totals
+
+
+# -- phase 21: the graph store --------------------------------------------------
+
+#: phase 21's fold sizes: the full size and the bench pipeline's 16 x 100
+STORE_FOLDS = ((N_FULL, B_FULL), (16, 100))
+
+
+def phase_store(smi):  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R2
+    """Phase 21: the merge fold through the graph store against the eager
+    fold, and the recompilation guard on a second fold."""
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import block_distance_slices
+    from tsp_mpi_reduction_tpu_torch.ops import merge as mg
+    from tsp_mpi_reduction_tpu_torch.ops.distance import distance_matrix
+    from tsp_mpi_reduction_tpu_torch.ops.generator import generate_instance
+    from tsp_mpi_reduction_tpu_torch.ops.held_karp import solve_blocks_from_dists
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
+
+    dev = torch.device("cuda")
+    for n, nb in STORE_FOLDS:
+        _, xy = generate_instance(n, nb, GRID_FULL, GRID_FULL)
+        dist = distance_matrix(torch.as_tensor(xy.reshape(-1, 2), device=dev).to(torch.float32))
+        costs, local = solve_blocks_from_dists(block_distance_slices(dist, nb, n), torch.float32)
+        tours = local + (torch.arange(nb, dtype=torch.int32, device=dev) * n)[:, None]
+        compile_cache.clear()  # a cold key: the first fold captures
+        before = compile_cache.stats_dict()
+        first, first_s = wall_s(lambda: mg.fold_tours(tours, costs, dist))
+        mid = compile_cache.stats_dict()
+        capture_s = (mid["entries"]["fold_tours"]["seconds"]
+                     - before["entries"].get("fold_tours", {}).get("seconds", 0.0))
+        with RecompilationGuard({"fold_tours": mg.FOLD}, limit=0) as guard:
+            second, replay_s = wall_s(lambda: mg.fold_tours(tours, costs, dist))
+        with compile_cache_setting("off"):
+            eager, eager_s = wall_s(lambda: mg.fold_tours(tours, costs, dist))
+        after = compile_cache.stats_dict()
+        require(mid["aot_misses"] == before["aot_misses"] + 1 and after["aot_hits"] == mid["aot_hits"] + 1
+                and after["aot_misses"] == mid["aot_misses"] and guard.misses() == {"fold_tours": 0},
+                f"phase 21 {n}x{nb}: store counters {before} -> {mid} -> {after}, guard {guard.misses()}")
+        for what, got in (("first", first), ("second", second)):
+            require(all(torch.equal(a, b) for a, b in zip(got, eager)),
+                    f"phase 21 {n}x{nb}: the {what} fold through the store != the eager fold")
+        t = first[0][: int(first[1])].cpu().numpy()
+        require(int(first[1]) == n * nb + 1 and t[0] == t[-1] and len(set(t[:-1].tolist())) == n * nb,
+                f"phase 21 {n}x{nb}: not a closed tour over every city")
+        print(f"phase 21 fold {n} x {nb} (float32): first fold {first_s:.4f} s (capture {capture_s:.4f} s "
+              f"of it), replayed fold {replay_s:.4f} s with 0 captures under RecompilationGuard(limit=0), "
+              f"eager fold (TSP_COMPILE_CACHE=off) {eager_s:.4f} s; ids, length and cost equal "
+              f"(torch.equal); cost {float(first[2]):f}")
+        del dist, costs, local, tours, first, second, eager
+        compile_cache.clear()
+        torch.cuda.empty_cache()
+    print(f"phase 21 store: {json.dumps(compile_cache.stats_dict())}")
+    print(f"phase 21 card: {smi}")
 
 
 def main(argv=None) -> int:
@@ -3334,7 +3523,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-20) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-21) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -3416,6 +3605,8 @@ def main(argv=None) -> int:
             bench_launches = timed(20, phase_bench, smi)
             for k in kernels:  # summed over every counted window of the five modes
                 k["launches_bench"] = bench_launches[k["name"]]
+        if want(21):
+            timed(21, phase_store, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

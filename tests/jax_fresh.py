@@ -93,6 +93,31 @@ def step_chain(instance: str, k: int, steps: int, dispatches: int, warm: int, ca
     return {"final_incumbent": float(c), "nodes": int(nodes), "row_bytes": int(fr.nodes.shape[-1]) * 4}
 
 
+def fold_blocks_many(configs):
+    """``[(n, blocks, gx, gy), ...]`` -> for each, the JAX package's blocked
+    instance folded by its ``fold_tours`` in float64: the block solve eager
+    (outside ``jit``) on host-computed float64 distances, the oracle's
+    layout -> ``{tours, costs, dist, ids, length, cost}`` as numpy."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tsp_mpi_reduction_tpu.ops import held_karp as jhk
+    from tsp_mpi_reduction_tpu.ops import merge as jmerge
+    from tsp_mpi_reduction_tpu.ops.distance import distance_matrix_np
+    from tsp_mpi_reduction_tpu.ops.generator import generate_instance
+
+    out = []
+    for n, nb, gx, gy in configs:
+        _, xy = generate_instance(n, nb, gx, gy)
+        costs, local = jhk.solve_blocks_from_dists(distance_matrix_np(np.asarray(xy, np.float64)))
+        tours = np.asarray(local, np.int32) + (np.arange(nb, dtype=np.int32) * n)[:, None]
+        dist = distance_matrix_np(np.asarray(xy, np.float64).reshape(-1, 2))
+        ids, length, cost = jmerge.fold_tours(jnp.asarray(tours), costs, jnp.asarray(dist))
+        out.append({"tours": tours, "costs": np.asarray(costs), "dist": dist, "ids": np.asarray(ids),
+                    "length": int(length), "cost": float(cost)})
+    return out
+
+
 def _main(req: str, out: str) -> int:
     import jax
 

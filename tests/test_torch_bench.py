@@ -251,5 +251,5 @@ def test_default_outputs_are_the_ports_own(monkeypatch):
     assert {m: k for m, (_, k) in bench.ARTIFACTS.items() if k} == {
         "faults": "TSP_BENCH_FAULTS_OUT", "obs": "TSP_BENCH_OBS_OUT", "serve": "TSP_BENCH_SERVE_OUT",
         "shard": "TSP_BENCH_SHARD_OUT", "balance": "TSP_BENCH_BALANCE_OUT", "step": "TSP_BENCH_STEP_OUT",
-        "fleet": "TSP_BENCH_FLEET_OUT"}
+        "fleet": "TSP_BENCH_FLEET_OUT", "compile": "TSP_BENCH_COMPILE_OUT"}
     assert bh.resolve_history_path(bench.REPO_ROOT) == os.path.join(ROOT, "bench_history_torch.jsonl")

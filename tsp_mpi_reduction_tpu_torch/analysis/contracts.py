@@ -21,14 +21,18 @@ consumed; torch has no donation, and the port promises in-place writes
 instead. Here it checks that the frontier's node buffer is the same
 allocation (``data_ptr``) after a dispatch as before it.
 
-The JAX package's ``RecompilationGuard`` guards ``jax.jit`` caches, which
-the port does not have.
+``RecompilationGuard`` is the JAX package's guard
+(``tsp_mpi_reduction_tpu/analysis/contracts.py:262-323``), with its
+semantics and messages. Where the JAX guard reads a jitted callable's
+``_cache_size()``, this one reads the same method of the graph store's
+entries (``perf.compile_cache.GraphEntry``: the captures made under the
+entry's name in this process).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -210,11 +214,13 @@ def donation_ptr(buf) -> Optional[int]:
     return None if level() == "off" else buf.data_ptr()
 
 
-def check_padded_tour(t, *, capacity: Optional[int] = None, where: str = ""):
+def check_padded_tour(t, *, capacity: Optional[int] = None, where: str = "", values: bool = True):
     """Validate a PaddedTour's structural invariants; returns ``t``.
 
     Accepts one tour (``ids [P]``) and batches (``ids [..., P]`` with
     length and cost of the batch shape), as the tree folds produce.
+    ``values=False`` keeps to the metadata at every level: the merge fold's
+    captured step, whose fold checks the values at its boundary.
     """
     lv = level()
     if lv == "off":
@@ -237,8 +243,80 @@ def check_padded_tour(t, *, capacity: Optional[int] = None, where: str = ""):
     if capacity is not None and shape[-1] != capacity:
         _fail(where, f"PaddedTour capacity {shape[-1]}, expected {capacity}")
     _same_device(where, "PaddedTour", ids, length, cost)
-    if lv == "strict":
+    if lv == "strict" and values:
         ln = np.asarray(torch.as_tensor(length).cpu())
         if (ln < 0).any() or (ln > shape[-1]).any():
             _fail(where, f"PaddedTour.length {ln} outside [0, {shape[-1]}]")
     return t
+
+
+# -- recompilation guard ------------------------------------------------------
+
+
+class RecompilationError(ContractError):
+    """A guarded fixed-shape region captured (compiled) more than its budget."""
+
+
+def jit_cache_size(fn) -> Optional[int]:
+    """Number of compiled entries in a callable's cache (here: the graph
+    store entry's captures), or None if the callable doesn't expose one
+    (a plain python function)."""
+    size = getattr(fn, "_cache_size", None)
+    if size is None:
+        return None
+    try:
+        return int(size())
+    except Exception:  # noqa: BLE001 — any failure means "no cache to read"
+        return None
+
+
+class RecompilationGuard:
+    """Fail when named entry points compile more than ``limit`` new cache
+    entries inside the guarded region.
+
+    >>> with RecompilationGuard({"fold_tours": merge.FOLD}, limit=0):
+    ...     for _ in range(100):
+    ...         fold_tours(tours, costs, dist)   # fixed shapes: 0 captures
+
+    Entry points must expose ``_cache_size()`` (the graph store's
+    ``GraphEntry``). A fixed-shape loop warmed up before entry must stay at
+    zero misses; ``limit`` budgets intentional first-call compiles when
+    warmup happens inside the region.
+    """
+
+    def __init__(self, entries: Mapping[str, Any], limit: int = 0):
+        unknown = [k for k, fn in entries.items() if jit_cache_size(fn) is None]
+        if unknown:
+            raise ValueError(
+                f"not jitted callables (no _cache_size): {', '.join(unknown)}"
+            )
+        self.entries = dict(entries)
+        self.limit = int(limit)
+        self._before: Dict[str, int] = {}
+
+    def __enter__(self) -> "RecompilationGuard":
+        self._before = {k: jit_cache_size(fn) for k, fn in self.entries.items()}
+        return self
+
+    def misses(self) -> Dict[str, int]:
+        """New cache entries per entry point since ``__enter__``."""
+        return {
+            k: jit_cache_size(fn) - self._before.get(k, 0)
+            for k, fn in self.entries.items()
+        }
+
+    def check(self) -> None:
+        over = {k: m for k, m in self.misses().items() if m > self.limit}
+        if over:
+            detail = ", ".join(
+                f"{k}: {m} new compile(s) (budget {self.limit})"
+                for k, m in sorted(over.items())
+            )
+            raise RecompilationError(
+                "fixed-shape region recompiled — a shape/dtype/static-arg is "
+                f"churning per call: {detail}"
+            )
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:  # don't mask the region's own exception
+            self.check()

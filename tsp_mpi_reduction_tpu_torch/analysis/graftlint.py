@@ -52,7 +52,8 @@ unchanged. Each hazard is mechanically detectable from the AST:
       out with an inline disable.
   R8  recording-inside-graph-capture: a telemetry recording (``REGISTRY``,
       spans, the samplers) inside a CUDA-graph capture region — a
-      ``with torch.cuda.graph(..):`` body, or a def handed by name to
+      ``with torch.cuda.graph(..):`` or ``with capture_region(..):`` (the
+      graph store's) body, or a def handed by name to
       ``torch.cuda.make_graphed_callables`` — runs once at capture and
       never at replay.
   R13 unbounded metric-label cardinality at a registry call site.
@@ -119,7 +120,9 @@ DEFAULT_HOT_PATHS = frozenset(
         "_guarded_expand_steps",
         "_read_count",  # the device loop's one count read a step
         "fold_tours",
+        "_fold_step",  # the fold's captured step: replayed 1023 times a fold
         "merge_tours",
+        "_merge",
         "_merge_from_sc",
     }
 )
@@ -218,8 +221,10 @@ _FRESH_TORCH_CALLS = frozenset(
 )
 #: tensor methods that return a copy, not a view (R7)
 _COPY_METHODS = frozenset({"clone", "contiguous"})
-#: CUDA-graph capture spellings (R8)
-_GRAPH_CONTEXTS = frozenset({"torch.cuda.graph", "cuda.graph", "graph"})
+#: CUDA-graph capture spellings (R8); ``capture_region`` is the graph
+#: store's (``perf/compile_cache.py``)
+_GRAPH_CONTEXTS = frozenset({"torch.cuda.graph", "cuda.graph", "graph", "capture_region",
+                             "compile_cache.capture_region"})
 _GRAPHED_CALLABLES = frozenset(
     {"torch.cuda.make_graphed_callables", "cuda.make_graphed_callables",
      "make_graphed_callables"}

@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -85,6 +85,7 @@ from ..obs import tracing as _obs_tracing
 from ..ops import expand_kernels, prim_kernels
 from ..ops.local_search import polish
 from ..perf import ascent_memo as _ascent_memo
+from ..perf import donation as _donation
 from ..resilience import checkpoint as _ckpt_store
 from ..resilience.faults import TransientFault as _TransientFault
 from ..resilience.faults import registry as _fault_registry
@@ -373,6 +374,66 @@ def tour_cost(d: np.ndarray, tour: np.ndarray) -> float:
     return float(d[tour[:-1], tour[1:]].sum())
 
 
+class _IlsRun:
+    """:func:`strong_incumbent` a round at a time: the multistart polish at
+    construction, then one iterated-local-search round a :meth:`step`, with
+    the same kicks, polish and choices as one uninterrupted call, so that
+    :func:`solve_slice` can yield the device between rounds."""
+
+    def __init__(self, d: np.ndarray, starts: int = 8, perturbations: Optional[int] = None,
+                 device="cuda") -> None:
+        t0 = time.perf_counter()
+        n = d.shape[0]
+        if perturbations is None:
+            perturbations = 30 if n >= 30 else 0
+        if n < 4:
+            perturbations = 0  # double-bridge needs 3 distinct interior cuts
+        self.n, self.device = n, device
+        self.d64 = np.asarray(d, np.float64)
+        self.d32 = torch.as_tensor(np.asarray(d, np.float32), device=device)
+        ss = sorted(set(np.linspace(0, n - 1, min(starts, n)).astype(int).tolist()))
+        opens = np.stack([nearest_neighbor_tour(self.d64, s)[:-1] for s in ss])
+        polished = self._polish(opens)
+        costs = [tour_cost(self.d64, np.concatenate([t, t[:1]])) for t in polished]
+        self.best = polished[int(np.argmin(costs))]
+        self.best_cost = float(np.min(costs))
+        self.rng = np.random.default_rng(0)
+        self.batch = polished.shape[0]
+        self.rounds_left = perturbations
+        #: host seconds spent so far (construction and rounds)
+        self.seconds = time.perf_counter() - t0
+
+    def _polish(self, tours: np.ndarray) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(tours, np.int64), device=self.device)
+        return polish(t, self.d32)[0].cpu().numpy().astype(np.int32)
+
+    @property
+    def done(self) -> bool:
+        return self.rounds_left <= 0
+
+    def step(self) -> None:
+        """One round: a batch of double-bridge kicks of the best tour,
+        re-polished. A round that raises leaves the run as it was."""
+        t0 = time.perf_counter()
+        rng_state = self.rng.bit_generator.state
+        try:
+            kicks = [_double_bridge(self.rng, self.best, self.n) for _ in range(self.batch)]
+            repolished = self._polish(np.stack(kicks))
+        except BaseException:
+            self.rng.bit_generator.state = rng_state
+            raise
+        rcosts = [tour_cost(self.d64, np.concatenate([t, t[:1]])) for t in repolished]
+        rbest = int(np.argmin(rcosts))
+        if rcosts[rbest] < self.best_cost:
+            self.best_cost = rcosts[rbest]
+            self.best = repolished[rbest]
+        self.rounds_left -= 1
+        self.seconds += time.perf_counter() - t0
+
+    def tour(self) -> np.ndarray:
+        return _close_from_zero(self.best)
+
+
 def strong_incumbent(
     d: np.ndarray, starts: int = 8, perturbations: Optional[int] = None, device="cuda"
 ) -> np.ndarray:
@@ -381,36 +442,10 @@ def strong_incumbent(
     iterated local search: a batch of double-bridge kicks of the best tour,
     re-polished. ``None`` picks 30 rounds for n >= 30, else 0. Costs are
     measured on the host in float64. Returns a closed [n+1] tour from 0."""
-    n = d.shape[0]
-    if perturbations is None:
-        perturbations = 30 if n >= 30 else 0
-    if n < 4:
-        perturbations = 0  # double-bridge needs 3 distinct interior cuts
-    d64 = np.asarray(d, np.float64)
-    d32 = torch.as_tensor(np.asarray(d, np.float32), device=device)
-
-    def vpolish(tours: np.ndarray) -> np.ndarray:
-        t = torch.as_tensor(np.asarray(tours, np.int64), device=device)
-        return polish(t, d32)[0].cpu().numpy().astype(np.int32)
-
-    ss = sorted(set(np.linspace(0, n - 1, min(starts, n)).astype(int).tolist()))
-    opens = np.stack([nearest_neighbor_tour(d64, s)[:-1] for s in ss])
-    polished = vpolish(opens)
-    costs = [tour_cost(d64, np.concatenate([t, t[:1]])) for t in polished]
-    best = polished[int(np.argmin(costs))]
-    best_cost = float(np.min(costs))
-
-    rng = np.random.default_rng(0)
-    batch = polished.shape[0]
-    for _ in range(perturbations):
-        kicks = [_double_bridge(rng, best, n) for _ in range(batch)]
-        repolished = vpolish(np.stack(kicks))
-        rcosts = [tour_cost(d64, np.concatenate([t, t[:1]])) for t in repolished]
-        rbest = int(np.argmin(rcosts))
-        if rcosts[rbest] < best_cost:
-            best_cost = rcosts[rbest]
-            best = repolished[rbest]
-    return _close_from_zero(best)
+    run = _IlsRun(d, starts, perturbations, device)
+    while not run.done:
+        run.step()
+    return run.tour()
 
 
 def strong_incumbent_host(
@@ -1215,8 +1250,8 @@ class _Reservoir:
         self.stats.rounds += 1
         self.stats.events += 1
         self.stats.bytes_to_device += keep.nbytes
-        fr.nodes[:take].copy_(torch.from_numpy(keep))
-        return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
+        nodes = _donation.set_rows_donated(fr.nodes, torch.from_numpy(keep))
+        return Frontier(nodes, _count_like(fr.count, take), fr.overflow)
 
     def _partition(self, extra, inc_cost, integral, capacity: int):
         """Merge ``extra`` rows (or None) with every spilled chunk, drop the
@@ -1273,8 +1308,8 @@ class _Reservoir:
         take = keep.shape[0]
         _contracts.check_exchange_count(take, capacity, where="_Reservoir.exchange")
         self.stats.bytes_to_device += keep.nbytes
-        fr.nodes[:take].copy_(torch.from_numpy(keep))
-        return Frontier(fr.nodes, _count_like(fr.count, take), fr.overflow)
+        nodes = _donation.set_rows_donated(fr.nodes, torch.from_numpy(keep))
+        return Frontier(nodes, _count_like(fr.count, take), fr.overflow)
 
     def exchange_rows(self, live: np.ndarray, inc_cost, integral, capacity: int,
                       merge: bool = True):
@@ -1529,6 +1564,7 @@ def solve(
     push_block: int = 0,
     step_kernel: str = "auto",
     device="cuda",
+    incumbent: Optional[np.ndarray] = None,
 ) -> BnBResult:
     """Exact B&B on one device; ``d`` is a dense [n, n] distance matrix.
 
@@ -1554,7 +1590,9 @@ def solve(
     (rows - k*n), a non-empty reservoir or a count inside the spill band
     is exchanged before the first step, and the snapshot's certified LB
     floors the reported ``lower_bound``. ``ascent``: where the root
-    ascent runs ("host" or "device", :func:`_bound_setup`).
+    ascent runs ("host" or "device", :func:`_bound_setup`). ``incumbent``:
+    a closed tour from city 0 that a fresh search starts from instead of
+    the ILS's (:func:`solve_slice` runs the ILS in rounds of its own).
     """
     t_setup = time.perf_counter()
     n = d.shape[0]
@@ -1599,7 +1637,10 @@ def solve(
                                            source=f" from checkpoint {resume_from!r}")
     else:
         t_ils = time.perf_counter()
-        inc_tour_np = _initial_incumbent(d, ils_rounds, device)
+        if incumbent is None:
+            inc_tour_np = _initial_incumbent(d, ils_rounds, device)
+        else:
+            inc_tour_np = np.asarray(incumbent, np.int32)
         ils_s = time.perf_counter() - t_ils
         inc_cost = torch.tensor(tour_cost(np.asarray(d, np.float64), inc_tour_np),
                                 dtype=torch.float32, device=device)
@@ -1787,6 +1828,15 @@ class ResumeHandle:
         return float(min(max((self.lower_bound - self.first_lower_bound) / span, 0.0), 1.0))
 
 
+@dataclass
+class _IlsHandle(ResumeHandle):
+    """The handle of a proof whose slices so far ran its ILS alone: no
+    snapshot and no bound yet (``lower_bound`` and ``first_lower_bound``
+    are -inf), and ``ils`` holds the rounds still to run."""
+
+    ils: Optional[_IlsRun] = None
+
+
 def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = None, *,
                 checkpoint_path: Optional[str] = None,
                 **solve_kw) -> Tuple[BnBResult, Optional[ResumeHandle]]:
@@ -1801,13 +1851,39 @@ def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = 
     unchanged and must be the same for every slice (``max_iters`` there
     caps each slice's iterations). Each slice's result carries its own
     telemetry series, as the JAX package's does.
+
+    A fresh proof's ILS (:func:`strong_incumbent`, 30 rounds from 30
+    cities on) runs a round at a time under the same limit, so that it
+    does not hold the device past the slice either: a slice that ends
+    inside it returns the ILS's best tour with no bound yet, and its
+    handle carries the rounds. The search starts in the slice where the
+    ILS ends, from the incumbent an unsliced :func:`solve` would build.
     """
     path = handle.checkpoint_path if handle is not None else checkpoint_path
     if not path:
         raise ValueError("solve_slice needs a checkpoint_path for its first slice")
     t0 = time.perf_counter()
-    res = solve(d, time_limit_s=max(float(slice_s), 1e-3), checkpoint_path=path,
-                resume_from=path if handle is not None else None, **solve_kw)
+    ils = handle.ils if isinstance(handle, _IlsHandle) else None
+    if handle is None or ils is not None:
+        if ils is None:
+            ils = _IlsRun(d, starts=16, perturbations=solve_kw.get("ils_rounds"),
+                          device=solve_kw.get("device", "cuda"))
+        else:
+            ils.step()  # every slice makes progress, whatever its limit
+        while not ils.done and time.perf_counter() - t0 < slice_s:
+            ils.step()
+        if not ils.done:
+            return _ils_slice(d, ils, handle, path, time.perf_counter() - t0)
+        left = slice_s - (time.perf_counter() - t0)
+        res = solve(d, time_limit_s=max(left, 1e-3), checkpoint_path=path, incumbent=ils.tour(),
+                    **solve_kw)
+        res = replace(res, ils_seconds=ils.seconds,
+                      setup_seconds=res.setup_seconds + ils.seconds)
+        first_lb = float(res.root_lower_bound)
+    else:
+        res = solve(d, time_limit_s=max(float(slice_s), 1e-3), checkpoint_path=path,
+                    resume_from=path, **solve_kw)
+        first_lb = handle.first_lower_bound
     elapsed = time.perf_counter() - t0
     if res.proven_optimal:
         return res, None
@@ -1817,9 +1893,25 @@ def solve_slice(d: np.ndarray, slice_s: float, handle: Optional[ResumeHandle] = 
         elapsed_s=(handle.elapsed_s if handle is not None else 0.0) + elapsed,
         incumbent=float(res.cost),
         lower_bound=float(res.lower_bound),
-        first_lower_bound=(handle.first_lower_bound if handle is not None
-                           else float(res.root_lower_bound)),
+        first_lower_bound=first_lb,
     )
+
+
+def _ils_slice(d: np.ndarray, ils: _IlsRun, handle: Optional[ResumeHandle], path: str,
+               elapsed: float) -> Tuple[BnBResult, _IlsHandle]:
+    """A slice that ended inside the ILS: its best tour, no bound, and the
+    handle that carries the rounds left."""
+    tour = ils.tour()
+    # the cost a search would start from: float64 on the host, then float32
+    cost = float(np.float32(tour_cost(np.asarray(d, np.float64), tour)))
+    res = BnBResult(cost=cost, tour=tour, nodes_expanded=0, iterations=0, proven_optimal=False,
+                    wall_seconds=0.0, nodes_per_sec=0.0, time_to_best=0.0,
+                    setup_seconds=ils.seconds, ils_seconds=ils.seconds)
+    return res, _IlsHandle(
+        checkpoint_path=path,
+        slices=(handle.slices if handle is not None else 0) + 1,
+        elapsed_s=(handle.elapsed_s if handle is not None else 0.0) + elapsed,
+        incumbent=cost, lower_bound=-np.inf, first_lower_bound=-np.inf, ils=ils)
 
 
 # ---------------------------------------------------------------------------
@@ -1859,7 +1951,8 @@ def _apply_keeps(fr: Frontier, keeps: dict, new_counts: np.ndarray, stats: Spill
             block[i, : keeps[r].shape[0]] = keeps[r]
         stats.bytes_to_device += block.nbytes
         # one upload a spill round: the kept rows and their rank slots  # graftlint: disable=R2
-        nodes[torch.as_tensor(ridx, device=nodes.device), :mt] = torch.from_numpy(block).to(nodes.device)
+        ridx_t, block_t = torch.as_tensor(ridx, device=nodes.device), torch.from_numpy(block).to(nodes.device)
+        nodes = _donation.set_rank_rows_donated(nodes, ridx_t, block_t)
     # one upload a spill round: the local counts  # graftlint: disable=R2
     count = torch.as_tensor(new_counts.astype(np.int32), device=nodes.device)
     return Frontier(nodes, count, fr.overflow)

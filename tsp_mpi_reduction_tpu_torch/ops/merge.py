@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..analysis import contracts
+from ..perf import compile_cache
 from .distance import edge_length
 
 
@@ -71,7 +72,7 @@ def _merge_from_sc(t1: PaddedTour, t2: PaddedTour, sc: torch.Tensor) -> PaddedTo
     i1 = torch.arange(p1, device=dev)
     i2 = torch.arange(p2, device=dev)
     valid = (i1[:, None] < t1.length[..., None, None]) & (i2[None, :] < t2.length[..., None, None])
-    sc = torch.where(valid, sc, torch.tensor(float("inf"), dtype=sc.dtype, device=dev))
+    sc = torch.where(valid, sc, float("inf"))  # a Python scalar: no host-to-device copy
 
     flat_sc = sc.flatten(-2)
     flat = flat_sc.argmin(dim=-1)  # first minimum in i-major, j-minor order
@@ -91,6 +92,11 @@ def merge_tours(t1: PaddedTour, t2: PaddedTour, dist: torch.Tensor) -> PaddedTou
     """
     contracts.check_padded_tour(t1, where="merge_tours.t1")
     contracts.check_padded_tour(t2, where="merge_tours.t2")
+    return _merge(t1, t2, dist)
+
+
+def _merge(t1: PaddedTour, t2: PaddedTour, dist: torch.Tensor) -> PaddedTour:
+    """:func:`merge_tours` without its boundary checks."""
     a, b, r1, r2 = _tour_edges(t1, t2)
     # swapPairCost (tsp.cpp:197-200) in its order of additions:
     # ((d(a, r2) + d(b, r1)) - d(a, b)) - d(r1, r2)
@@ -171,10 +177,57 @@ def make_padded(ids, length, cost, capacity: int, device=None) -> PaddedTour:
     if pad < 0:
         raise ValueError(f"tour of size {ids.shape[0]} exceeds capacity {capacity}")
     buf = torch.nn.functional.pad(ids, (0, pad))
-    length = torch.as_tensor(length, device=dev).to(torch.int32)
+    if isinstance(length, torch.Tensor):
+        length = length.to(device=dev, dtype=torch.int32)
+    else:  # a device fill, not a host-to-device copy
+        length = torch.full((), int(length), dtype=torch.int32, device=dev)
     buf = torch.where(torch.arange(capacity, device=dev) < length, buf, 0).to(torch.int32)
     return contracts.check_padded_tour(PaddedTour(buf, length, torch.as_tensor(cost, device=dev)),
                                        capacity=capacity, where="make_padded")
+
+
+def _fold_step(acc_ids: torch.Tensor, acc_len: torch.Tensor, acc_cost: torch.Tensor,
+               tours: torch.Tensor, costs: torch.Tensor, dist: torch.Tensor,
+               step: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One merge of the sequential fold, in place: tour ``step`` of the
+    ``[B, L]`` ``tours`` (cost ``costs[step]``) goes into the accumulator
+    (``acc_ids [capacity]``, 0-d ``acc_len`` and ``acc_cost``), and the 0-d
+    int64 device index ``step`` advances by one. Counterpart of ``step`` in
+    ``tsp_mpi_reduction_tpu/ops/merge.py:203-208``, the body of its
+    ``lax.scan``.
+
+    It reads nothing on the host and uploads nothing, so the graph store
+    captures it once and replays it: the tour is gathered by the device
+    index, the accumulator written over in place. Only the contracts'
+    metadata checks run here (at capture, on CUDA); :func:`fold_tours`
+    checks values at its boundary. Returns the accumulator buffers."""
+    idx = step.view(1)
+    t2 = PaddedTour(tours.index_select(0, idx)[0],
+                    torch.full((), tours.shape[1], dtype=torch.int32, device=tours.device),
+                    costs.index_select(0, idx)[0])
+    acc = PaddedTour(acc_ids, acc_len, acc_cost)
+    contracts.check_padded_tour(acc, where="merge_tours.t1", values=False)
+    contracts.check_padded_tour(t2, where="merge_tours.t2", values=False)
+    out = _merge(acc, t2, dist)
+    acc_ids.copy_(out.ids)
+    acc_len.copy_(out.length)
+    acc_cost.copy_(out.cost)
+    step.add_(1)
+    return acc_ids, acc_len, acc_cost
+
+
+#: the fold's entry in the graph store: ``_fold_step`` captured once per
+#: key (shapes, dtypes, device) and replayed B-1 times a fold
+FOLD = compile_cache.GraphEntry("fold_tours", _fold_step)
+
+
+def _fold_eager(acc: PaddedTour, tours: torch.Tensor, costs: torch.Tensor, dist: torch.Tensor,
+                step: torch.Tensor, merges: int) -> None:  # graftlint: hot
+    """The fold's steps issued one by one from Python, into ``acc`` in
+    place: the CPU path, and the one ``TSP_COMPILE_CACHE=off`` asks for on
+    CUDA."""
+    for _ in range(merges):  # no graph on the CPU or by request  # graftlint: disable=R4
+        _fold_step(acc.ids, acc.length, acc.cost, tours, costs, dist, step)
 
 
 def fold_tours(
@@ -183,6 +236,13 @@ def fold_tours(
     """Sequential left fold of per-block tours, as a rank's local merge
     does (tsp.cpp:348-352): merge the accumulated tour with each next
     block's tour, in block order, in a fixed ``capacity`` buffer.
+
+    On CUDA the B-1 merges are replays of :func:`_fold_step`'s graph from
+    the store (``perf/compile_cache.py``), captured on the first fold of
+    these shapes: no host read until the fold returns. On the CPU, and on
+    CUDA under ``TSP_COMPILE_CACHE=off``, the same step runs eagerly in a
+    Python loop. Both issue the same kernels in the same order, so their
+    results are equal bit for bit.
 
     Args:
       tours: ``[B, L]`` closed tours of global city ids (L = n+1).
@@ -196,11 +256,16 @@ def fold_tours(
     b, l = tours.shape
     if capacity is None:
         capacity = b * (l - 1) + 1
-    acc = make_padded(tours[0], l, costs[0], capacity)
-    # once a fold, before the loop  # graftlint: disable=R2
-    length = torch.tensor(l, dtype=torch.int32, device=tours.device)
-    for i in range(1, b):
-        acc = merge_tours(acc, PaddedTour(tours[i], length, costs[i]), dist)
+    cost_dtype = torch.promote_types(costs.dtype, dist.dtype)
+    acc = make_padded(tours[0], l, costs[0].to(cost_dtype, copy=True), capacity)
+    if b > 1:
+        step = torch.ones((), dtype=torch.int64, device=tours.device)
+        graph = FOLD.graph(acc.ids, acc.length, acc.cost, tours, costs, dist, step)
+        if graph is None:
+            _fold_eager(acc, tours, costs, dist, step, b - 1)
+        else:
+            acc = PaddedTour(*graph(acc.ids, acc.length, acc.cost, tours, costs, dist, step, replays=b - 1))
+    contracts.check_padded_tour(acc, capacity=capacity, where="fold_tours")
     return acc.ids, acc.length, acc.cost
 
 

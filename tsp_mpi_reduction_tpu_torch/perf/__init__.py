@@ -1,1 +1,3 @@
-"""Host-side performance helpers of the port (the root-ascent memo)."""
+"""Performance layers of the port: the graph store (``compile_cache``),
+the root-ascent memo (``ascent_memo``) and the in-place frontier writes
+(``donation``)."""

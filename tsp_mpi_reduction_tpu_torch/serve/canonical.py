@@ -151,6 +151,9 @@ class CanonicalCache:
                 return None
             self._entries.move_to_end(key)
             self.sorts_saved += 1
+            from ..perf.compile_cache import STATS as _PERF_STATS
+
+            _PERF_STATS.incr("canonical_sorts_saved")
             return ci
 
     def put(self, q: np.ndarray, ci: CanonicalInstance) -> None:

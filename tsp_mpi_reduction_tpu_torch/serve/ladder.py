@@ -60,6 +60,12 @@ TIERS = ("bnb", "pipeline", "greedy")
 #: strength order for cache-upgrade decisions (higher = stronger rung)
 _TIER_RANK = {"greedy": 0, "pipeline": 1, "bnb": 2}
 
+#: expansion steps between the default bnb rung's checks of its slice's
+#: time limit (``solve``'s ``inner_steps``); with solve's default of 32,
+#: bench serve's 0.05 s slices of a 38-city proof ran 0.20-0.38 s on an
+#: H100 80GB HBM3 at 700 W
+BNB_INNER_STEPS = 4
+
 
 @dataclass
 class LadderResult:
@@ -399,6 +405,7 @@ class DeadlineLadder:
             solve_kw=dict(
                 capacity=self.cfg.bnb_capacity,
                 k=self.cfg.bnb_k,
+                inner_steps=BNB_INNER_STEPS,
                 device_loop=False,  # fine-grained time-limit checks
             ),
         )

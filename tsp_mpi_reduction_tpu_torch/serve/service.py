@@ -54,7 +54,7 @@ from ..obs import metrics as _metrics
 from ..obs import slo as _slo
 from ..obs import tracing as _tracing
 from ..obs.metrics import REGISTRY as _REGISTRY
-from ..perf import ascent_memo as _ascent_memo
+from ..perf import compile_cache as _compile_cache
 from ..resilience.faults import TransientFault
 from ..resilience.health import HEALTH
 from ..resilience.retry import RetryPolicy
@@ -375,9 +375,9 @@ class SolveService:
             # THIS session's recoveries, not the process's lifetime count
             # (registry-backed delta; see resilience.health)
             health=HEALTH.delta_since(self._health0),
-            # the root-ascent memo's counters: the port's only
-            # compile-once cache (no XLA, so no AOT keys)
-            compile_cache=_ascent_memo.STATS.snapshot(),
+            # the JAX keys: the graph store's counters (the blocked rung's
+            # fold) and the root-ascent memo's
+            compile_cache=_compile_cache.stats_dict(),
             slo=slo_block,
             obs=reporting.obs_block(
                 trace_path=_tracing.TRACER.path,

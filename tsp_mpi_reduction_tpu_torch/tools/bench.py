@@ -4,11 +4,9 @@
         [--quick] [--out-dir=DIR] [--n=16 --blocks=100]
 
 Counterpart of the root ``bench.py``. ``--mode`` (or ``TSP_BENCH=M``)
-picks one of the ten modes below; each measures on the card what the JAX
-mode measures on its device (the same workload, headline metric name,
-unit, gates and ``vs_baseline``). The JAX ``compile`` mode has no
-counterpart: it times the XLA executable store, and the port compiles
-nothing at run time but the one-off kernel build (``build_s``).
+picks one of the eleven modes below; each measures on the card what the
+JAX mode measures on its device (the same workload, headline metric name,
+unit, gates and ``vs_baseline``).
 
 - ``pipeline`` (``bench.py:2099-2370``): the blocked pipeline at 16 cities
   x 100 blocks on 1000x1000 (``--n``, ``--blocks``; metric
@@ -102,7 +100,7 @@ nothing at run time but the one-off kernel build (``build_s``).
   ``FleetFront`` over real serve CLI replicas (``--backend``: each replica
   its own CUDA context) on n = 8 (``TSP_BENCH_FLEET_N``): a clean sweep at
   1, 2 and 4 replicas and a chaos sweep under ``replica.kill`` (32
-  requests, ``_REQS``; ``--quick``: clean 1 and 2, chaos 2), then the
+  requests, ``_REQS``; ``--quick``: clean 1, no chaos sweep), then the
   demo: 3 replicas, 48 requests (``_DEMO_REQS``, at least 48) with every
   fourth on a 50 ms deadline, two kills and a hang, the trace sink on.
   ``fleet_chaos_answered_rate`` counts the demo's valid answers given
@@ -111,6 +109,33 @@ nothing at run time but the one-off kernel build (``build_s``).
   start-up grace is 15 s (JAX: 3 s; a replica's cold start on the card
   is 7.4-10.3 s); the JAX ``compile_cache_dir`` has no counterpart.
   ``launches`` is null: the replicas report no counts.
+- ``compile`` (``bench_compile``, ``bench.py:244-430``): the JAX mode's two
+  legs, every run a fresh process (``TSP_BENCH=compile-child``). chunk: a
+  ``TSP_BENCH_COMPILE_INSTANCE`` (eil51) checkpoint left by a 64-iteration
+  host-loop solve (k 64, capacity 2^15, no ILS) is resumed for ONE
+  device-loop dispatch: post-import (torch imported, the CUDA context up,
+  the kernels loaded) to its end, cold (``TSP_COMPILE_CACHE=off``), then
+  on a shared directory (populate, then warm; full runs go cold,
+  populate, warm, warm, cold and take medians); costs and certified LB
+  equal. The cross-process layer here is the ascent memo's disk tier
+  (graphs live in their process), so warm saves the root ascent
+  (``setup_s``). serve: a fresh scheduler's first flush of 16 blocks of
+  8 cities, cold against warmed (``precompile`` and the directory); tours
+  equal. Then, in this process, the merge fold at ``--n`` x ``--blocks``
+  (16 x 100): a first fold on a cold key (its capture seconds the store's
+  record of the miss), a fold replayed from the store (0 captures) and
+  one under ``TSP_COMPILE_CACHE=off``, equal. Then the one-shot pipeline
+  CLI at ``--n`` x ``--blocks`` in fresh processes with the store and
+  under ``TSP_COMPILE_CACHE=off`` (ABBA: its wall ms and ``merge_fold``
+  seconds, equal costs). Then, on the card, ``serve_store``: serve
+  traffic (``chip_smoke.py`` phase 14's A/B/C mix, then 16 pipeline-tier
+  sizes twice, one request at a time: ``STORE_MIX_*``) in fresh processes
+  with the store and without it, ABBA: latency p50/p99 a group, the
+  fold's seconds, captures and the store's size; the sized stream's
+  costs equal in every run. ``--quick`` skips the populating runs, the
+  second cold and warm chunks, the CLI and ``serve_store``.
+  ``compile_once_warm_start`` = cold / warm chunk startup; ``vs_baseline``
+  null.
 
 Timing: each timed run starts after a device synchronize and ends with one
 and the read of its result, on the host clock; the kernels' build and the
@@ -122,7 +147,8 @@ windows into ``launches``, each window's counts reset just before it and
 read just after: pipeline's timed runs, each timed bnb proof, faults' B&B
 run and its timed saves, each obs arm and its serve session, serve's
 five legs, spill's solve, each timed shard solve, each balance leg's
-timed solves and each step leg's timed dispatches (fleet: none). On the
+timed solves and each step leg's timed dispatches (fleet and compile:
+none). On the
 CPU they are 0 (the wrappers count CUDA launches only).
 
 Always-print rule: the run lives under a wall budget from process start
@@ -163,7 +189,8 @@ from typing import Any, Callable, Dict, List, Optional
 #: process-start anchor of the wall budget
 _T0 = time.monotonic()
 
-MODES = ("pipeline", "bnb", "faults", "obs", "serve", "spill", "shard", "balance", "step", "fleet")
+MODES = ("pipeline", "bnb", "faults", "obs", "serve", "spill", "shard", "balance", "step", "fleet",
+         "compile")
 #: the C++ reference at 16 cities x 100 blocks, single rank, on a CPU host
 #: (``BASELINE.md``; the JAX bench's ``BASELINE_MS``)
 BASELINE_MS = 69997.0
@@ -193,6 +220,7 @@ ARTIFACTS = {
     "balance": ("BENCH_BALANCE.json", "TSP_BENCH_BALANCE_OUT"),
     "step": ("BENCH_STEP_FUSED.json", "TSP_BENCH_STEP_OUT"),
     "fleet": ("BENCH_FLEET.json", "TSP_BENCH_FLEET_OUT"),
+    "compile": ("BENCH_COMPILE_CACHE.json", "TSP_BENCH_COMPILE_OUT"),
 }
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_OUT_DIR = os.path.join(REPO_ROOT, "build", "bench_torch")
@@ -258,6 +286,7 @@ def headline(mode: str, n: int = N, blocks: int = BLOCKS) -> tuple:
         "balance": ("shard_balance_imbalance", "ratio"),
         "step": ("fused_vs_reference_expansion_step", "x"),
         "fleet": ("fleet_chaos_answered_rate", "fraction"),
+        "compile": ("compile_once_warm_start", "x cold/warm chunk startup"),
     }[mode]
 
 
@@ -1033,6 +1062,7 @@ def bench_serve(run: Run) -> Outcome:
                     deadline_tiers[tier] = deadline_tiers.get(tier, 0) + 1
             tight_exact_rate = tight_exact / tight_reqs
             stats = json.loads(svc.stats_json())
+            slice_log = list(svc.scheduler.bnb_slice_log)
         finally:
             svc.close()
             tracing.configure(None)
@@ -1048,12 +1078,23 @@ def bench_serve(run: Run) -> Outcome:
     # correctness gates the run; the JAX bench's speed targets (set on its
     # CPU host) are reported beside the ratios and not gated
     targets = {"microbatch_ratio_min": 2.0, "service_ratio_min": 3.0, "tight_exact_rate_min": 0.9}
-    ok = (
-        tours_match and service_tours_match and bnb_identical and hit_rate >= 1.0
-        and deadline_valid == deadline_reqs
-        and int(admission.get("preemptions", 0)) >= 1 and int(admission.get("resumes", 0)) >= 1
-        and preempt_spans >= 1 and resume_spans >= 1
-    )
+    gates = {
+        "tours_match": bool(tours_match),
+        "service_tours_match": bool(service_tours_match),
+        "bnb_identical": bool(bnb_identical),
+        "resubmits_hit": hit_rate >= 1.0,
+        "deadline_valid": deadline_valid == deadline_reqs,
+        "preempted_and_resumed": (int(admission.get("preemptions", 0)) >= 1
+                                  and int(admission.get("resumes", 0)) >= 1
+                                  and preempt_spans >= 1 and resume_spans >= 1),
+    }
+    ok = all(gates.values())
+    # the iteration-level leg: each request's tier and latency, and each
+    # proof slice's seconds, so a failed gate shows where the time went
+    it_lat = sorted(float(r.get("latency_ms", 0.0)) for r in bat_responses.values())
+    it_tiers: Dict[str, int] = {}
+    for r in bat_responses.values():
+        it_tiers[r.get("tier", "error")] = it_tiers.get(r.get("tier", "error"), 0) + 1
     artifact = {
         "metric": "serve_microbatch_vs_sequential_throughput",
         "value": ratio,
@@ -1061,6 +1102,7 @@ def bench_serve(run: Run) -> Outcome:
         # the JAX serve mode has none: the ratio is its own comparison
         "vs_baseline": None,
         "ok": bool(ok),
+        "gates": gates,
         "sequential_rps": seq_rps,
         "batched_rps": bat_rps,
         "sequential_service_rps": seq_service_rps,
@@ -1090,6 +1132,12 @@ def bench_serve(run: Run) -> Outcome:
                         "tight_exact_rate": tight_exact_rate >= targets["tight_exact_rate_min"]},
         "preempt_spans": preempt_spans,
         "resume_spans": resume_spans,
+        "iteration_level": {
+            "tiers": it_tiers,
+            "latency_ms": {"p50": it_lat[len(it_lat) // 2], "max": it_lat[-1]},
+            "bnb_slice_s": [round(r["seconds"], 4) for r in slice_log],
+            "bnb_slice_save_s": [round(r["save_s"], 4) for r in slice_log],
+        },
         "launches": launches,
         "admission": admission,
         "microbatch_scheduler": sched_stats,
@@ -1103,6 +1151,10 @@ def bench_serve(run: Run) -> Outcome:
     print(f"bench: serve: microbatch {ratio:.3f}x ({seq_rps:.1f} -> {bat_rps:.1f} req/s), service "
           f"{service_ratio:.3f}x, tight exact {tight_exact_rate:.3f}, preemptions "
           f"{admission.get('preemptions', 0)}", file=sys.stderr)
+    if not ok:
+        print(f"bench: serve: failed gates {[g for g, v in gates.items() if not v]}, iteration-level "
+              f"tiers {it_tiers}, latency max {it_lat[-1]:.1f} ms, proof slices "
+              f"{[round(r['seconds'], 3) for r in slice_log]} s", file=sys.stderr)
     config = {"requests": reqs_total, "n": n, "bnb_n": bnb_n}
     series = [
         {"metric": "serve_service_ratio", "value": service_ratio, "unit": "x", "ok": bool(ok)},
@@ -1750,8 +1802,9 @@ def _fleet_legs(run: Run, workdir: str) -> Outcome:
                 for i in range(max(replicas * 2, 2))]
         return fleet_leg(cfg, requests, warm, n, chaos_spec, trace_path)
 
-    sweep_r = (1, 2) if run.quick else (1, 2, 4)
-    chaos_r = (2,) if run.quick else (1, 2, 4)
+    # --quick: one clean leg and the demo (its kills and hang are the chaos)
+    sweep_r = (1,) if run.quick else (1, 2, 4)
+    chaos_r = () if run.quick else (1, 2, 4)
     skipped: List[str] = []
     sweep, chaos_sweep = [], []
     for r in sweep_r:
@@ -1831,10 +1884,397 @@ def _fleet_legs(run: Run, workdir: str) -> Outcome:
                               "estimator": "answered-exactly-once-counter"})
 
 
+# -- compile -------------------------------------------------------------------
+
+#: the compile mode's children: the JAX mode's eil51 checkpoint (k 64, so
+#: the device loop's floor 4k(n-1) fits capacity 2^15) and serve batch
+COMPILE_K = 64
+COMPILE_SERVE_N, COMPILE_SERVE_B = 8, 16
+
+
+def _ready_process(device) -> None:
+    """What every process of the port pays before its own work: torch
+    imported (by the caller), the CUDA context up and the kernel libraries
+    loaded (``kernels/_build.py``, built once per checkout). The compile
+    children start their clock after it: their ``startup_s`` is the
+    port's post-import, what the JAX child's clock covers after
+    ``bench.py``'s imports."""
+    import torch
+
+    if device.type != "cuda":
+        return
+    from ..kernels import _build
+
+    torch.zeros(1, device=device).add_(1)
+    torch.cuda.synchronize(device)
+    _build.library(), _build.prim_library(), _build.push_library()
+
+
+def compile_child() -> int:
+    """One measured process of the compile mode (``TSP_BENCH=compile-child``).
+
+    ``TSP_BENCH_COMPILE_MODE``: ``setup`` writes the resume checkpoint the
+    chunk children share; ``chunk`` resumes it and runs ONE device-loop
+    dispatch, reporting post-import to the dispatch's end (what a chunk
+    process of ``tools/bnb_chunked`` pays before its search, after torch,
+    the CUDA context and the kernels, :func:`_ready_process`); ``serve``
+    (optionally ``precompile``-ing the shape) submits one batch and reports
+    the first flush and its tours; ``serve_mix`` runs
+    :func:`serve_mix_child`. Cold or warm is the parent's
+    ``TSP_COMPILE_CACHE`` alone: ``off``, or a shared directory."""
+    mode = os.environ.get("TSP_BENCH_COMPILE_MODE", "chunk")
+    from ..perf import compile_cache
+    from ..utils.backend import resolve_device
+
+    device = resolve_device(os.environ.get("TSP_BENCH_COMPILE_BACKEND", "auto"))
+    _ready_process(device)
+    t0 = time.perf_counter()
+    compile_cache.enable()
+    if mode == "serve_mix":
+        print(json.dumps(serve_mix_child(device)))
+        return 0
+    if mode == "serve":
+        import numpy as np
+
+        from ..serve.scheduler import MicroBatchScheduler
+
+        rng = np.random.default_rng(7)
+        xy = rng.random((COMPILE_SERVE_B, COMPILE_SERVE_N, 2)) * 1000.0
+        diff = xy[:, :, None, :] - xy[:, None, :, :]
+        dists = np.sqrt(np.sum(diff * diff, axis=-1))
+        with MicroBatchScheduler(max_batch=COMPILE_SERVE_B, max_wait_ms=1.0, device=device) as sched:
+            warm_s = 0.0
+            if os.environ.get("TSP_BENCH_COMPILE_WARMUP") == "1":
+                t_w = time.perf_counter()
+                sched.precompile([COMPILE_SERVE_N])
+                warm_s = time.perf_counter() - t_w
+            t_f = time.perf_counter()
+            costs, tours = sched.submit(dists).wait(timeout=600.0)
+            flush_s = time.perf_counter() - t_f
+        print(json.dumps({"mode": mode, "startup_s": time.perf_counter() - t0, "precompile_s": warm_s,
+                          "first_flush_s": flush_s, "costs": [float(c) for c in costs],
+                          "tours": [[int(c) for c in t] for t in tours],
+                          "compile_cache": compile_cache.stats_dict()}))
+        return 0
+
+    from ..models import branch_bound as bb
+    from ..utils import tsplib
+
+    ck = os.environ["TSP_BENCH_COMPILE_CKPT"]
+    d = tsplib.embedded(os.environ.get("TSP_BENCH_COMPILE_INSTANCE", "eil51")).distance_matrix()
+    k = _env_int("TSP_BENCH_COMPILE_K", COMPILE_K)
+    if mode == "setup":
+        # an unproven mid-search checkpoint for the chunk children
+        res = bb.solve(d, capacity=1 << 15, k=k, max_iters=64, ils_rounds=0, checkpoint_path=ck,
+                       device_loop=False, device=device)
+        if res.proven_optimal:
+            raise RuntimeError("the compile mode's setup proved early; shrink max_iters")
+        print(json.dumps({"mode": mode, "cost": res.cost}))
+        return 0
+    res = bb.solve(d, k=k, max_iters=1, resume_from=ck, device_loop=True, device=device)
+    print(json.dumps({"mode": mode, "startup_s": time.perf_counter() - t0, "setup_s": res.setup_seconds,
+                      "dispatch_s": res.wall_seconds, "cost": res.cost, "lb_certified": res.lower_bound,
+                      "compile_cache": compile_cache.stats_dict()}))
+    return 0
+
+
+#: the compile mode's ``serve_store`` leg: ``chip_smoke.py`` phase 14's
+#: A/B/C mix (A: 64 requests of n = 16 at 5 s and C: 4 of n = 1024 at 20 s,
+#: at once; then B, A's instances moved and relabelled: cache hits), then,
+#: on a fresh service, a stream of 16 pipeline-tier sizes (over bnb's
+#: n = 64, each a key of the fold's graph), twice, one request at a time
+STORE_MIX_GROUPS = (("A", 64, 16, 5000.0), ("C", 4, 1024, 20_000.0))
+STORE_MIX_SIZES = (72, 80, 96, 120, 128, 160, 192, 240, 256, 320, 384, 448, 512, 640, 768, 1024)
+STORE_MIX_DEADLINE_MS = 20_000.0
+
+
+def serve_mix_child(device, groups=STORE_MIX_GROUPS, sizes=STORE_MIX_SIZES) -> Dict[str, Any]:
+    """Serve traffic through the fold's graph store, or with it off (the
+    process's ``TSP_COMPILE_CACHE``) -> latency per group, the fold's
+    seconds, captures and the store's size. The A/B/C mix runs on a
+    service with the default objectives, as phase 14's does; the sized
+    stream on a fresh one without objectives, one request at a time, so
+    each request's ``serve.fold`` seconds are its own."""
+    import numpy as np
+
+    from ..ops import merge
+    from ..perf import compile_cache
+    from ..serve.service import ServiceConfig, SolveService, run_jsonl
+
+    rng = np.random.default_rng(14)
+    first = [{"id": f"{g}{i}", "xy": rng.uniform(0, 1000, (n, 2)).tolist(), "deadline_ms": deadline}
+             for g, count, n, deadline in groups for i in range(count)]
+    second = []
+    for req in first[:groups[0][1]]:
+        xy = np.asarray(req["xy"])
+        second.append({"id": "B" + req["id"][1:], "deadline_ms": req["deadline_ms"],
+                       "xy": (xy[rng.permutation(len(xy))] + np.asarray((37.5, -12.25))).tolist()})
+
+    def lat(rows) -> Dict[str, Any]:
+        v = [r["latency_ms"] for r in rows]
+        return {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)), "count": len(v),
+                "tiers": sorted({r["tier"] for r in rows})}
+
+    t0 = time.perf_counter()
+    with SolveService(ServiceConfig(max_batch=64, warm_shapes=(16,), device=str(device))) as svc:
+        resp = []
+        for stream in (first, second):
+            out = io.StringIO()
+            run_jsonl((json.dumps(r) for r in stream), out, service=svc)
+            resp += [json.loads(line) for line in out.getvalue().splitlines()]
+        abc_fold_s = svc.timer.snapshot().get("serve.fold", 0.0)
+    abc = {g: lat([r for r in resp if r["id"][0] == g]) for g in sorted({r["id"][0] for r in resp})}
+    abc.update(wall_s=time.perf_counter() - t0, fold_s=abc_fold_s, captures=merge.FOLD._cache_size())
+    mix = []
+    # no latency objectives: the stream's largest polishes run past the
+    # pipeline tier's objective, which would then shed its second round to
+    # greedy, and every request must reach the fold
+    with SolveService(ServiceConfig(max_batch=64, device=str(device), slos={})) as svc:
+        for rnd in range(2):
+            for n in sizes:
+                fold0, caps = svc.timer.snapshot().get("serve.fold", 0.0), merge.FOLD._cache_size()
+                r = svc.handle({"id": f"M{rnd}-{n}", "xy": rng.uniform(0, 1000, (n, 2)).tolist(),
+                                "deadline_ms": STORE_MIX_DEADLINE_MS})
+                mix.append({"round": rnd, "n": n, "tier": r["tier"], "latency_ms": r["latency_ms"],
+                            "cost": r["cost"], "fold_s": svc.timer.snapshot().get("serve.fold", 0.0) - fold0,
+                            "captures": merge.FOLD._cache_size() - caps})
+    stats = compile_cache.stats_dict()
+    return {"mode": "serve_mix", "store": compile_cache.store_enabled(), "abc": abc,
+            "mix": {**lat(mix), "fold_s": sum(m["fold_s"] for m in mix), "requests": mix},
+            "captures": merge.FOLD._cache_size(), "capture_s": stats["compile_seconds_paid"],
+            "hits": stats["aot_hits"], "store_info": compile_cache.store_info()}
+
+
+def _fold_leg(run: Run) -> Dict[str, Any]:
+    """The merge fold's graph at ``run.n`` x ``run.blocks`` (the pipeline
+    mode's instance): a first fold on a cold key (its capture seconds are
+    the store's record of the miss), a fold replayed from the store and
+    one under ``TSP_COMPILE_CACHE=off``, each synchronize to synchronize;
+    ids, length and cost must agree."""
+    from unittest import mock
+
+    import torch
+
+    from ..ops import merge
+    from ..ops.distance import distance_matrix
+    from ..ops.generator import generate_instance
+    from ..ops.held_karp import solve_blocks_from_dists
+    from ..perf import compile_cache
+    from ..utils.backend import default_dtype
+
+    device, n, nb = run.device, run.n, run.blocks
+    dtype = default_dtype(device)
+    _, xy = generate_instance(n, nb, GRID, GRID)
+    xy_blocks = torch.as_tensor(xy, device=device).to(dtype)
+    costs, local = solve_blocks_from_dists(distance_matrix(xy_blocks), dtype)
+    tours = local + (torch.arange(nb, dtype=torch.int32, device=device) * n)[:, None]
+    dist = distance_matrix(xy_blocks.reshape(-1, 2))
+    leg: Dict[str, Any] = {"n": n, "blocks": nb, "dtype": str(dtype).replace("torch.", ""),
+                           "graph": device.type == "cuda", "capture_s": None}
+    compile_cache.clear()  # a cold key: the first fold captures
+
+    def fold_seconds() -> float:
+        return compile_cache.stats_dict()["entries"].get(merge.FOLD.name, {}).get("seconds", 0.0)
+
+    seconds, misses = fold_seconds(), compile_cache.stats_dict()["aot_misses"]
+    first, leg["first_fold_s"] = _synced(device, lambda: merge.fold_tours(tours, costs, dist))
+    if device.type == "cuda":
+        leg["capture_s"] = fold_seconds() - seconds  # the first fold's miss, its capture
+    misses = compile_cache.stats_dict()["aot_misses"]
+    stored, leg["replayed_fold_s"] = _synced(device, lambda: merge.fold_tours(tours, costs, dist))
+    # the first fold captured this key: the timed fold only replays
+    leg["captures_in_fold"] = compile_cache.stats_dict()["aot_misses"] - misses
+    with mock.patch.dict(os.environ, {compile_cache.ENV_VAR: "off"}):
+        eager, leg["eager_fold_s"] = _synced(device, lambda: merge.fold_tours(tours, costs, dist))
+    leg["equal"] = all(bool(torch.equal(a, b)) and bool(torch.equal(c, b))
+                       for a, b, c in zip(stored, eager, first))
+    leg["cost"] = float(stored[2])
+    return leg
+
+
+def _cli_leg(run: Run) -> Optional[Dict[str, Any]]:
+    """The one-shot pipeline CLI (``python -m tsp_mpi_reduction_tpu_torch
+    <n> <blocks> 1000 1000 --metrics``) in fresh processes, with the store
+    and under ``TSP_COMPILE_CACHE=off``, in ABBA order (a call's first
+    process pays more than the others): its own wall ms and ``merge_fold``
+    seconds a run, and whether every run printed the same cost."""
+    import subprocess
+
+    runs: Dict[str, List[Dict[str, Any]]] = {"store": [], "off": []}
+    costs = set()
+    for setting in ("store", "off", "off", "store"):
+        if not run.budget.fits():
+            return None
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+        env.pop("TSP_COMPILE_CACHE", None)
+        if setting == "off":
+            env["TSP_COMPILE_CACHE"] = "off"
+        r = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch", str(run.n), str(run.blocks),
+                            str(GRID), str(GRID), "--metrics", f"--backend={run.device.type}"],
+                           capture_output=True, text=True, timeout=max(run.budget.left(), 1.0), env=env,
+                           cwd=REPO_ROOT)
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-2000:])
+            raise RuntimeError(f"the pipeline CLI exited {r.returncode} (TSP_COMPILE_CACHE={setting})")
+        metrics = json.loads(r.stderr.strip().splitlines()[-1])  # --metrics writes to stderr
+        costs.add(r.stdout.strip().splitlines()[-1].rsplit(" ", 1)[-1])
+        runs[setting].append({"elapsed_ms": metrics["elapsed_ms"],
+                              "merge_fold_s": metrics["phases_s"]["merge_fold"]})
+    return {"n": run.n, "blocks": run.blocks, "order": "ABBA", "runs": runs, "costs_equal": len(costs) == 1}
+
+
+def _serve_store_leg(child: Callable, cache_dir: str) -> Optional[Dict[str, Any]]:
+    """:func:`serve_mix_child` in fresh processes with the store and under
+    ``TSP_COMPILE_CACHE=off``, ABBA -> each run's record, and whether the
+    sized stream was answered on the pipeline tier with the same costs in
+    every run (the fold's graph and its eager loop agree bit for bit)."""
+    runs: Dict[str, List[Dict[str, Any]]] = {"store": [], "off": []}
+    for setting in ("store", "off", "off", "store"):
+        got = child("serve_mix", cache_dir if setting == "store" else "off")
+        if got is None:
+            return None
+        runs[setting].append(got)
+    every = runs["store"] + runs["off"]
+    costs = {tuple(m["cost"] for m in r["mix"]["requests"]) for r in every}
+    tiers = {t for r in every for t in r["mix"]["tiers"]}
+    return {"order": "ABBA", "groups": [list(g) for g in STORE_MIX_GROUPS], "sizes": list(STORE_MIX_SIZES),
+            "runs": runs, "mix_costs_equal": len(costs) == 1, "mix_tiers": sorted(tiers),
+            "ok": len(costs) == 1 and tiers == {"pipeline"}
+            and all(r["captures"] == 0 for r in runs["off"])}
+
+
+def bench_compile(run: Run) -> Outcome:
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="bench_compile_")
+    try:
+        return _compile_legs(run, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _compile_legs(run: Run, workdir: str) -> Outcome:
+    import subprocess
+
+    cache_dir = os.path.join(workdir, "compile_cache")
+    ck = os.path.join(workdir, "seed.npz")
+    backend = run.device.type
+    instance = os.environ.get("TSP_BENCH_COMPILE_INSTANCE", "eil51")
+    skipped: List[str] = []
+    # the kernels are built once per checkout: the children load them
+    build_s = _build_kernels(run.device)
+
+    def child(mode: str, cache: str, warmup: bool = False) -> Optional[Dict[str, Any]]:
+        if not run.budget.fits():
+            skipped.append(f"{mode}:{'off' if cache == 'off' else 'dir'}{':warm' if warmup else ''}")
+            return None
+        env = dict(os.environ, TSP_BENCH="compile-child", TSP_BENCH_COMPILE_MODE=mode,
+                   TSP_BENCH_COMPILE_CKPT=ck, TSP_BENCH_COMPILE_BACKEND=backend,
+                   TSP_COMPILE_CACHE=cache, PYTHONPATH=os.pathsep.join(
+                       p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+        env.pop("TSP_BENCH_COMPILE_WARMUP", None)
+        if warmup:
+            env["TSP_BENCH_COMPILE_WARMUP"] = "1"
+        r = subprocess.run([sys.executable, "-m", "tsp_mpi_reduction_tpu_torch.tools.bench"],
+                           capture_output=True, text=True, timeout=max(run.budget.left(), 1.0), env=env,
+                           cwd=REPO_ROOT)
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-2000:])
+            raise RuntimeError(f"compile child {mode} exited {r.returncode}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    # the setup writes the checkpoint (its own memo entry off); --quick
+    # leaves out the populating runs (the setup's ascent fills the shared
+    # directory instead) and the second cold and warm chunks
+    child("setup", "off" if not run.quick else cache_dir)
+    colds = [child("chunk", "off")]
+    populate = child("chunk", cache_dir) if not run.quick else None
+    warms = [child("chunk", cache_dir)]
+    if not run.quick:  # cold, populate, warm, warm, cold
+        warms.append(child("chunk", cache_dir))
+        colds.append(child("chunk", "off"))
+    colds, warms = [c for c in colds if c], [c for c in warms if c]
+    serve_cold = child("serve", "off")
+    if not run.quick:
+        child("serve", cache_dir, warmup=True)
+    serve_warm = child("serve", cache_dir, warmup=True)
+    fold = _fold_leg(run) if run.budget.fits() else None
+    if fold is None:
+        skipped.append("fold")
+    cli = None if run.quick else _cli_leg(run)
+    if cli is None and not run.quick:
+        skipped.append("cli")
+    # serve traffic through the store and with it off (a graph needs the card)
+    serve_store = None
+    if not run.quick and backend == "cuda":
+        serve_store = _serve_store_leg(child, cache_dir)
+        if serve_store is None:
+            skipped.append("serve_store")
+    if not colds or not warms:
+        return Outcome(failed("compile", f"the chunk leg did not fit the {run.budget.seconds:g} s budget",
+                              run, skipped=skipped), {})
+    cold, warm = colds[0], warms[0]
+    cold_s = statistics.median(c["startup_s"] for c in colds)
+    warm_s = statistics.median(c["startup_s"] for c in warms)
+    speedup = cold_s / warm_s if warm_s else None
+    chunks = [c for c in (*colds, populate, *warms) if c is not None]
+    artifact: Dict[str, Any] = {
+        "metric": "compile_once_warm_start",
+        "unit": "x cold/warm chunk startup",
+        "value": speedup,
+        "vs_baseline": None,
+        "instance": instance,
+        "backend": backend,
+        "chunk": {
+            "cold_startup_s": cold_s,
+            "populate_startup_s": populate["startup_s"] if populate else None,
+            "warm_startup_s": warm_s,
+            "cold_startup_runs": [c["startup_s"] for c in colds],
+            "warm_startup_runs": [c["startup_s"] for c in warms],
+            "speedup": speedup,
+            "costs_equal": len({c["cost"] for c in chunks}) == 1,
+            "lb_equal": len({c["lb_certified"] for c in chunks}) == 1,
+            "cost": cold["cost"],
+            "lb_certified": cold["lb_certified"],
+            "cold_setup_s": statistics.median(c["setup_s"] for c in colds),
+            "warm_setup_s": statistics.median(c["setup_s"] for c in warms),
+            "cold_setup_runs": [c["setup_s"] for c in colds],
+            "warm_setup_runs": [c["setup_s"] for c in warms],
+            "cold_compile_cache": cold["compile_cache"],
+            "warm_compile_cache": warm["compile_cache"],
+        },
+        "serve": None,
+        "fold": fold,
+        "cli": cli,
+        "serve_store": serve_store,
+        "build_s": build_s,
+        "skipped": skipped,
+    }
+    if serve_cold is not None and serve_warm is not None:
+        artifact["serve"] = {
+            "cold_first_flush_s": serve_cold["first_flush_s"],
+            "warm_first_flush_s": serve_warm["first_flush_s"],
+            "warm_precompile_s": serve_warm["precompile_s"],
+            "flush_speedup": (serve_cold["first_flush_s"] / serve_warm["first_flush_s"]
+                              if serve_warm["first_flush_s"] else None),
+            "tours_match": serve_cold["tours"] == serve_warm["tours"]
+            and serve_cold["costs"] == serve_warm["costs"],
+        }
+    artifact["ok"] = bool(artifact["chunk"]["costs_equal"] and artifact["chunk"]["lb_equal"]
+                          and artifact["serve"] is not None and artifact["serve"]["tours_match"]
+                          and fold is not None and fold["equal"] and fold["captures_in_fold"] == 0
+                          and (run.quick or (cli is not None and cli["costs_equal"]))
+                          and (serve_store is None or serve_store["ok"]))
+    print(f"bench: compile: chunk cold {cold_s:.3f} s / warm {warm_s:.3f} s ({speedup}x); fold {fold}",
+          file=sys.stderr)
+    return Outcome(artifact, {"instance": instance, "backend": backend, "quick": run.quick})
+
+
 RUNNERS: Dict[str, Callable[[Run], Outcome]] = {
     "pipeline": bench_pipeline, "bnb": bench_bnb, "faults": bench_faults, "obs": bench_obs,
     "serve": bench_serve, "spill": bench_spill, "shard": bench_shard, "balance": bench_balance,
-    "step": bench_step, "fleet": bench_fleet,
+    "step": bench_step, "fleet": bench_fleet, "compile": bench_compile,
 }
 
 
@@ -1898,6 +2338,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    if os.environ.get("TSP_BENCH") == "compile-child":
+        return compile_child()
     args = build_parser().parse_args(argv)
     mode = args.mode
     budget = Budget(float(os.environ.get("TSP_BENCH_BUDGET_S", "600")))

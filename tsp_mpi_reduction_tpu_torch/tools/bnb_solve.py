@@ -23,8 +23,9 @@ each rank's launches, staged collective bytes and cold start go on a
 embedded TSPLIB name, ``random:N[:SEED]`` or a ``.tsp`` path. The line
 carries the keys of the JAX driver's ``result_payload`` that this port
 computes (the host reservoir's ``spill_*`` counters, the ``health``
-block, and a ``compile_cache`` block that holds the root-ascent memo's
-``ascent_memo_hits``/``ascent_memo_misses``), the telemetry blocks
+block, and a ``compile_cache`` block with the JAX keys: the graph
+store's counters and the root-ascent memo's, ``perf/compile_cache.py``),
+the telemetry blocks
 (``series``, ``anomalies``, ``rank_series``, ``obs.rank_balance``, and
 ``obs.device_costs``, the kernels' analytic roofline records; ``null``
 blocks under ``TSP_OBS=off`` or where a single-device solve has no rank
@@ -175,7 +176,7 @@ def _solve(args, inst, device, ranks=None):
     from ..models import branch_bound as bb
     from ..obs import tracing
     from ..ops import expand_kernels, prim_kernels
-    from ..perf import ascent_memo
+    from ..perf import ascent_memo, compile_cache
     from ..resilience.health import HEALTH
 
     d = inst.distance_matrix()
@@ -226,7 +227,7 @@ def _solve(args, inst, device, ranks=None):
     ckpt = args.checkpoint and bb._norm_ckpt_path(args.checkpoint)
     ckpt_bytes = os.path.getsize(ckpt) if ckpt and os.path.exists(ckpt) else None
     payload = result_payload(res, inst, args, name, launches, HEALTH.snapshot(), ckpt_bytes,
-                             ascent_memo.STATS.snapshot(), trace_path=tracing.TRACER.path)
+                             compile_cache.stats_dict(), trace_path=tracing.TRACER.path)
     return payload, info
 
 

@@ -109,7 +109,8 @@ def service_stats_json(
     (``tsp_mpi_reduction_tpu/utils/reporting.py:109-152``): answers per
     tier, rung failures, the cache counters and hit rate, the scheduler's
     batching and slicing counters, phase seconds, the session's health
-    delta, ``compile_cache`` (here the root-ascent memo's counters), the
+    delta, ``compile_cache`` (the graph store's and the root-ascent memo's
+    counters, ``perf/compile_cache.stats_dict``), the
     per-tier SLO verdicts, the admission block and ``obs``."""
     lookups = cache.get("hits", 0) + cache.get("misses", 0)
     payload = {
