@@ -35,17 +35,25 @@ Phases, each printing its own line; any failure exits non-zero:
    with and without per-lane ``lam``, integer and non-integer ``dbar``,
    -0.0 and +inf in ``dbar``, |U| in {0, 1, 2, n} mixed across lanes;
 6. B&B proofs through the CLI entry point (``tools/bnb_solve``, defaults:
-   the device loop, ``mst_kernel`` and ``step_kernel`` auto): burma14 3323,
-   ulysses16 6859, berlin52 7542; and ulysses16 under min-out with no ILS
-   (host loop, 500 steps) expands the JAX package's 16,336 nodes under
-   the kernel and under the plain chain;
+   the device loop, ``mst_kernel`` and ``step_kernel`` auto, the step
+   replayed from its graph): burma14 3323, ulysses16 6859, berlin52 7542,
+   each again under ``TSP_COMPILE_CACHE=off`` (the eager steps: the same
+   search); and ulysses16 under min-out with no ILS (host loop, 500
+   steps) expands the JAX package's 16,336 nodes under the kernel and
+   under the plain chain. Every B&B run below counts (1 + node_ascent)
+   ``prim_chain`` and one ``push_rows`` launch a step issued: its replays
+   (or eager calls, a no-op tail past the stop within a dispatch's last
+   run of 32 included) and a capture's warm-up steps;
 7. the B&B full-size run through the default CLI: eil51 at k = 1024,
    capacity 2^18, one-tree, node_ascent 2, the device loop with the fused
-   push — proves 426 from root bound 423 in 153,747 nodes, with one
-   ``push_rows`` and (1 + node_ascent) ``prim_chain`` launches per step;
-   the same under ``--step-kernel=reference``; setup/search seconds,
-   nodes/s, time to proof and the largest frontier count of both; both B&B
-   kernels on the main path's recorded inputs (every launch, bit for bit
+   push, the step captured once and replayed — proves 426 from root bound
+   423 in 153,747 nodes, with one ``push_rows`` and (1 + node_ascent)
+   ``prim_chain`` launches per step issued; the same search (nodes,
+   iterations, steps, replays, LB) under ``TSP_COMPILE_CACHE=off`` and
+   under ``--step-kernel=reference``, ABBA, and a repeated solve with 0
+   captures under ``RecompilationGuard``; setup/search/capture seconds,
+   nodes/s, time to proof and the largest frontier count of each; both B&B
+   kernels on the main path's recorded inputs (from its eager steps) (every launch, bit for bit
    against the plain versions, then timed eager and by CUDA-graph replay
    beside their bounds and plain versions; ``prim_chain`` also on
    synthetic half-visited lanes; ``push_rows`` beside its launch floor, an
@@ -60,9 +68,10 @@ Phases, each printing its own line; any failure exits non-zero:
    1024, capacity 2^19, node_ascent 6, re-sort every 16 steps, device
    loop, 300 steps) under the fused and the reference push: both equal
    the JAX package's numbers for the same call on the CPU (nodes,
-   iterations, cost, certified LB, every spill counter); ``push_rows`` on
-   the recorded inputs of every launch of the chunk, bit for bit, and
-   ``prim_chain`` on those of its first 20 steps, checked and timed;
+   iterations, cost, certified LB, every spill counter), and so does the
+   chunk's eager run (``TSP_COMPILE_CACHE=off``), whose ``push_rows``
+   inputs of every launch are recorded and held bit for bit, and
+   ``prim_chain``'s of its first 20 steps, checked and timed;
 10. a spill-forcing proof (13 random cities, capacity at the device
     loop's 4*k*(n-1) floor): compacts on the card, exchanges with the host
     reservoir and proves, fused == reference == the JAX package's pinned
@@ -97,8 +106,9 @@ Phases, each printing its own line; any failure exits non-zero:
     package's node count with 0 ``prim_chain`` and one ``push_rows`` launch
     a step; ``ascent="device"`` proves 426 from the root bound 423 (its
     ascent seconds beside a host ascent's); the step profile's components
-    (``tools/step_profile``) under ``prim_chain`` and ``boruvka``; a
-    ``--trace``-style capture of 20 steps (its ``bnb_step`` ranges and the
+    (``tools/step_profile``) under ``prim_chain`` and ``boruvka``, the
+    guarded step eager and replayed; a ``--trace``-style capture of 20
+    steps, eager and replayed (their ``bnb_step`` ranges and the
     device-busy share of the steps' window).
 14. the ``serve`` entry point: an in-process ``SolveService`` at the JAX
     defaults but ``max_batch = 64`` and ``warm_shapes = (16,)`` answers,
@@ -197,8 +207,11 @@ Phases, each printing its own line; any failure exits non-zero:
     ``torch.cuda.set_sync_debug_mode("warn")`` (reset in a ``finally``),
     the full-size pipeline once (phase 4's size, float32: its 7
     ``relax_dense`` launches and the merge fold), eil51 through the
-    default CLI (the device loop) and eil51 under ``--device-loop=off``
-    (host-loop dispatches): every warning is attributed to its innermost
+    default CLI (the device loop), under ``--device-loop=off`` (host-loop
+    dispatches), both replaying the step's graph, and the device loop
+    under ``TSP_COMPILE_CACHE=off``: no sync in ``_pop_stage`` or the
+    step, and in the step loop at most one a run of 32 steps plus one a
+    dispatch (the search seconds print); every warning is attributed to its innermost
     frame in the port, the syncs a fold and a B&B step print with the
     distinct sites, and every site in a lexically hot context (a loop body
     or a hot function, by the lint's own rules) must be a lint finding
@@ -258,6 +271,13 @@ Phases, each printing its own line; any failure exits non-zero:
     seconds and the store's ``stats_dict()`` (the one-shot CLI with and
     without the store is ``tools/bench.py --mode=compile --blocks=1024``'s
     ``cli`` leg).
+22. the B&B step's graph (``models/branch_bound.STEP``): on a cold store,
+    ``warm_compile_device_solver`` at eil51's shapes captures it once (a
+    root row under an infinite incumbent; its seconds, the graph's static
+    and pool bytes); a
+    proof adopts it with 0 captures under ``RecompilationGuard``; two
+    threads prove eil51 at once through it (one on its own stream; the
+    second waits for the graph): the same proof three times.
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
@@ -888,27 +908,57 @@ def run_bnb_cli(argv):
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+def step_launches(out, per_step: int, fused: bool = True, inner: int = 32) -> bool:
+    """A B&B run's kernel launches are its predicated steps': ``per_step``
+    ``prim_chain`` launches and (fused) one ``push_rows`` launch for each
+    step it issued (the replays of the step's graph or its eager calls,
+    and a capture's warm-up steps), and at most ``inner - 1`` steps issued
+    a dispatch past the loop's iterations (the no-op tail of its last run)."""
+    issued = out["replays"] + out["warm_steps"]
+    return (out["prim_chain_launches"] == per_step * issued > 0
+            and out["push_rows_launches"] == (issued if fused else 0)
+            and 0 <= out["replays"] - out["iterations"] <= (inner - 1) * out["dispatches"])
+
+
+#: the search fields that the graph and the eager steps must give alike
+SEARCH_FIELDS = ("cost", "proven_optimal", "nodes_expanded", "iterations", "steps_run", "replays",
+                 "lower_bound", "lb_raw", "spill_rounds", "spill_bytes_to_host", "spill_bytes_to_device")
+
+
+def same_search(a: dict, b: dict) -> bool:
+    return all(a[f] == b[f] for f in SEARCH_FIELDS)
+
+
 def phase_bnb_proofs():
     for name, opt, extra in (("burma14", 3323.0, ["--k=64", "--capacity=16384"]),
                              ("ulysses16", 6859.0, []), ("berlin52", 7542.0, [])):
         out = run_bnb_cli([name, "--backend=cuda", *extra])
         require(out["proven_optimal"] and out["cost"] == opt and out["mst_kernel"] == "prim_chain",
                 f"{name}: {out['cost']} proven={out['proven_optimal']} kernel={out['mst_kernel']}")
-        require(out["prim_chain_launches"] == 3 * out["steps_run"] > 0
-                and out["push_rows_launches"] == out["steps_run"] and out["device_loop"]
-                and out["step_kernel"] == "fused",
+        require(step_launches(out, 3) and out["device_loop"] and out["step_kernel"] == "fused"
+                and out["step_graph"],
                 f"{name}: {out['prim_chain_launches']} prim_chain / {out['push_rows_launches']} "
-                f"push_rows launches for {out['steps_run']} steps")
-        print(f"phase 6 {name}: proved {out['cost']} in {out['nodes_expanded']} nodes, "
+                f"push_rows launches for {out['replays']} replays + {out['warm_steps']} warm-up steps "
+                f"({out['iterations']} iterations, {out['dispatches']} dispatches, graph {out['step_graph']})")
+        with compile_cache_setting("off"):
+            off = run_bnb_cli([name, "--backend=cuda", *extra])
+        require(same_search(off, out) and not off["step_graph"] and step_launches(off, 3),
+                f"{name}: the eager steps ({ {f: off[f] for f in SEARCH_FIELDS} }) != the graph's "
+                f"({ {f: out[f] for f in SEARCH_FIELDS} })")
+        print(f"phase 6 {name}: proved {out['cost']} in {out['nodes_expanded']} nodes, {out['steps_run']} "
+              f"steps ({out['replays']} replays of the step's graph in {out['dispatches']} dispatch(es), "
+              f"{out['warm_steps']} warm-up step(s), capture {out['capture_s']} s), "
               f"{out['prim_chain_launches']} prim_chain + {out['push_rows_launches']} push_rows launches, "
-              f"time to proof {out['time_to_proof_s']} s")
+              f"time to proof {out['time_to_proof_s']} s; TSP_COMPILE_CACHE=off: the same search, "
+              f"search {off['wall_s']} s eager against {out['wall_s']} s replayed")
     # the host loop, whose node count the JAX host loop pinned
     walk = ["ulysses16", "--backend=cuda", "--bound=min-out", "--ils-rounds=0", "--k=32",
             "--capacity=16384", f"--max-iters={TRAJECTORY_STEPS}", "--device-loop=off"]
     kern = run_bnb_cli(walk + ["--mst-kernel=auto"])
     plain = run_bnb_cli(walk + ["--mst-kernel=prim"])
     require(kern["mst_kernel"] == "prim_chain" and plain["prim_chain_launches"] == 0
-            and kern["push_rows_launches"] == kern["steps_run"] > 0,
+            and kern["push_rows_launches"] == kern["replays"] + kern["warm_steps"] > 0
+            and kern["replays"] == kern["iterations"],
             "trajectory run: kernel/plain selection")
     require(kern["nodes_expanded"] == plain["nodes_expanded"] == TRAJECTORY_NODES
             and kern["lower_bound"] == plain["lower_bound"] and kern["cost"] == plain["cost"],
@@ -953,6 +1003,7 @@ def reference_push_args(call):
 def phase_bnb_full(smi, errs):
     import torch
 
+    from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
     from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
@@ -961,52 +1012,66 @@ def phase_bnb_full(smi, errs):
 
     name, k, cap = BNB_FULL
     base_argv = [name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"]
-    # the main path first (counts reset just before, read just after), then
-    # the reference push and the two again in reverse order (ABBA), so the
-    # search times of the two pushes are compared within one call
+    # the main path first (counts reset just before, read just after: its
+    # step's graph captured there, one warm-up step), then the eager steps
+    # (TSP_COMPILE_CACHE=off), the reference push and the three again in
+    # reverse order (ABBA), so that the search times of the graph and the
+    # eager steps, and of the two pushes, are compared within one call; the
+    # last run replays the stored graph under RecompilationGuard(limit=0)
     runs = []
-    for kernel in ("auto", "reference", "reference", "auto"):
+    plan = (("auto", None), ("auto", "off"), ("reference", None), ("reference", None), ("auto", "off"),
+            ("auto", None))
+    for i, (kernel, cache) in enumerate(plan):
         argv = base_argv + ([] if kernel == "auto" else ["--step-kernel=reference"])
         prim_kernels.reset_launches()
         ek.reset_launches()
         bb.reset_frontier_stats()
-        out = run_bnb_cli(argv)
+        guard = RecompilationGuard({"bnb_step": bb.STEP}, limit=0) if i == len(plan) - 1 else None
+        with compile_cache_setting(cache), guard or contextlib.nullcontext():
+            out = run_bnb_cli(argv)
         out["_launches"] = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
         out["_peak"] = bb.FRONTIER_STATS["peak_count"]
+        out["_cache"] = cache or "store"
         runs.append(out)
         fused = kernel == "auto"
+        what = f"eil51 {kernel} ({out['_cache']})"
         require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST
                 and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
-                f"eil51 {kernel}: cost {out['cost']} proven={out['proven_optimal']} "
-                f"root LB {out['root_lower_bound']}")
+                f"{what}: cost {out['cost']} proven={out['proven_optimal']} root LB {out['root_lower_bound']}")
         require(out["nodes_expanded"] == BNB_FULL_NODES,
-                f"eil51 {kernel}: {out['nodes_expanded']} nodes expanded, want {BNB_FULL_NODES}")
+                f"{what}: {out['nodes_expanded']} nodes expanded, want {BNB_FULL_NODES}")
         require(out["device_loop"] and out["mst_kernel"] == "prim_chain"
-                and out["step_kernel"] == ("fused" if fused else "reference"),
-                f"eil51 {kernel}: device_loop {out['device_loop']} mst_kernel {out['mst_kernel']} "
-                f"step_kernel {out['step_kernel']}")
-        require(out["_launches"]["prim_chain"] == out["prim_chain_launches"] == 3 * out["steps_run"] > 0,
-                f"eil51 {kernel}: {out['_launches']['prim_chain']} prim_chain launches for "
-                f"{out['steps_run']} steps (want 3 per step)")
-        want_push = out["steps_run"] if fused else 0
-        require(out["_launches"]["push_rows"] == out["push_rows_launches"] == want_push,
-                f"eil51 {kernel}: {out['_launches']['push_rows']} push_rows launches for "
-                f"{out['steps_run']} steps")
-        require((out["lower_bound"], out["steps_run"]) == (runs[0]["lower_bound"], runs[0]["steps_run"]),
-                "eil51: the reference push gives another search than the fused one")
+                and out["step_kernel"] == ("fused" if fused else "reference")
+                and out["step_graph"] == (cache is None),
+                f"{what}: device_loop {out['device_loop']} mst_kernel {out['mst_kernel']} "
+                f"step_kernel {out['step_kernel']} graph {out['step_graph']}")
+        require(out["_launches"]["prim_chain"] == out["prim_chain_launches"]
+                and out["_launches"]["push_rows"] == out["push_rows_launches"] and step_launches(out, 3, fused),
+                f"{what}: {out['_launches']} launches for {out['replays']} replays + {out['warm_steps']} "
+                f"warm-up steps ({out['steps_run']} steps, {out['iterations']} iterations, "
+                f"{out['dispatches']} dispatches; want 3 prim_chain a step issued)")
+        require(same_search(out, runs[0]), f"{what}: another search than the main path's")
+        if guard is not None:
+            require(guard.misses() == {"bnb_step": 0} and out["warm_steps"] == 0,
+                    f"{what}: {guard.misses()} captures in a repeated solve")
     main = runs[0]
+    require(main["warm_steps"] == 1 and main["capture_s"] > 0,
+            f"eil51: the main path captured {main['warm_steps']} warm-up step(s) in {main['capture_s']} s")
     SHARED["eil51"] = main  # phase 18 reads its telemetry blocks
     launches = main["_launches"]
     print(f"phase 7 main path ({name}, k={k}, capacity={cap}, one-tree, node_ascent=2, device loop, "
           f"mst_kernel={main['mst_kernel']}, step_kernel={main['step_kernel']}): proved {main['cost']} "
           f"(root LB {main['root_lower_bound']}) in {main['nodes_expanded']} nodes, {main['steps_run']} "
-          f"steps, {launches['prim_chain']} prim_chain + {launches['push_rows']} push_rows launches, "
-          f"largest frontier count {main['_peak']}; --step-kernel=reference: the same nodes, cost, LB")
+          f"steps, {main['replays']} replays of the step's graph in {main['dispatches']} dispatch(es) "
+          f"(capture {main['capture_s']} s, {main['warm_steps']} warm-up step), {launches['prim_chain']} "
+          f"prim_chain + {launches['push_rows']} push_rows launches (3 and 1 a step issued), largest "
+          f"frontier count {main['_peak']}; TSP_COMPILE_CACHE=off and --step-kernel=reference: the same "
+          f"nodes, iterations, steps, cost and LB; a repeated solve 0 captures under RecompilationGuard")
     for out in runs:
-        print(f"phase 7 seconds ({out['step_kernel']} push): setup {out['setup_s']} (ascent "
+        print(f"phase 7 seconds ({out['step_kernel']} push, {out['_cache']}): setup {out['setup_s']} (ascent "
               f"{out['setup_ascent_s']}, ILS {out['setup_ils_s']}), search {out['wall_s']}, time to "
               f"proof {out['time_to_proof_s']}; {out['nodes_per_sec']} nodes/s; largest count "
-              f"{out['_peak']}")
+              f"{out['_peak']}; capture {out['capture_s']} s")
 
     # --- prim_chain on synthetic half-visited eil51 lanes (k = 1024): one
     # plain and node_ascent = 2 lam launches a step
@@ -1022,12 +1087,13 @@ def phase_bnb_full(smi, errs):
           f"{syn['plain_ms']:.4f} ms; dependent steps max {syn['dependent_steps_max']}")
 
     # --- both B&B kernels on the main path's own inputs, launch by launch
-    chains, calls, _ = kt.record_bnb_calls(base_argv)
-    require(len(chains) == launches["prim_chain"],
-            f"recorded {len(chains)} prim_chain launches, want {launches['prim_chain']}")
+    # (recorded from its eager steps: a replay calls no wrapper)
+    chains, calls, rec = kt.record_bnb_calls(base_argv)
+    require(same_search(rec, main) and len(chains) == 3 * rec["replays"],
+            f"recorded {len(chains)} prim_chain launches, want 3 x {rec['replays']}")
     prim_row = prim_recorded(chains, "7 kernel prim_chain, recorded eil51 inputs", errs)
     del chains
-    require(len(calls) == main["steps_run"], f"recorded {len(calls)} pushes, want {main['steps_run']}")
+    require(len(calls) == rec["replays"], f"recorded {len(calls)} pushes, want {rec['replays']}")
     try:
         kt.push_check(calls, n)
     except RuntimeError as e:
@@ -1164,11 +1230,13 @@ def phase_kroa100(smi, errs):
         stats = dict(bb.FRONTIER_STATS)
         runs[kernel] = out
         pinned_fields(out, KRO_PINNED, f"kroA100 chunk, {kernel} push")
-        want_push = out["steps_run"] if kernel == "fused" else 0
-        require(prim_kernels.LAUNCHES["prim_chain"] == 7 * out["steps_run"] > 0
-                and ek.LAUNCHES["push_rows"] == out["push_rows_launches"] == want_push,
+        require(prim_kernels.LAUNCHES["prim_chain"] == out["prim_chain_launches"]
+                and ek.LAUNCHES["push_rows"] == out["push_rows_launches"]
+                and step_launches(out, 7, kernel == "fused") and out["step_graph"],
                 f"kroA100 {kernel}: {prim_kernels.LAUNCHES['prim_chain']} prim_chain / "
-                f"{ek.LAUNCHES['push_rows']} push_rows launches for {out['steps_run']} steps")
+                f"{ek.LAUNCHES['push_rows']} push_rows launches for {out['replays']} replays + "
+                f"{out['warm_steps']} warm-up steps ({out['iterations']} iterations, {out['dispatches']} "
+                f"dispatches)")
         print(f"phase 9 kroA100 chunk ({kernel} push; k=1024, capacity=524288, node_ascent=6, "
               f"reorder every 16, device loop, 300 steps): {out['nodes_expanded']} nodes, "
               f"{out['steps_run']} expanded steps, cost {out['cost']}, certified LB {out['lower_bound']} "
@@ -1177,25 +1245,31 @@ def phase_kroa100(smi, errs):
               f"{out['spill_bytes_to_host']}, to device {out['spill_bytes_to_device']}; "
               f"{stats['reorders']} re-sorts, {stats['compactions']} compactions, largest count "
               f"{stats['peak_count']}; {ek.LAUNCHES['push_rows']} push_rows + "
-              f"{prim_kernels.LAUNCHES['prim_chain']} prim_chain launches")
+              f"{prim_kernels.LAUNCHES['prim_chain']} prim_chain launches; {out['replays']} replays of the "
+              f"step's graph (2 variants: with and without the re-sort) in {out['dispatches']} dispatches, "
+              f"capture {out['capture_s']} s")
         print(f"phase 9 seconds ({kernel} push): setup {out['setup_s']} (ascent {out['setup_ascent_s']}, "
               f"ILS {out['setup_ils_s']}), search {out['wall_s']}; {out['nodes_per_sec']} nodes/s")
     require(runs["fused"]["steps_run"] == runs["reference"]["steps_run"],
             "kroA100: fused and reference expanded different numbers of steps")
     # push_rows on the inputs of every launch of the chunk, prim_chain on
     # those of its first steps (n = 100)
+    # (the chunk's eager steps, TSP_COMPILE_CACHE=off: the JAX pins hold there too)
     chains, pushes, out = kt.record_bnb_calls(KRO_ARGS + ["--backend=cuda"], kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP)
-    require(len(chains) == kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP,
+    pinned_fields(out, KRO_PINNED, "kroA100 chunk, eager steps")
+    require(len(chains) == kt.KRO_STEPS * kt.KRO_CHAINS_PER_STEP and not out["step_graph"],
             f"recorded {len(chains)} kroA100 prim_chain launches")
-    require(len(pushes) == out["steps_run"] == runs["fused"]["steps_run"],
-            f"recorded {len(pushes)} kroA100 push_rows launches for {out['steps_run']} steps")
+    require(len(pushes) == out["replays"] == runs["fused"]["replays"] and same_search(out, runs["fused"]),
+            f"recorded {len(pushes)} kroA100 push_rows launches for {out['replays']} steps issued")
+    print(f"phase 9 kroA100 chunk, eager steps (TSP_COMPILE_CACHE=off, recorded): the pinned numbers, "
+          f"search {out['wall_s']} s against {runs['fused']['wall_s']} s replayed")
     try:
         kt.push_check(pushes, 100)
     except RuntimeError as e:
         raise SmokeFailure(str(e)) from None
     stats = kt.push_stats(pushes)
     del pushes
-    print(f"phase 9 kernel push_rows: every one of the chunk's {out['steps_run']} recorded launches == plain "
+    print(f"phase 9 kernel push_rows: every one of the chunk's {out['replays']} recorded launches == plain "
           f"bit for bit (whole buffer); children one parent pushes: largest "
           f"{stats['children_per_parent_max_max']:.0f}, mean {stats['children_per_parent_mean']:.2f}")
     prim_recorded(chains, f"9 kernel prim_chain, recorded inputs of the first {kt.KRO_STEPS} "
@@ -1223,8 +1297,9 @@ def phase_spill(smi):
         require(res.device_loop and stats["compactions"] > 0 and res.spill_rounds > 0,
                 f"spill-forcing proof ({kernel}): {stats['compactions']} compactions, "
                 f"{res.spill_rounds} spill rounds")
-        require(ek.LAUNCHES["push_rows"] == (res.steps_run if kernel == "fused" else 0),
-                f"spill-forcing proof ({kernel}): {ek.LAUNCHES['push_rows']} push_rows launches")
+        require(ek.LAUNCHES["push_rows"] == (res.replays + res.warm_steps if kernel == "fused" else 0),
+                f"spill-forcing proof ({kernel}): {ek.LAUNCHES['push_rows']} push_rows launches for "
+                f"{res.replays} replays + {res.warm_steps} warm-up steps")
         print(f"phase 10 spill-forcing proof ({kernel} push; 13 cities, k=8, capacity=384, device "
               f"loop): proved {res.cost} in {res.nodes_expanded} nodes, {res.iterations} iterations, "
               f"{stats['compactions']} compactions, spill rounds/events {res.spill_rounds}/"
@@ -1239,18 +1314,19 @@ def phase_spill(smi):
     slice_kw = dict(SPILL_KW, max_iters=1000)
     ek.reset_launches()
     res, handle = bb.solve_slice(d, 600.0, checkpoint_path=path, device="cuda", **slice_kw)
-    slices, steps = 1, res.steps_run
+    slices, steps, issued = 1, res.steps_run, res.replays + res.warm_steps
     while handle is not None:
         require(slices < 20, "sliced spill proof: no proof in 20 slices")
         res, handle = bb.solve_slice(d, 600.0, handle, device="cuda", **slice_kw)
         slices += 1
         steps += res.steps_run
+        issued += res.replays + res.warm_steps
     require(slices >= 2 and res.proven_optimal and res.cost == whole.cost
             and res.lower_bound == whole.lower_bound and (res.tour == whole.tour).all(),
             f"sliced spill proof: {slices} slices, cost {res.cost} LB {res.lower_bound} tour "
             f"{res.tour.tolist()} against {whole.cost} / {whole.lower_bound} / {whole.tour.tolist()}")
-    require(ek.LAUNCHES["push_rows"] == steps > 0,
-            f"sliced spill proof: {ek.LAUNCHES['push_rows']} push_rows launches for {steps} steps")
+    require(ek.LAUNCHES["push_rows"] == issued > 0,
+            f"sliced spill proof: {ek.LAUNCHES['push_rows']} push_rows launches for {issued} steps issued")
     print(f"phase 10 sliced spill proof (solve_slice, 1000 iterations a slice): {slices} slices, "
           f"{steps} steps, proved {res.cost} with certified LB {res.lower_bound} and the same tour "
           f"as the uninterrupted proof; {ek.LAUNCHES['push_rows']} push_rows launches")
@@ -1291,15 +1367,16 @@ def phase_campaign(smi):
             f"campaign: ascent memo {c1['compile_cache']} in chunk 1, {c2['compile_cache']} in chunk 2")
     for i, c in enumerate((c1, c2), 1):
         require(c["device"] != "cpu" and c["device_loop"] and c["step_kernel"] == "fused"
-                and c["prim_chain_launches"] == 7 * c["steps_run"] > 0
-                and c["push_rows_launches"] == c["steps_run"],
+                and step_launches(c, 7) and c["step_graph"] and c["warm_steps"] == 2,
                 f"campaign chunk {i}: {c['prim_chain_launches']} prim_chain / {c['push_rows_launches']} "
-                f"push_rows launches for {c['steps_run']} steps on {c['device']}")
+                f"push_rows launches for {c['replays']} replays + {c['warm_steps']} warm-up steps on "
+                f"{c['device']}")
         print(f"phase 11 campaign chunk {i} (fresh process): {c['nodes_expanded']} nodes, "
               f"{c['steps_run']} steps, cost {c['cost']}, certified LB {c['lower_bound']} (raw "
               f"{c['lb_raw']}), spill rounds {c['spill_rounds']}, bytes {c['spill_bytes_to_host']} down / "
               f"{c['spill_bytes_to_device']} up; {c['prim_chain_launches']} prim_chain + "
-              f"{c['push_rows_launches']} push_rows launches; setup {c['setup_s']} s (ascent "
+              f"{c['push_rows_launches']} push_rows launches ({c['replays']} replays, capture "
+              f"{c['capture_s']} s in a fresh process); setup {c['setup_s']} s (ascent "
               f"{c['setup_ascent_s']}, ascent memo {c['compile_cache']}, ILS {c['setup_ils_s']}, "
               f"restore {c['checkpoint_restore_s']}), search {c['wall_s']} s, "
               f"saves {c['checkpoint_save_s']} s, snapshot {c['checkpoint_bytes']} bytes on disk")
@@ -1338,10 +1415,11 @@ def phase_campaign(smi):
 # ---------------------------------------------------------------------------
 
 
-def trace_stats(path, window_prefix=None) -> dict:
+def trace_stats(path, window_prefix=None, device_tail: bool = False) -> dict:
     """A Chrome trace's CPU ranges, device kernel events and the device-busy
     share: the union of the kernel intervals over the window (every event
-    of the trace, or the ranges named ``window_prefix*``)."""
+    of the trace, or the ranges named ``window_prefix*``; ``device_tail``
+    runs it on to the trace's last kernel)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -1352,6 +1430,8 @@ def trace_stats(path, window_prefix=None) -> dict:
            or (e.get("cat") == "user_annotation" and e.get("name", "").startswith(window_prefix))]
     lo = min(e["ts"] for e in win)
     hi = max(e["ts"] + e["dur"] for e in win)
+    if device_tail:
+        hi = max([hi] + [e["ts"] + e["dur"] for e in kernels if e["ts"] >= lo])
     busy, end = 0.0, lo
     for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in kernels):
         if b > end:
@@ -1528,8 +1608,8 @@ def phase_bnb_options(smi):
             and out["root_lower_bound"] == BNB_FULL_ROOT_LB,
             f"eil51 boruvka: cost {out['cost']} proven={out['proven_optimal']} kernel {out['mst_kernel']}")
     require(launches["prim_chain"] == out["prim_chain_launches"] == 0
-            and launches["push_rows"] == out["push_rows_launches"] == out["steps_run"] > 0,
-            f"eil51 boruvka: launches {launches} for {out['steps_run']} steps")
+            and launches["push_rows"] == out["push_rows_launches"] == out["replays"] + out["warm_steps"] > 0,
+            f"eil51 boruvka: launches {launches} for {out['replays']} replays + {out['warm_steps']} warm-up")
     require(out["nodes_expanded"] == BORUVKA_FULL_NODES,
             f"eil51 boruvka: {out['nodes_expanded']} nodes, want the JAX package's {BORUVKA_FULL_NODES}")
     print(f"phase 13 eil51 --mst-kernel=boruvka (k={k}, capacity={cap}, device loop, fused push): proved "
@@ -1562,18 +1642,25 @@ def phase_bnb_options(smi):
     fine = step_profile.profile(name, k=k, node_ascent=2, device="cuda",
                                 components=step_profile.FINE_COMPONENTS)
     print("phase 13 step profile --fine: " + ", ".join(
-        f"{c} {v['ms_per_unit']:.4f} ms/step" for c, v in fine["components"].items()))
+        f"{c} {v['ms_per_unit']:.4f} ms/step" for c, v in fine["components"].items())
+        + f" (compact: the predicated compaction pass over {fine['capacity']} rows of {fine['row_bytes']} B)")
 
-    # --- a trace of 20 steps
-    tdir = OPTIONS_DIR / "bnb_trace"
-    shutil.rmtree(tdir, ignore_errors=True)
-    with profiling.device_trace(str(tdir), "cuda"):
-        res = bb.solve(d, k=k, capacity=cap, max_iters=20, device="cuda")
-    st = trace_stats(tdir / profiling.TRACE_FILE, window_prefix="bnb_step#")
-    require(st["ranges"] == res.steps_run == 20, f"trace: {st['ranges']} bnb_step ranges, {res.steps_run} steps")
-    print(f"phase 13 trace of {res.steps_run} eil51 steps: {st['ranges']} bnb_step ranges over "
-          f"{st['window_ms']:.2f} ms, {st['kernels']} device kernel events in the trace, device busy "
-          f"{st['busy_share']:.4f} of the steps' window")
+    # --- a trace of 20 steps, eager (TSP_COMPILE_CACHE=off) and replayed
+    # from the step's graph (a range a replay on the host; the window runs
+    # on to the last kernel, which the device ends after the host's ranges)
+    for cache in ("off", None):
+        tdir = OPTIONS_DIR / f"bnb_trace_{cache or 'store'}"
+        shutil.rmtree(tdir, ignore_errors=True)
+        with compile_cache_setting(cache), profiling.device_trace(str(tdir), "cuda"):
+            res = bb.solve(d, k=k, capacity=cap, max_iters=20, device="cuda")
+        st = trace_stats(tdir / profiling.TRACE_FILE, window_prefix="bnb_step#", device_tail=cache is None)
+        require(st["ranges"] == res.replays == res.steps_run == 20 and res.step_graph == (cache is None),
+                f"trace ({cache or 'store'}): {st['ranges']} bnb_step ranges, {res.replays} replays, "
+                f"{res.steps_run} steps")
+        busy = f"{st['busy_share']:.4f}" if st["kernels"] else "not measured (no kernel event traced)"
+        print(f"phase 13 trace of {res.steps_run} eil51 steps ({'eager' if cache else 'replayed'}): "
+              f"{st['ranges']} bnb_step ranges, window {st['window_ms']:.2f} ms, {st['kernels']} device "
+              f"kernel events in the trace, device busy {busy} of the steps' window")
     print(f"phase 13 card: {smi}")
 
 
@@ -2259,10 +2346,14 @@ def phase_sharded(smi, errs):
                 f"sharded {name}: ranks {out['ranks']} balance {out['balance']} loop {out['device_loop']} "
                 f"kernels {out['mst_kernel']}/{out['step_kernel']}")
         # 1 + node_ascent prim_chain launches and one push_rows a rank-step
-        require(launches["prim_chain"] == out["prim_chain_launches"] == 3 * out["steps_run"] > 0
-                and launches["push_rows"] == out["push_rows_launches"] == out["steps_run"],
+        # issued (the rank steps stay eager: a read before each step, none
+        # issued past a rank's stop; a full-stack stop issues one that
+        # expands nothing)
+        require(launches["prim_chain"] == out["prim_chain_launches"] == 3 * out["replays"] > 0
+                and launches["push_rows"] == out["push_rows_launches"] == out["replays"]
+                and out["replays"] >= out["steps_run"] and not out["step_graph"],
                 f"sharded {name}: {launches['prim_chain']} prim_chain / {launches['push_rows']} push_rows "
-                f"launches for {out['steps_run']} rank-steps")
+                f"launches for {out['replays']} rank-steps issued ({out['steps_run']} expanded)")
         print(f"phase 16 eil51 {' '.join(argv[1:])} ({'device' if loop else 'host'} loop, fused push, "
               f"prim_chain): proved {out['cost']} (LB {out['lower_bound']}) in {out['nodes_expanded']} nodes "
               f"== the JAX package's, per rank {out['nodes_per_rank']}; {out['iterations']} iterations, "
@@ -3110,10 +3201,12 @@ def phase_lint(smi):
             f"phase 19 pipeline launched relax_dense {launches['relax_dense']} times")
     require(math.isfinite(res.cost) and res.num_cities == n * nb, f"phase 19 pipeline: {res.cost}, {res.num_cities}")
     argv = ["eil51", "--backend=cuda", "--k=1024", "--capacity=262144"]
-    dev_out, dev_sites, dev_marked, dev_attr = capture_syncs(
-        lambda: run_bnb_cli(argv), marks=("_guarded_expand_steps", "_expand_loop", "solve"))
+    marks = ("dispatch", "_pop_stage", "_search_step", "solve")
+    dev_out, dev_sites, dev_marked, dev_attr = capture_syncs(lambda: run_bnb_cli(argv), marks=marks)
     host_out, host_sites, host_marked, host_attr = capture_syncs(
-        lambda: run_bnb_cli(argv + ["--device-loop=off"]), marks=("_guarded_expand_steps", "_expand_loop", "solve"))
+        lambda: run_bnb_cli(argv + ["--device-loop=off"]), marks=marks)
+    with compile_cache_setting("off"):
+        eager_out, eager_sites, eager_marked, eager_attr = capture_syncs(lambda: run_bnb_cli(argv), marks=marks)
     for what, out in (("device loop", dev_out), ("host loop", host_out)):
         require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST,
                 f"phase 19 eil51 ({what}): {out.get('cost')} proven {out.get('proven_optimal')}")
@@ -3126,20 +3219,32 @@ def phase_lint(smi):
     # the fold replays one captured step: its syncs are a constant, not one a merge
     require(fold_syncs <= FOLD_SYNC_LIMIT,
             f"phase 19: {fold_syncs} syncs in the merge fold (limit {FOLD_SYNC_LIMIT}, {nb - 1} merges)")
-    for what, out, sites, marked in (("device loop", dev_out, dev_sites, dev_marked),
-                                     ("host loop", host_out, host_sites, host_marked)):
+    for what, out, sites, marked in (("device loop, replayed", dev_out, dev_sites, dev_marked),
+                                     ("host loop, replayed", host_out, host_sites, host_marked),
+                                     ("device loop, eager (TSP_COMPILE_CACHE=off)", eager_out, eager_sites,
+                                      eager_marked)):
         steps = out["iterations"]
-        search = marked["_guarded_expand_steps"] + marked["_expand_loop"]
-        print(f"phase 19 eil51 {what}: {out['nodes_expanded']} nodes in {steps} steps; "
-              f"{sum(sites.values())} syncs, {marked['solve']} in solve(), {search} in its step loop: "
-              f"{search / max(steps, 1):.3f} a step")
-    attributed = fold_attr[0] + dev_attr[0] + host_attr[0]
-    same = fold_attr[1] + dev_attr[1] + host_attr[1]
+        search = marked["dispatch"]
+        # one read a run of 32 steps: at most replays / 32 + one a dispatch
+        reads = out["replays"] / 32 + out["dispatches"]
+        print(f"phase 19 eil51 {what}: {out['nodes_expanded']} nodes in {steps} steps, {out['replays']} "
+              f"steps issued in {out['dispatches']} dispatch(es); {sum(sites.values())} syncs, "
+              f"{marked['solve']} in solve(), {search} in its step loop ({search / max(steps, 1):.3f} a "
+              f"step, the bound {reads:.2f}), {marked['_pop_stage']} in _pop_stage, "
+              f"{marked['_search_step']} in the step; search {out['wall_s']} s")
+        require(marked["_pop_stage"] == 0 and marked["_search_step"] == 0 and search <= reads
+                and out["proven_optimal"] and out["nodes_expanded"] == BNB_FULL_NODES,
+                f"phase 19 eil51 {what}: {marked['_pop_stage']} syncs in _pop_stage, {marked['_search_step']} "
+                f"in the step, {search} in the step loop for {out['replays']} steps issued in "
+                f"{out['dispatches']} dispatches")
+    attributed = fold_attr[0] + dev_attr[0] + host_attr[0] + eager_attr[0]
+    same = fold_attr[1] + dev_attr[1] + host_attr[1] + eager_attr[1]
     print(f"phase 19 attribution: {same} of {attributed} port-attributed warnings carried the port line "
           "itself as their filename/lineno (the rest: a torch frame above it)")
 
     all_sites = {}
-    for tag, sites in (("fold", fold_sites), ("eil51-device", dev_sites), ("eil51-host", host_sites)):
+    for tag, sites in (("fold", fold_sites), ("eil51-device", dev_sites), ("eil51-host", host_sites),
+                       ("eil51-eager", eager_sites)):
         for site, c in sites.items():
             all_sites.setdefault(site, {})[tag] = c
     misses, cold = [], []
@@ -3431,11 +3536,22 @@ def phase_bench(smi):
             f"compile: chunk {chunk}, serve {comp['serve']}")
     require(fold["graph"] and fold["equal"] and fold["captures_in_fold"] == 0 and fold["capture_s"] > 0,
             f"compile: fold {fold}")
+    # the B&B step's graph: one capture a chunk process with the store, none
+    # off; in the mode's own process a capture, then a stored key
+    step = comp["step"]
+    require(chunk["cold_step_captures"] == [0] * len(chunk["cold_step_captures"])
+            and chunk["warm_step_captures"] == [1] * len(chunk["warm_step_captures"])
+            and step is not None and (step["first_captures"], step["again_captures"]) == (1, 0),
+            f"compile: step captures cold {chunk['cold_step_captures']} warm {chunk['warm_step_captures']}, "
+            f"leg {step}")
     print(f"phase 20 compile: chunk cold {chunk['cold_startup_s']:.3f} s / warm {chunk['warm_startup_s']:.3f} s "
           f"({comp['value']:.3f}x), setup {chunk['cold_setup_s']:.3f} / {chunk['warm_setup_s']:.3f} s; serve "
           f"first flush cold {comp['serve']['cold_first_flush_s']:.3f} / warm "
           f"{comp['serve']['warm_first_flush_s']:.3f} s; fold {fold['n']} x {fold['blocks']}: capture "
-          f"{fold['capture_s']:.4f} s, replayed {fold['replayed_fold_s']:.4f} s, eager {fold['eager_fold_s']:.4f} s")
+          f"{fold['capture_s']:.4f} s, replayed {fold['replayed_fold_s']:.4f} s, eager {fold['eager_fold_s']:.4f} s; "
+          f"B&B step: {step['first_captures']} capture in {step['first_s']:.4f} s, then "
+          f"{step['again_captures']} in {step['again_s']:.4f} s (eil51 k = {step['k']}); chunk processes "
+          f"capture {chunk['warm_step_captures']} with the store, {chunk['cold_step_captures']} off")
 
     # --- the gate on this history, and an append of the pipeline artifact
     rc, text = run_bench_check("check", "--history", str(BENCH_HISTORY), "--json")
@@ -3513,6 +3629,74 @@ def phase_store(smi):  # a check harness: it builds inputs and reads results onc
     print(f"phase 21 card: {smi}")
 
 
+# -- phase 22: the B&B step's graph ---------------------------------------------
+
+
+def phase_step_graph(smi):
+    """Phase 22: the B&B step's entry in the graph store at eil51's shapes:
+    ``warm_compile_device_solver``'s capture (seconds; the graph's static
+    and pool bytes), a proof that adopts the stored graph (0 captures under
+    ``RecompilationGuard``), then two threads proving the same instance at
+    once, one on a stream of its own: the second waits for the graph the
+    first holds, and both proofs are the main path's."""
+    import threading
+
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    name, k, cap = BNB_FULL
+    d = tsplib.embedded(name).distance_matrix()
+    n = d.shape[0]
+    compile_cache.clear()  # a cold key: the warm-up captures
+    before = bb.STEP._cache_size()
+    _, warm_s = wall_s(lambda: bb.warm_compile_device_solver(n, cap, k, device="cuda"))
+    graphs = [g for g in compile_cache._STORE._graphs.values() if g.name == "bnb_step"]
+    require(bb.STEP._cache_size() == before + 1 and len(graphs) == 1,
+            f"phase 22: {bb.STEP._cache_size() - before} captures, {len(graphs)} stored step graphs")
+    g = graphs[0]
+    with RecompilationGuard({"bnb_step": bb.STEP}, limit=0) as guard:
+        res = bb.solve(d, k=k, capacity=cap, device="cuda")
+        out = [None, None]
+        errors = []
+
+        def prove(i):
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()) if i else contextlib.nullcontext():
+                    out[i] = bb.solve(d, k=k, capacity=cap, device="cuda")
+            except Exception as e:  # noqa: BLE001 — reported by the check below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=prove, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        both_s = time.perf_counter() - t0
+    require(guard.misses() == {"bnb_step": 0} and not errors,
+            f"phase 22: captures {guard.misses()}, errors {errors}")
+    for r in (res, *out):
+        require(r is not None and r.proven_optimal and r.cost == BNB_FULL_COST
+                and r.nodes_expanded == BNB_FULL_NODES and r.step_graph and r.warm_steps == 0
+                and (r.tour == res.tour).all() and r.replays == res.replays,
+                f"phase 22: a proof through the stored graph: {r}")
+    print(f"phase 22 step graph ({name}, k={k}, capacity={cap}): warm_compile_device_solver {warm_s:.4f} s "
+          f"(capture {g.capture_s:.4f} s: the warm-up step from a root row and the capture), 1 graph of "
+          f"{g.nbytes} bytes ({g.pool_bytes} of them its memory pool, the rest the adopted static state)")
+    print(f"phase 22 a proof adopting the stored graph: {res.nodes_expanded} nodes, {res.replays} replays, "
+          f"search {res.wall_seconds:.4f} s, setup {res.setup_seconds:.4f} s, 0 captures under "
+          f"RecompilationGuard(limit=0); two threads at once (one on its own stream): both proofs equal, "
+          f"{both_s:.3f} s for both, searches {out[0].wall_seconds:.4f} s / {out[1].wall_seconds:.4f} s "
+          f"(the graph is held for a whole search, so the second waits)")
+    print(f"phase 22 store: {json.dumps(compile_cache.stats_dict()['entries'].get('bnb_step'))}, "
+          f"{json.dumps(compile_cache.store_info())}")
+    print(f"phase 22 card: {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3523,7 +3707,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-21) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-22) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -3607,6 +3791,8 @@ def main(argv=None) -> int:
                 k["launches_bench"] = bench_launches[k["name"]]
         if want(21):
             timed(21, phase_store, smi)
+        if want(22):
+            timed(22, phase_step_graph, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -93,6 +93,36 @@ def step_chain(instance: str, k: int, steps: int, dispatches: int, warm: int, ca
     return {"final_incumbent": float(c), "nodes": int(nodes), "row_bytes": int(fr.nodes.shape[-1]) * 4}
 
 
+def guarded_steps_many(cases):
+    """``[(rows, count, inc_cost, inc_tour, d, kw), ...]`` -> for each, the
+    JAX package's device loop (``_solve_device``: ``_guarded_expand_steps``
+    in one program) from that packed frontier and incumbent, with
+    ``kw``'s bound, k, budget, re-sort period and start step, the
+    reference push and the plain Prim chain -> ``{nodes, count,
+    overflow, inc_cost, inc_tour, popped, steps, best_step}`` as numpy."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tsp_mpi_reduction_tpu.models import branch_bound as bb
+
+    out = []
+    for rows, count, inc_cost, inc_tour, d, kw in cases:
+        n = d.shape[0]
+        bd = bb._bound_setup(d, kw["bound"], node_ascent=kw["node_ascent"])
+        fr = bb.Frontier(jnp.asarray(rows), jnp.asarray(count, jnp.int32), jnp.asarray(False))
+        fr, ic, itour, popped, steps, best = bb._solve_device(
+            fr, jnp.asarray(inc_cost, jnp.float32), jnp.asarray(inc_tour, jnp.int32),
+            jnp.asarray(d, jnp.float32), bd.min_out, bd.bound_adj, bd.dbar, bd.pi, bd.slack,
+            bd.ascent_step, bd.lam_budget, jnp.asarray(kw["max_steps"], jnp.int32),
+            jnp.asarray(kw["step0"], jnp.int32), k=kw["k"], n=n, integral=bd.integral,
+            use_mst=kw["use_mst"], node_ascent=kw["node_ascent"], reorder_every=kw["reorder_every"],
+            mst_kernel="prim", push_order="best-first", push_block=0, step_kernel="reference")
+        out.append({"nodes": np.asarray(fr.nodes), "count": int(fr.count), "overflow": bool(fr.overflow),
+                    "inc_cost": float(ic), "inc_tour": np.asarray(itour), "popped": int(popped),
+                    "steps": int(steps), "best_step": int(best)})
+    return out
+
+
 def fold_blocks_many(configs):
     """``[(n, blocks, gx, gy), ...]`` -> for each, the JAX package's blocked
     instance folded by its ``fold_tours`` in float64: the block solve eager

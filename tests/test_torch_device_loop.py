@@ -9,8 +9,8 @@ the host reservoir, on the CPU, against the JAX package.
 - whole solves under ``device_loop=True`` against the JAX package's device
   loop, and host-loop solves that spill and re-sort against its host loop:
   nodes, iterations, cost, tour, certified bound and every spill counter;
-- the device loop's capacity floor, its step budget, its per-step
-  deadline check and its time to best.
+- the device loop's capacity floor, its step budget, its clock check
+  between dispatches and its time to best.
 
 Inputs are embedded TSPLIB instances or made with numpy from a seed.
 """
@@ -277,18 +277,25 @@ def test_dispatch_budget_matches_jax(args):
 
 @pytest.mark.parametrize("max_iters", [2, 50, 100_000])
 def test_device_loop_stops_at_the_first_step_past_the_deadline(max_iters):
-    """The device loop checks the clock after every step, so a time limit
-    already passed stops it after the root's step, whatever its budget."""
+    """The device loop checks the clock between dispatches, as the JAX
+    package's does: with a time limit already passed and no measured step
+    rate yet, the first dispatch runs ``_FIRST_DISPATCH_STEPS`` steps (or
+    ``max_iters``, or up to a full stack) and the solve stops after it,
+    with the JAX package's iterations, nodes and spill counters."""
     d = jtsplib.embedded("ulysses16").distance_matrix()
-    r = tbb.solve(d, capacity=2048, k=32, bound="min-out", ils_rounds=0, device="cpu",
-                  device_loop=True, time_limit_s=0.0, max_iters=max_iters)
-    assert (r.iterations, r.steps_run, r.nodes_expanded) == (1, 1, 1)
+    kw = dict(capacity=2048, k=32, bound="min-out", ils_rounds=0, device_loop=True, time_limit_s=0.0,
+              max_iters=max_iters)
+    r = tbb.solve(d, device="cpu", **kw)
+    want = jbb.solve(d, **kw)
+    assert _fields(r) == _fields(want)
+    assert r.dispatches == 1 and r.iterations <= min(max_iters, tbb._FIRST_DISPATCH_STEPS)
     assert not r.proven_optimal
 
 
 def test_device_loop_stamps_the_time_to_best(monkeypatch):
     """From an identity-tour incumbent the search improves it; the device
-    loop stamps the improving step's time, within the search's wall."""
+    loop interpolates the improving step's time from its dispatch's rate
+    (``best_step``), within the search's wall."""
     d = random_d(12, 3)
     identity = np.append(np.arange(12), 0).astype(np.int32)
     monkeypatch.setattr(tbb, "_initial_incumbent", lambda d, ils_rounds, device: identity)
@@ -299,9 +306,9 @@ def test_device_loop_stamps_the_time_to_best(monkeypatch):
 
 
 def test_time_limited_device_loop_stops_and_keeps_open_nodes():
-    """A time limit stops the device loop at the first step past it; an
-    early stop reports an unproven result whose certified bound covers the
-    open nodes."""
+    """A time limit stops the device loop at the first dispatch past it
+    (dispatches sized from the measured step rate); an early stop reports
+    an unproven result whose certified bound covers the open nodes."""
     d = jtsplib.embedded("ulysses16").distance_matrix()
     r = tbb.solve(d, capacity=2048, k=32, bound="min-out", ils_rounds=0, device="cpu",
                   device_loop=True, time_limit_s=0.5, max_iters=100_000)

@@ -1,7 +1,7 @@
 """CLI: ``python -m tsp_mpi_reduction_tpu_torch.analysis [paths...]``.
 
 Runs BOTH analysis passes over the same surface against one shared
-baseline: graftlint (per-node AST rules R1-R8 + R13) and graftflow (the
+baseline: graftlint (per-node AST rules R1-R8, R13, R14) and graftflow (the
 interprocedural dataflow rules R9-R12), each re-targeted at the port's
 torch/CUDA hazards. The default surface is the port package (its
 ``tools/`` included) and ``chip_smoke.py``. Exit status 0 when the tree
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="graftlint",
-        description="torch/CUDA-hazard lint of the port: graftlint (R1-R8, R13) + "
+        description="torch/CUDA-hazard lint of the port: graftlint (R1-R8, R13, R14) + "
         "graftflow (R9-R12)",
     )
     ap.add_argument(
@@ -106,7 +106,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--rules",
         default=",".join(sorted(ALL_RULES)),
-        help="comma-separated rule subset (default: all of R1-R13)",
+        help="comma-separated rule subset (default: all of R1-R14)",
     )
     ap.add_argument(
         "--baseline",

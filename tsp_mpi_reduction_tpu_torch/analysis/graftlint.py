@@ -57,6 +57,16 @@ unchanged. Each hazard is mechanically detectable from the AST:
       ``torch.cuda.make_graphed_callables`` — runs once at capture and
       never at replay.
   R13 unbounded metric-label cardinality at a registry call site.
+  R14 index-by-a-0-d-device-tensor: a subscript, read or write, whose
+      index is a 0-d device tensor (``x[t.argmin()]``, ``row[i // n] = v``
+      with ``i`` bound from a full reduction) calls ``Tensor.__index__``:
+      the host reads the index back (a hidden sync, and a break in any
+      CUDA-graph capture). ``gather`` / ``index_select`` / ``scatter_`` /
+      ``index_put_`` with a 1-element index tensor keep it on the device.
+      A 0-d value is a full reduction (``argmin`` / ``argmax`` / ``sum`` /
+      ``amin`` ... with no ``dim``), or arithmetic, a cast, a clamp or a
+      0-d-indexed read of one; a port-only rule (the JAX lint has no counterpart: a traced
+      index never reads the host).
 
 Escape hatches (both are honored, in this order):
 
@@ -101,6 +111,7 @@ RULES = {
     "R7": "frontier function builds a new frontier buffer",
     "R8": "metric/trace recording inside a CUDA-graph capture",
     "R13": "unbounded metric-label cardinality at a registry call site",
+    "R14": "indexing or assigning by a 0-d device tensor (a hidden read of the index)",
 }
 
 #: functions whose WHOLE body R1, R2 and R4 treat as a hot loop: the
@@ -118,7 +129,9 @@ DEFAULT_HOT_PATHS = frozenset(
         "_rank_counts",
         "_expand_loop",
         "_guarded_expand_steps",
-        "_read_count",  # the device loop's one count read a step
+        "_pop_stage",  # the step's pop: inside the step's graph, no host read
+        "_read_counters",  # the B&B loop's one read a run of inner_steps steps
+        "_search_step",  # the B&B step's captured graph: replayed every step
         "fold_tours",
         "_fold_step",  # the fold's captured step: replayed 1023 times a fold
         "merge_tours",
@@ -178,6 +191,16 @@ _DATA_SHAPED_CALLS = frozenset(
 _DATA_SHAPED_METHODS = frozenset(
     {"nonzero", "argwhere", "unique", "unique_consecutive", "masked_select",
      "repeat_interleave"}
+)
+#: reductions that make a 0-d tensor when given no ``dim`` (R14)
+_FULL_REDUCTIONS = frozenset(
+    {"argmin", "argmax", "sum", "prod", "mean", "amin", "amax", "min", "max", "any", "all",
+     "count_nonzero"}
+)
+#: tensor methods that keep a 0-d value 0-d (R14)
+_ZEROD_KEEPING = frozenset(
+    {"to", "long", "int", "float", "double", "clone", "detach", "clamp", "clamp_min",
+     "clamp_max", "abs", "neg"}
 )
 #: calls that make a device bool mask (R1's boolean-mask subscripts)
 _MASK_CALLS = frozenset(
@@ -451,6 +474,7 @@ class _FileLinter(ast.NodeVisitor):
         self.pulled_names: Set[str] = set()  # bound from host pulls
         self.fresh_names: Set[str] = set()  # bound from fresh tensors (R7)
         self.mask_names: Set[str] = set()  # bound from device bool masks (R1)
+        self.zerod_names: Set[str] = set()  # bound from 0-d device values (R14)
         self.buffer_names: Set[str] = set()  # assigned from io.BytesIO etc.
         self.loop_targets: Set[str] = set()  # names bound by enclosing fors (R13)
         #: the subset of loop_targets bound by ``for x in range(...)``
@@ -507,6 +531,7 @@ class _FileLinter(ast.NodeVisitor):
             self.pulled_names,
             self.fresh_names,
             self.mask_names,
+            self.zerod_names,
             self.buffer_names,
             self.atomic_scope,
             self.capture_scope,
@@ -525,6 +550,7 @@ class _FileLinter(ast.NodeVisitor):
         self.pulled_names = set()
         self.fresh_names = set()
         self.mask_names = set()
+        self.zerod_names = set()
         self.buffer_names = set()
         self.loop_targets = set()
         self.bounded_targets = set()
@@ -542,6 +568,7 @@ class _FileLinter(ast.NodeVisitor):
             self.pulled_names,
             self.fresh_names,
             self.mask_names,
+            self.zerod_names,
             self.buffer_names,
             self.atomic_scope,
             self.capture_scope,
@@ -715,6 +742,7 @@ class _FileLinter(ast.NodeVisitor):
         pulled = self._is_host_pull(value)
         fresh = self._is_fresh_tensor(value)
         mask = self._is_device_mask(value)
+        zerod = self._is_zerod(value)
         buffer = isinstance(value, ast.Call) and _dotted(value.func) in _BUFFER_FACTORIES
         # state threading: ``fr, inc_cost = step(fr, inc_cost, ..)`` hands
         # the device values back under the same names
@@ -729,6 +757,7 @@ class _FileLinter(ast.NodeVisitor):
             self.pulled_names,
             self.fresh_names,
             self.mask_names,
+            self.zerod_names,
             self.buffer_names,
         ):
             group.difference_update(names)  # rebinding clears prior status
@@ -741,6 +770,14 @@ class _FileLinter(ast.NodeVisitor):
             self.fresh_names.update(names)
         if mask:
             self.mask_names.update(names)
+        if zerod and len(names) == 1:
+            self.zerod_names.update(names)
+        # ``a, b = x // n, x % n``: element by element
+        if (len(targets) == 1 and isinstance(targets[0], ast.Tuple) and isinstance(value, ast.Tuple)
+                and len(targets[0].elts) == len(value.elts)):
+            for tgt, elt in zip(targets[0].elts, value.elts):
+                if isinstance(tgt, ast.Name) and self._is_zerod(elt):
+                    self.zerod_names.add(tgt.id)
         if buffer:
             self.buffer_names.update(names)
 
@@ -826,6 +863,36 @@ class _FileLinter(ast.NodeVisitor):
                 and node.func.attr == "bool"
                 and self._is_device_expr(node.func.value)
             )
+        return False
+
+    def _is_zerod(self, node: ast.AST) -> bool:
+        """A 0-d device tensor (R14): a full reduction of a device tensor
+        (no ``dim``), a name bound from one, or arithmetic, a cast or a
+        clamp of one with host scalars or other 0-d values."""
+        if isinstance(node, ast.Name):
+            return node.id in self.zerod_names
+        if isinstance(node, ast.BinOp):
+            sides = (node.left, node.right)
+            return any(self._is_zerod(x) for x in sides) and all(
+                self._is_zerod(x) or not self._is_device_expr(x) for x in sides)
+        if isinstance(node, ast.UnaryOp) and not isinstance(node.op, ast.Not):
+            return self._is_zerod(node.operand)
+        if isinstance(node, ast.Subscript):  # a [k] tensor read at a 0-d index
+            return self._is_device_expr(node.value) and self._is_zerod(node.slice)
+        if not isinstance(node, ast.Call):
+            return False
+        name = _dotted(node.func) or ""
+        has_dim = any(kw.arg in ("dim", "axis") for kw in node.keywords)
+        if name.startswith("torch.") and name.split(".", 1)[1] in _FULL_REDUCTIONS:
+            return len(node.args) == 1 and not has_dim and self._is_device_expr(node.args[0])
+        if name in ("torch.clamp", "torch.minimum", "torch.maximum"):
+            return bool(node.args) and self._is_zerod(node.args[0])
+        if isinstance(node.func, ast.Attribute):
+            meth, recv = node.func.attr, node.func.value
+            if meth in _FULL_REDUCTIONS:
+                return not node.args and not has_dim and self._is_device_expr(recv)
+            if meth in _ZEROD_KEEPING:
+                return self._is_zerod(recv)
         return False
 
     def _is_host_pull(self, node: ast.AST) -> bool:
@@ -916,6 +983,18 @@ class _FileLinter(ast.NodeVisitor):
             )
 
     def visit_Subscript(self, node: ast.Subscript) -> None:
+        index = node.slice.elts if isinstance(node.slice, ast.Tuple) else [node.slice]
+        # any base: a list or a tensor indexed by a 0-d tensor calls __index__
+        if "R14" in self.rules and any(self._is_zerod(i) for i in index):
+            what = "write" if isinstance(node.ctx, ast.Store) else "read"
+            self._emit(
+                node,
+                "R14",
+                f"subscript {what} `{_short(node)}` indexes by a 0-d device tensor: "
+                "Tensor.__index__ reads it back to the host (a hidden sync, and a break "
+                "in a CUDA-graph capture); use gather / index_select / scatter_ with a "
+                "1-element index tensor",
+            )
         if (
             "R1" in self.rules
             and self.in_hot

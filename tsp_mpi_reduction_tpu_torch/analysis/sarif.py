@@ -3,7 +3,7 @@
 SARIF (Static Analysis Results Interchange Format, OASIS standard) is the
 lingua franca CI systems ingest for inline code annotations — one schema,
 every viewer. This module renders a violation list as one ``run`` of one
-tool (``TOOL_NAME``, the combined R1-R13 gate of the port), with
+tool (``TOOL_NAME``, the combined R1-R14 gate of the port), with
 the rule catalog embedded so viewers can show per-rule help without this
 repo.
 

@@ -14,7 +14,8 @@ A child row is the parent's path words with the byte at prefix position
 (``kernels/csrc/push_rows.cu``) on CUDA tensors and raises on anything the
 kernel does not take; CPU tensors go to :func:`push_rows_reference`. There
 is no fallback from one to the other. ``LAUNCHES`` counts kernel launches
-(plain-version calls are not counted).
+(plain-version calls are not counted; a launch captured into a CUDA graph
+counts at each replay, ``perf/compile_cache.count_launch``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ..kernels import _build
 from ..obs import costs as _costs
+from ..perf.compile_cache import count_launch
 
 #: city ids packed per int32 path word (``branch_bound.PATH_PACK``)
 PATH_PACK = 4
@@ -232,7 +234,7 @@ def push_rows(nodes: torch.Tensor, parents: torch.Tensor, dest: torch.Tensor,
         if code != 0:
             msg = lib.push_error_string(code).decode()
             raise RuntimeError(f"push_rows: CUDA error {code}: {msg}")
-        LAUNCHES["push_rows"] += 1
+        count_launch(LAUNCHES, "push_rows")
         key = (f"F{nodes.shape[0]}", f"k{k}", f"n{n}")
         _costs.record_launch("push_rows", key, lambda: _launch_costs(nodes, dest, n), nodes.device)
     return nodes

@@ -40,14 +40,14 @@ def mst_cost_degrees(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     cost = torch.zeros((), dtype=d.dtype, device=d.device)
     for _ in range(m - 1):
         cand = torch.where(in_tree, INF, mindist)
-        u = cand.argmin()
-        deg = deg + (ar == u).to(torch.int32) + (ar == closest[u]).to(torch.int32)
+        u = cand.argmin().view(1)  # a 1-element index: nothing is read back
+        deg = deg + (ar == u).to(torch.int32) + (ar == closest.gather(0, u)).to(torch.int32)
         in_tree = in_tree | (ar == u)
-        du = d[u]
+        du = d.index_select(0, u)[0]
         better = ~in_tree & (du < mindist)
         mindist = torch.where(better, du, mindist)
         closest = torch.where(better, u, closest)
-        cost = cost + cand[u]
+        cost = cost + cand.gather(0, u)[0]
     return cost, deg
 
 
@@ -63,7 +63,7 @@ def one_tree_cost_degrees(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ar = torch.arange(n, device=d.device)
     deg = torch.cat([torch.full((1,), 2, dtype=torch.int32, device=d.device), mst_deg])
     deg = deg + (ar == i1 + 1).to(torch.int32) + (ar == i2 + 1).to(torch.int32)
-    return mst_cost + (row[i1] + row[i2]), deg
+    return mst_cost + (row.gather(0, i1.view(1))[0] + row.gather(0, i2.view(1))[0]), deg
 
 
 def held_karp_potentials(d: torch.Tensor, steps: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -12,7 +12,8 @@ the first index. Both versions are bit-identical to the fori loop of
 (``kernels/csrc/prim_chain.cu``) on CUDA tensors and raises on anything
 the kernel does not take; CPU tensors go to :func:`prim_chain_reference`.
 There is no fallback from one to the other. ``LAUNCHES`` counts kernel
-launches (plain-version calls are not counted).
+launches (plain-version calls are not counted; a launch captured into a
+CUDA graph counts at each replay, ``perf/compile_cache.count_launch``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from ..kernels import _build
 from ..obs import costs as _costs
+from ..perf.compile_cache import count_launch
 
 MAX_N = 200  # MAX_BNB_CITIES: at most 7 cities per thread of a warp
 
@@ -176,7 +178,7 @@ def prim_chain(
         if code != 0:
             msg = lib.prim_error_string(code).decode()
             raise RuntimeError(f"prim_chain: CUDA error {code}: {msg}")
-        LAUNCHES["prim_chain"] += 1
+        count_launch(LAUNCHES, "prim_chain")
         key = (f"k{k}", f"n{n}") + (() if lam is None else ("lam",))
         _costs.record_launch("prim_chain", key, lambda: _launch_costs(unvis, n, lam), unvis.device)
     return tot, deg

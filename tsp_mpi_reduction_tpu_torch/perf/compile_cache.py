@@ -42,14 +42,32 @@ their eager dispatch, explicitly); anything else is the ascent memo's
 directory (unset: ``build/torch_cache`` of the checkout, where the JAX
 package uses ``~/.cache``; the port writes nothing outside its checkout).
 
+An entry that runs a loop on the device over state it owns (the B&B
+step, ``models/branch_bound.py``) captures one graph per ``variants``
+entry on the same static buffers, and its caller adopts those buffers:
+it takes the graph's lock (:meth:`CapturedGraph.acquire`), writes its
+state into ``inputs`` once, calls :meth:`CapturedGraph.replay` as often
+as it needs and reads the buffers itself, with no copy in or out per
+call. The capture warms up on the graph's own copy of the inputs, so a
+live state is never stepped outside the caller's loop; ``on_capture``
+tells the caller that its call captured (its warm-up launched kernels).
+
+A captured kernel launch runs at each replay, not at the capture: the
+kernel wrappers count their launches through :func:`count_launch`,
+which, while the calling thread captures, records the launch for the
+graph instead, and each replay adds the graph's recorded launches once.
+
 The store holds at most :data:`MAX_ENTRIES` graphs whose static buffers
-sum to at most :data:`MAX_BYTES`, least recently used out first; the
-newest graph is always kept. Its worst case is therefore the larger of
-:data:`MAX_BYTES` (4 GiB) and one entry: the full-size float64 merge fold
-(16,384 cities), whose distance buffer alone is 16,384^2 x 8 B = 2.15 GB
-(float32: 1.07 GB). A graph's private pool adds the step's temporaries,
-O(capacity x L) (about 2 MB at full size). The count bound is set by
-serve's traffic, where every request size is a key: bench ``compile``'s
+and private memory pools sum to at most :data:`MAX_BYTES`, least
+recently used out first; the newest graph is always kept. Its worst
+case is therefore the larger of :data:`MAX_BYTES` (4 GiB) and one entry:
+the full-size float64 merge fold (16,384 cities), whose distance buffer
+alone is 16,384^2 x 8 B = 2.15 GB (float32: 1.07 GB). A graph's private
+pool holds the step's temporaries (the fold's: O(capacity x L), about
+2 MB at full size; the B&B step's: about one more copy of its frontier,
+for the compaction's gather) and is counted by the device memory torch
+reserved while the capture ran. The count bound is set by serve's
+traffic, where every request size is a key: bench ``compile``'s
 ``serve_store`` leg sends phase 14's mix and a stream of 16 pipeline-tier
 sizes (``tools/bench.py``), and 32 keeps them all. :func:`clear` drops
 every graph.
@@ -66,7 +84,8 @@ here:
 - ``aot_unsupported``: always 0 (a graph is never written to disk);
 - ``ascent_memo_hits`` / ``ascent_memo_misses``: ``perf/ascent_memo.py``'s;
 - ``canonical_sorts_saved``: ``serve/canonical.py``'s fast-path hits;
-- ``entries``: per entry name, hits, misses, errors and seconds;
+- ``entries``: per entry name, hits, misses, errors and seconds (for the
+  B&B step, ``bnb_step``, a hit is one solve that adopted a stored graph);
 - ``dir``: the ascent memo's enabled directory.
 
 Outcomes are mirrored onto the port's ``REGISTRY`` under the JAX names
@@ -236,24 +255,75 @@ def entry_key(
 # -- the graph store ---------------------------------------------------------------
 
 
+# -- launch counts under replay ----------------------------------------------------
+
+_RECORDING = threading.local()
+
+
+def count_launch(launches: Dict[str, int], name: str) -> None:
+    """Count one launch of kernel ``name`` in its module's ``launches``
+    dict. While this thread captures a graph nothing launches: the launch
+    is recorded for the graph, whose every replay counts it once."""
+    rec = getattr(_RECORDING, "launches", None)
+    if rec is None:
+        launches[name] += 1
+    else:
+        rec.append((launches, name))
+
+
 class CapturedGraph:
-    """One captured graph with its static inputs and outputs."""
+    """One captured graph with its static inputs and outputs (and, for an
+    entry with variants, one graph per variant over the same buffers)."""
 
     def __init__(self, name: str, key: str, graph, inputs: Tuple[torch.Tensor, ...],
-                 outputs: Tuple[torch.Tensor, ...], capture_s: float) -> None:
+                 outputs: Tuple[torch.Tensor, ...], capture_s: float, *, graphs=None,
+                 launches=None, pool_bytes: int = 0) -> None:
         self.name = name
         self.key = key
         self.graph = graph
+        #: the captured variants, in the order of the entry's ``variants``
+        self.graphs = tuple(graphs) if graphs is not None else (graph,)
+        #: per variant, the kernel launches one replay makes
+        self.launches = launches if launches is not None else [[] for _ in self.graphs]
         self.inputs = inputs
         self.outputs = outputs
         self.capture_s = capture_s
-        #: device bytes of the static buffers the graph pins
+        #: device bytes of the static buffers the graph pins, and of its
+        #: private memory pool
         pinned = [*inputs, *(o for o in outputs if not any(o is i for i in inputs))]
-        self.nbytes = sum(t.numel() * t.element_size() for t in pinned)
+        self.pool_bytes = pool_bytes
+        self.nbytes = sum(t.numel() * t.element_size() for t in pinned) + pool_bytes
         self.lock = threading.Lock()
         #: the last call's end on its stream: a call from another stream
         #: waits for it before it overwrites the static buffers
         self._done = None
+
+    def acquire(self) -> None:
+        """Take the graph and its buffers for a run of :meth:`replay` calls
+        (the adopting caller's; blocks while another thread holds them).
+        Work on the current stream waits for the last holder's."""
+        self.lock.acquire()
+        if self._done is not None:
+            torch.cuda.current_stream(self.inputs[0].device).wait_event(self._done)
+
+    def release(self) -> None:
+        """Give the graph back after :meth:`acquire`."""
+        self._done = torch.cuda.current_stream(self.inputs[0].device).record_event()
+        self.lock.release()
+
+    def replay(self, times: int = 1, variant: int = 0) -> None:
+        """Replay variant ``variant`` ``times`` times on the static buffers
+        as they stand; the caller holds the graph (:meth:`acquire`). Each
+        replay counts the variant's captured kernel launches."""
+        g = self.graphs[variant]
+        try:
+            for _ in range(times):
+                g.replay()
+        except RuntimeError as e:
+            STATS.record(self.name, "error")
+            raise GraphStoreError(f"replay of {self.name} [{self.key}] failed: {e}") from e
+        for counts, kernel in self.launches[variant]:
+            counts[kernel] += times
 
     def __call__(self, *args: torch.Tensor, replays: int = 1) -> Tuple[torch.Tensor, ...]:
         """Copy ``args`` into the static inputs, replay ``replays`` times and
@@ -269,14 +339,17 @@ class CapturedGraph:
                     stream.wait_event(self._done)
                 for s, a in zip(self.inputs, args):
                     s.copy_(a)
-                for _ in range(replays):
-                    self.graph.replay()
-                out = tuple(o.clone() for o in self.outputs)
-                self._done = stream.record_event()
-                return out
             except RuntimeError as e:
                 STATS.record(self.name, "error")
                 raise GraphStoreError(f"replay of {self.name} [{self.key}] failed: {e}") from e
+            self.replay(replays)
+            try:
+                out = tuple(o.clone() for o in self.outputs)
+                self._done = stream.record_event()
+            except RuntimeError as e:
+                STATS.record(self.name, "error")
+                raise GraphStoreError(f"replay of {self.name} [{self.key}] failed: {e}") from e
+            return out
 
 
 @contextlib.contextmanager
@@ -294,33 +367,48 @@ def capture_region(graph, stream):
 
 
 def _capture(name: str, key: str, fn: Callable, args: Tuple[torch.Tensor, ...],
-             statics: Dict[str, Any]) -> CapturedGraph:
-    """Warm ``fn`` up once on a side stream, then capture it there."""
+             statics: Dict[str, Any], variants=None) -> CapturedGraph:
+    """Warm ``fn`` up once on a side stream, then capture it there; with
+    ``variants`` (dicts of further statics), once per variant over the
+    same static inputs, each with its own memory pool."""
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: a graph is captured from CUDA tensors, got {dev}")
+    variants = tuple(variants) if variants else ({},)
     t0 = time.perf_counter()
+    graphs, launches = [], []
     try:
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         inputs = tuple(torch.empty_like(a) for a in args)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            for s, a in zip(inputs, args):
-                s.copy_(a)
-            fn(*inputs, **statics)  # the warm-up: first launches, lazy init
+            for extra in variants:
+                for s, a in zip(inputs, args):
+                    s.copy_(a)
+                fn(*inputs, **statics, **extra)  # the warm-up: first launches, lazy init
             for s, a in zip(inputs, args):
                 s.copy_(a)  # undo what the warm-up wrote in place
-        graph = torch.cuda.CUDAGraph()
-        with capture_region(graph, side):
-            outputs = fn(*inputs, **statics)
+        reserved = torch.cuda.memory_reserved(dev)
+        for extra in variants:
+            graph = torch.cuda.CUDAGraph()
+            _RECORDING.launches = []
+            try:
+                with capture_region(graph, side):
+                    outputs = fn(*inputs, **statics, **extra)
+            finally:
+                launches.append(_RECORDING.launches)
+                _RECORDING.launches = None
+            graphs.append(graph)
         current.wait_stream(side)
+        pool_bytes = max(torch.cuda.memory_reserved(dev) - reserved, 0)
     except RuntimeError as e:
         STATS.record(name, "error")
         raise GraphStoreError(f"capture of {name} [{key}] failed: {e}") from e
     if isinstance(outputs, torch.Tensor):
         outputs = (outputs,)
-    return CapturedGraph(name, key, graph, inputs, tuple(outputs), time.perf_counter() - t0)
+    return CapturedGraph(name, key, graphs[0], inputs, tuple(outputs), time.perf_counter() - t0,
+                         graphs=graphs, launches=launches, pool_bytes=pool_bytes)
 
 
 class _GraphStore:
@@ -332,8 +420,9 @@ class _GraphStore:
         self._graphs: "OrderedDict[str, CapturedGraph]" = OrderedDict()
         self._lock = threading.Lock()
         self._capture_lock = threading.Lock()
-        #: captures made by entry name, evicted graphs included
+        #: captures made by entry name and by key, evicted graphs included
         self.captures: Dict[str, int] = {}
+        self.key_captures: Dict[str, int] = {}
         #: graphs dropped to keep within the bounds
         self.evictions = 0
 
@@ -360,7 +449,8 @@ class _GraphStore:
                 total -= old.nbytes
                 self.evictions += 1
 
-    def capture(self, name: str, key: str, fn, args, statics, store: bool) -> Tuple[CapturedGraph, bool]:
+    def capture(self, name: str, key: str, fn, args, statics, store: bool,
+                variants=None) -> Tuple[CapturedGraph, bool]:
         """-> (graph, captured now). Serialized: a graph another thread
         captured while this one waited is returned as found."""
         with self._capture_lock:
@@ -368,9 +458,10 @@ class _GraphStore:
                 g = self.lookup(key)
                 if g is not None:
                     return g, False
-            g = _capture(name, key, fn, args, statics)
+            g = _capture(name, key, fn, args, statics, variants)
             with self._lock:
                 self.captures[name] = self.captures.get(name, 0) + 1
+                self.key_captures[key] = self.key_captures.get(key, 0) + 1
             if store:
                 self.insert(key, g)
             return g, True
@@ -402,19 +493,24 @@ def _on_cuda(args) -> bool:
 
 
 def aot_load_or_compile(name: str, fn: Callable, args: Tuple[torch.Tensor, ...],
-                        statics: Optional[Dict[str, Any]] = None) -> Optional[CapturedGraph]:
+                        statics: Optional[Dict[str, Any]] = None, *, variants=None,
+                        on_capture: Optional[Callable[[], None]] = None) -> Optional[CapturedGraph]:
     """The stored graph of ``(name, key)``, captured on a miss; None when
     the store is off or the inputs are not on a CUDA device (the caller
-    then runs its eager dispatch)."""
+    then runs its eager dispatch). ``variants``: dicts of further statics,
+    one graph each over the same buffers. ``on_capture()`` runs when this
+    call captured."""
     statics = statics or {}
     if not store_enabled() or not _on_cuda(args):
         return None
-    key = entry_key(name, args, statics)
+    key = entry_key(name, args, statics if variants is None else {**statics, "variants": variants})
     g = _STORE.lookup(key)
     if g is None:
-        g, fresh = _STORE.capture(name, key, fn, args, statics, store=True)
+        g, fresh = _STORE.capture(name, key, fn, args, statics, store=True, variants=variants)
         if fresh:
             STATS.record(name, "miss", g.capture_s)
+            if on_capture is not None:
+                on_capture()
             return g
     STATS.record(name, "hit", g.capture_s)
     return g
@@ -454,9 +550,25 @@ class GraphEntry:
         self.name = name
         self.fn = fn
 
-    def graph(self, *args: torch.Tensor, **statics) -> Optional[CapturedGraph]:
-        return aot_load_or_compile(self.name, self.fn, args, statics)
+    def graph(self, *args: torch.Tensor, variants=None, on_capture: Optional[Callable[[], None]] = None,
+              **statics) -> Optional[CapturedGraph]:
+        return aot_load_or_compile(self.name, self.fn, args, statics, variants=variants,
+                                   on_capture=on_capture)
 
     def _cache_size(self) -> int:
         with _STORE._lock:
             return _STORE.captures.get(self.name, 0)
+
+
+class KeyCaptures:
+    """The captures made of one key in this process, as a guard entry
+    (``_cache_size()``): a loop that holds a graph of this key must not
+    capture it again, whatever other keys of its entry other threads
+    capture meanwhile."""
+
+    def __init__(self, key: str) -> None:
+        self.key = key
+
+    def _cache_size(self) -> int:
+        with _STORE._lock:
+            return _STORE.key_captures.get(self.key, 0)

@@ -28,7 +28,9 @@ unit, gates and ``vs_baseline``).
   proof at ``TSP_BENCH_K`` (1024), capacity ``max(2^17, 8k(n-1))``,
   ``TSP_BENCH_NODE_ASCENT`` (2), the default MST kernel and loop
   (``prim_chain`` and the device loop on CUDA, the plain chain and the
-  host loop on the CPU). A warm-up solve first (excluded), then
+  host loop on the CPU). ``warm_compile_device_solver`` first, as the
+  JAX mode's ``bench.py:500`` (on the card: the step's graph captured,
+  ``step_capture_s``), and a warm-up solve (both excluded), then
   ``TSP_BENCH_BNB_REPS`` (3; ``--quick`` 1) timed proofs: median, min and
   max. ``vs_baseline`` = nodes/s over ``BNB_CPU_8RANK_ANCHOR``.
 - ``faults`` (``bench_faults``, ``bench.py:171-243``): the crash-safe
@@ -132,7 +134,11 @@ unit, gates and ``vs_baseline``).
   sizes twice, one request at a time: ``STORE_MIX_*``) in fresh processes
   with the store and without it, ABBA: latency p50/p99 a group, the
   fold's seconds, captures and the store's size; the sized stream's
-  costs equal in every run. ``--quick`` skips the populating runs, the
+  costs equal in every run. The B&B step's graph: each chunk child's
+  captures (``{cold,warm}_step_captures``: 1 a process with the store,
+  0 off) and, on the card, ``step``: ``warm_compile_device_solver`` at
+  ``bnb``'s eil51 shapes in this process, a capture and then the same
+  call again, 0 captures. ``--quick`` skips the populating runs, the
   second cold and warm chunks, the CLI and ``serve_store``.
   ``compile_once_warm_start`` = cold / warm chunk startup; ``vs_baseline``
   null.
@@ -536,10 +542,19 @@ def bench_bnb(run: Run) -> Outcome:
     build_s = _build_kernels(device)
     if not run.budget.fits():
         return Outcome(failed("bnb", "no time left for the warm-up", run, skipped=["warmup"]), {})
+    # the device loop's step captured before the timed proofs, as the
+    # JAX bench compiles _solve_device ahead of them (a no-op on the CPU)
+    captures = bb.STEP._cache_size()
+    t0 = time.perf_counter()
+    bb.warm_compile_device_solver(n, capacity, k, integral=bb._is_integral(d), node_ascent=na,
+                                  device=device)
+    step_warm_s = time.perf_counter() - t0
+    captures = bb.STEP._cache_size() - captures
     t0 = time.perf_counter()
     bb.solve(d, max_iters=8, **kw)  # first launches, the ascent memo's entry
     warm_s = time.perf_counter() - t0
-    print(f"bench: bnb warm-up {warm_s:.2f} s", file=sys.stderr)
+    print(f"bench: bnb step capture {step_warm_s:.2f} s ({captures} graph(s)), warm-up {warm_s:.2f} s",
+          file=sys.stderr)
 
     runs: List[Dict[str, Any]] = []
     skipped: List[str] = []
@@ -566,6 +581,8 @@ def bench_bnb(run: Run) -> Outcome:
             "launches": launches,
             "mst_kernel": res.mst_kernel, "step_kernel": res.step_kernel,
             "device_loop": res.device_loop,
+            "replays": res.replays, "dispatches": res.dispatches, "step_graph": res.step_graph,
+            "warm_steps": res.warm_steps,
         })
         print(f"bench: {name} run {r}: cost={res.cost} (known {inst.known_optimum}) "
               f"proven={res.proven_optimal} nodes={res.nodes_expanded} wall={res.wall_seconds:.3f} s "
@@ -611,6 +628,9 @@ def bench_bnb(run: Run) -> Outcome:
         "anchor": "the JAX engine's 1-rank CPU rate x8 (assumes perfect 8-way MPI scaling)",
         "runs": runs,
         "warmup_s": warm_s,
+        # warm_compile_device_solver: the step's graph captured before the proofs
+        "step_capture_s": step_warm_s,
+        "step_captures": captures,
         "build_s": build_s,
         "skipped": skipped,
         "obs": {"device_costs": obs_costs.device_costs_block()},
@@ -2144,6 +2164,35 @@ def _serve_store_leg(child: Callable, cache_dir: str) -> Optional[Dict[str, Any]
             and all(r["captures"] == 0 for r in runs["off"])}
 
 
+def _step_misses(child_out: Dict[str, Any]) -> int:
+    """The B&B step's captures that a compile child reports."""
+    return int(child_out["compile_cache"]["entries"].get("bnb_step", {}).get("misses", 0))
+
+
+def _step_leg(run: Run) -> Optional[Dict[str, Any]]:
+    """The B&B step's graph in this process (a card only): the ``bnb``
+    mode's eil51 shapes captured by ``warm_compile_device_solver``, then
+    the same call again, a stored key -> captures and seconds of each."""
+    if run.device.type != "cuda":
+        return None
+    from ..models import branch_bound as bb
+    from ..perf import compile_cache
+    from ..utils import tsplib
+
+    d = tsplib.embedded("eil51").distance_matrix()
+    n, k = d.shape[0], 1024
+    capacity = max(1 << 17, 8 * k * (n - 1))
+    out: Dict[str, Any] = {"instance": "eil51", "k": k, "capacity": capacity}
+    for leg in ("first", "again"):
+        before = bb.STEP._cache_size()
+        t0 = time.perf_counter()
+        bb.warm_compile_device_solver(n, capacity, k, integral=True, device=run.device)
+        out[f"{leg}_s"] = time.perf_counter() - t0
+        out[f"{leg}_captures"] = bb.STEP._cache_size() - before
+    out["store"] = compile_cache.store_info()
+    return out
+
+
 def bench_compile(run: Run) -> Outcome:
     import shutil
 
@@ -2211,6 +2260,9 @@ def _compile_legs(run: Run, workdir: str) -> Outcome:
         serve_store = _serve_store_leg(child, cache_dir)
         if serve_store is None:
             skipped.append("serve_store")
+    step = _step_leg(run) if run.budget.fits() else None
+    if step is None and backend == "cuda":
+        skipped.append("step")
     if not colds or not warms:
         return Outcome(failed("compile", f"the chunk leg did not fit the {run.budget.seconds:g} s budget",
                               run, skipped=skipped), {})
@@ -2243,9 +2295,13 @@ def _compile_legs(run: Run, workdir: str) -> Outcome:
             "warm_setup_runs": [c["setup_s"] for c in warms],
             "cold_compile_cache": cold["compile_cache"],
             "warm_compile_cache": warm["compile_cache"],
+            # the B&B step's captures in each chunk process (one dispatch)
+            "cold_step_captures": [_step_misses(c) for c in colds],
+            "warm_step_captures": [_step_misses(c) for c in warms],
         },
         "serve": None,
         "fold": fold,
+        "step": step,
         "cli": cli,
         "serve_store": serve_store,
         "build_s": build_s,

@@ -114,6 +114,14 @@ def result_payload(res, inst, args, device, launches: dict, health: dict,
                 "balance": res.balance},
         "iterations": res.iterations,
         "steps_run": res.steps_run,
+        # the search's predicated steps (graph replays on CUDA, or eager
+        # calls), its dispatches, and a capture this run made: warm-up
+        # steps (they launch the kernels too) and seconds
+        "replays": res.replays,
+        "dispatches": res.dispatches,
+        "step_graph": res.step_graph,
+        "warm_steps": res.warm_steps,
+        "capture_s": round(res.capture_seconds, 4),
         "prim_chain_launches": launches["prim_chain"],
         "push_rows_launches": launches["push_rows"],
         "checkpoint_save_s": [round(t, 4) for t in res.checkpoint_save_s],

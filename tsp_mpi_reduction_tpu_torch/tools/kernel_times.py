@@ -41,6 +41,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 from typing import Callable, List, Optional
@@ -141,12 +142,23 @@ def run_bnb_cli(argv: List[str]) -> dict:
 
 def record_bnb_calls(argv: List[str], prim_limit: Optional[int] = None):
     """The ``prim_chain`` inputs (its first ``prim_limit`` launches) and
-    the ``push_rows`` inputs of a B&B CLI run, and the run's payload."""
+    the ``push_rows`` inputs of a B&B CLI run, and the run's payload. The
+    run takes its eager steps (``TSP_COMPILE_CACHE=off``): a replayed
+    graph calls no wrapper, so only an eager step's inputs can be
+    recorded, launch by launch (the same steps, so the same inputs)."""
     from tsp_mpi_reduction_tpu_torch.ops import expand_kernels, prim_kernels
 
-    with recorded(prim_kernels, "prim_chain", keep_prim, prim_limit) as chains, \
-            recorded(expand_kernels, "push_rows", keep_push) as pushes:
-        out = run_bnb_cli(argv)
+    saved = os.environ.get("TSP_COMPILE_CACHE")
+    os.environ["TSP_COMPILE_CACHE"] = "off"
+    try:
+        with recorded(prim_kernels, "prim_chain", keep_prim, prim_limit) as chains, \
+                recorded(expand_kernels, "push_rows", keep_push) as pushes:
+            out = run_bnb_cli(argv)
+    finally:
+        if saved is None:
+            os.environ.pop("TSP_COMPILE_CACHE", None)
+        else:
+            os.environ["TSP_COMPILE_CACHE"] = saved
     return chains, pushes, out
 
 

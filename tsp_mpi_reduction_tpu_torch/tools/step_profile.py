@@ -15,9 +15,15 @@ in one process:
     nomst                          - the same steps without the MST re-bound
     bound_prim_chain / bound_boruvka - ``_batched_mst_bound`` alone on the
                                      warm frontier's popped batch
-    guarded                        - ``_guarded_expand_steps`` (the device
-                                     loop: the per-step host read of count,
-                                     overflow and improvement, and the guard)
+    guarded                        - ``_guarded_expand_steps`` eagerly (the
+                                     device loop's predicated step, with the
+                                     guard and the per-step compaction pass,
+                                     each step's kernels launched from the
+                                     host, one read at the end)
+    replay                         - the same steps replayed from the step's
+                                     graph (``_Search``, adopted once, the
+                                     warm state loaded before each rep); on
+                                     the CPU it runs eagerly like ``guarded``
 
 and with ``--fine`` the stages of the nomst step:
 
@@ -25,9 +31,13 @@ and with ``--fine`` the stages of the nomst step:
                 completions and push flags (no order, no push)
     sort      - popgather + ``_push_rank``, the best-first order
     scatter   - the whole nomst step, push included (== nomst)
+    compact   - the guarded step's compaction pass when the count is
+                under the pressure line: its predicate false, the gather
+                still moves every logical row (what each step pays for
+                running it predicated, with no branch on the host)
 
-``full - nomst ~= bound`` closes the attribution and ``guarded - full``
-is the loop's guard. Each rep restarts from a copy of the warm frontier,
+``full - nomst ~= bound`` closes the attribution, ``guarded - full``
+is the loop's guard, and ``guarded / replay`` what the graph saves. Each rep restarts from a copy of the warm frontier,
 after one untimed rep. On a CUDA device the time of a rep is CUDA events
 around it (the host's launch gaps included, as a step pays them); on the
 CPU it is the host clock. The JAX tool's process per component is for
@@ -48,8 +58,8 @@ from typing import List, Optional
 from ..resilience.checkpoint import write_json_atomic
 
 COMPONENTS = ("full_prim_chain", "full_boruvka", "nomst", "bound_prim_chain", "bound_boruvka",
-              "guarded")
-FINE_COMPONENTS = ("popgather", "sort", "scatter")
+              "guarded", "replay")
+FINE_COMPONENTS = ("popgather", "sort", "scatter", "compact")
 
 #: the repo root: the default output lives in its ``build/``
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -111,9 +121,23 @@ def profile(instance: str = "eil51", k: int = 1024, node_ascent: int = 2, device
     def mst_of(comp):
         return "boruvka" if comp.endswith("boruvka") else auto_mst
 
+    # the replay leg's search: the guarded step's graph, adopted once
+    search = bb._Search(fresh(), inc_cost, inc_tour, d32, bd, k, n, guard=True, graph=True,
+                        node_ascent=node_ascent, mst_kernel=auto_mst,
+                        step_kernel=kernel) if "replay" in components else None
+
     def steps_fn(comp):
-        use_mst = comp.startswith("full") or comp == "guarded"
+        use_mst = comp.startswith("full") or comp in ("guarded", "replay")
         kw = dict(use_mst=use_mst, node_ascent=node_ascent, mst_kernel=mst_of(comp))
+        if comp == "replay":
+            return lambda f: search.dispatch(steps, 0, steps).expanded
+        if comp == "compact":
+            never = torch.zeros((), dtype=torch.bool, device=device)
+
+            def compact(f):
+                for _ in range(steps):
+                    bb._compact_frontier(f, inc_cost, bd.integral, rows=capacity, when=never)
+            return compact
         if comp == "guarded":
             # -> the steps that expanded (the guard may stop the loop)
             return lambda f: bb._guarded_expand_steps(f, inc_cost, inc_tour, d32, bd, k, n, steps,
@@ -147,9 +171,11 @@ def profile(instance: str = "eil51", k: int = 1024, node_ascent: int = 2, device
                                       bd.ascent_step, bd.lam_budget, mst_of(comp))
         return run
 
-    def timed(fn, units: int) -> float:
+    def timed(fn, units: int, replay: bool = False) -> float:
         """ms per unit of one rep; ``fn`` may return the units it ran."""
         f = fresh()
+        if replay:
+            search.load(f, inc_cost, inc_tour)  # untimed: the warm state into the graph's buffers
         if cuda:
             torch.cuda.synchronize(device)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -169,9 +195,10 @@ def profile(instance: str = "eil51", k: int = 1024, node_ascent: int = 2, device
         bound_only = comp.startswith("bound")
         fn = bound_fn(comp) if bound_only else steps_fn(comp)
         units = bound_iters if bound_only else steps
-        timed(fn, units)  # untimed rep: caches, lazy builds, allocator
+        replay = comp == "replay"
+        timed(fn, units, replay)  # untimed rep: caches, lazy builds, allocator
         prim_kernels.reset_launches()
-        times = [timed(fn, units) for _ in range(reps)]
+        times = [timed(fn, units, replay) for _ in range(reps)]
         results[comp] = {
             "ms_per_unit": float(np.median(times)),
             "ms_per_unit_min": min(times),
@@ -179,9 +206,14 @@ def profile(instance: str = "eil51", k: int = 1024, node_ascent: int = 2, device
             "unit": "bound eval" if bound_only else "expansion step",
             "units_per_rep": units,
             "reps": reps,
-            "mst_kernel": mst_of(comp) if (bound_only or comp.startswith(("full", "guarded"))) else None,
+            "mst_kernel": mst_of(comp) if (bound_only or comp.startswith(("full", "guarded", "replay")))
+            else None,
             "prim_chain_launches_per_unit": prim_kernels.LAUNCHES["prim_chain"] / (reps * units),
         }
+        if replay:
+            results[comp]["step_graph"] = search.graph is not None
+    if search is not None:
+        search.close()
     return {
         "instance": instance,
         "k": k,
@@ -189,6 +221,9 @@ def profile(instance: str = "eil51", k: int = 1024, node_ascent: int = 2, device
         "step_kernel": kernel,
         "warm_steps": warm_steps,
         "warm_count": int(warm.count),
+        # the frontier the steps run on: logical rows (the compaction's) and bytes a row
+        "capacity": capacity,
+        "row_bytes": int(warm.nodes.shape[-1]) * 4,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "method": ("CUDA events around each rep (host launch gaps included)" if cuda
                    else "host clock around each rep (the CPU: not a device time)")
