@@ -152,10 +152,13 @@ Phases, each printing its own line; any failure exits non-zero:
     and ``eil51 --ranks=4 --k=256 --capacity=1048576 --device-loop=on``,
     each held to the JAX package's CLI node for node (cost and LB 426,
     nodes, nodes per rank, spill counters, balance actions, moved rows and
-    the per-dispatch rows), with 1 + node_ascent ``prim_chain`` and one
-    ``push_rows`` launch a rank-step; every launch of run 1 recorded and
-    held bit for bit against the plain versions, its first 3000 / 1000
-    launches timed (``launches_sharded`` in the kernels line); then 4-rank
+    the per-dispatch rows), the round replayed from the store (the batched
+    step over all ranks and the round's tail), with 1 + node_ascent
+    ``prim_chain`` launches (one chain over the R*k lanes) and one
+    ``push_rows`` launch (into the stacked buffer) a batched step issued;
+    every launch of run 1's eager steps recorded and held bit for bit
+    against the plain versions, its first 3000 / 1000 launches timed
+    (``launches_sharded`` in the kernels line); then 4-rank
     ``solve_sharded`` calls held to the JAX package's numbers: the adaptive
     controller on single-rank seeding (its whole summary), a spill-forcing
     device-loop proof (nonzero spill counters), and a proof cut into a
@@ -173,10 +176,13 @@ Phases, each printing its own line; any failure exits non-zero:
     processes on the merged tour of ``16 64 1000 1000`` (float64) equals
     ``BatchedRanks(4)`` on the card. (c) eil51 ``--ranks=8 --k=128`` and
     ``--ranks=4 --k=256 --capacity=1048576 --device-loop=on`` with
-    ``--transport=procs``: phase 16's pins and its summed launches (the
-    first through the CLI's rank body with rank 0's ``prim_chain`` and
-    ``push_rows`` launches recorded and held bit for bit, the second
-    through the CLI itself). (d) 4-process 12-city solves: phase 16's
+    ``--transport=procs``: phase 16's pins and the launches of the steps
+    each rank process issued, summed (each process replays its own step
+    graph, one rank a step, and runs the balance and share between
+    replays; the first through the CLI's rank body on every process's
+    eager steps, rank 0's ``prim_chain`` and ``push_rows`` launches
+    recorded and held bit for bit, the second through the CLI itself,
+    replayed). (d) 4-process 12-city solves: phase 16's
     adaptive and spill-forcing pins, a procs snapshot at 200 iterations
     resumed batched and a batched one resumed over procs (outputs in
     ``build/chip_smoke_procs/``). Prints seconds, nodes/s, collective
@@ -211,7 +217,11 @@ Phases, each printing its own line; any failure exits non-zero:
     dispatches), both replaying the step's graph, and the device loop
     under ``TSP_COMPILE_CACHE=off``: no sync in ``_pop_stage`` or the
     step, and in the step loop at most one a run of 32 steps plus one a
-    dispatch (the search seconds print); every warning is attributed to its innermost
+    dispatch (the search seconds print); then the sharded loop: phase 16's
+    eil51 ``--ranks=8`` pair replayed and eager (one read a round, the
+    host loop) and its ``--ranks=4`` device loop replayed (at most one a
+    round): no sync inside a round (the steps, the tail, the balance's
+    write); every warning is attributed to its innermost
     frame in the port, the syncs a fold and a B&B step print with the
     distinct sites, and every site in a lexically hot context (a loop body
     or a hot function, by the lint's own rules) must be a lint finding
@@ -278,12 +288,21 @@ Phases, each printing its own line; any failure exits non-zero:
     proof adopts it with 0 captures under ``RecompilationGuard``; two
     threads prove eil51 at once through it (one on its own stream; the
     second waits for the graph): the same proof three times.
+23. the sharded round's graphs (``models/branch_bound.RANK_TAIL`` beside
+    ``STEP``): on a cold store a short adaptive eil51 R = 8 solve captures
+    the batched step and the tail with every action it can pick at setup
+    (seconds a variant, the graphs' bytes); phase 16's eil51 R = 8 pair
+    proof replayed and under ``TSP_COMPILE_CACHE=off``, ABBA (the same
+    proof; the search seconds; 3 ``prim_chain`` and 1 ``push_rows`` a
+    batched step issued; the last run 0 captures under
+    ``RecompilationGuard``).
 
 Each main path (phase 4's Held-Karp run, phase 7's eil51, phase 9's
 kroA100 runs, phase 11's chunks, phase 12's ``--improve`` run, phase
 13's Boruvka run, phase 14's request traffic, phase 15's F1 and F2 in
 the replica processes, phase 16's three eil51 runs, phase 17's runs in
-every rank process and phase 20's bench windows, see above) runs with
+every rank process, phase 20's bench windows and phase 23's four eil51
+runs, see above) runs with
 the kernels' launch counts reset just before and read just after; a
 kernel of the path that never launched fails the run.
 The last two lines are the per-kernel JSON and ``{"ok": true, ...}``. In
@@ -1821,7 +1840,9 @@ def phase_serve(smi):
     for i in range(SERVE_GROUPS["D"][0]):
         r = resp_of[f"D{i}"]
         require(r["certified_gap"] is not None and r["certified_gap"] >= 0.0,
-                f"serve: D{i} carries no certificate ({r['certified_gap']})")
+                f"serve: D{i} carries no certificate ({r['certified_gap']}) after {r.get('latency_ms')} ms; "
+                f"the B&B slices: {len(slices)}, {sum(x['seconds'] for x in slices):.3f} s in all, "
+                f"{sum(x['save_s'] for x in slices):.3f} s saving, proven {sum(x['proven'] for x in slices)}")
     berlin = resp_of["D0"]
     dr = tsplib.embedded("berlin52").distance_matrix()
     bt = np.asarray(berlin["tour"])
@@ -2345,34 +2366,42 @@ def phase_sharded(smi, errs):
                 and out["step_kernel"] == "fused",
                 f"sharded {name}: ranks {out['ranks']} balance {out['balance']} loop {out['device_loop']} "
                 f"kernels {out['mst_kernel']}/{out['step_kernel']}")
-        # 1 + node_ascent prim_chain launches and one push_rows a rank-step
-        # issued (the rank steps stay eager: a read before each step, none
-        # issued past a rank's stop; a full-stack stop issues one that
-        # expands nothing)
-        require(launches["prim_chain"] == out["prim_chain_launches"] == 3 * out["replays"] > 0
-                and launches["push_rows"] == out["push_rows_launches"] == out["replays"]
-                and out["replays"] >= out["steps_run"] and not out["step_graph"],
+        # 1 + node_ascent prim_chain launches (one chain over the R*k lanes)
+        # and one push_rows launch (into the stacked [R*F, C] buffer) a
+        # batched step issued: its replays and a capture's warm-up steps;
+        # the host loop issues inner_steps steps a round, the device loop up
+        # to a run of no-op rounds past its stop
+        issued = out["replays"] + out["warm_steps"]
+        require(launches["prim_chain"] == out["prim_chain_launches"] == 3 * issued > 0
+                and launches["push_rows"] == out["push_rows_launches"] == issued
+                and out["replays"] >= out["iterations"] and (loop or out["replays"] == out["iterations"])
+                and out["step_graph"],
                 f"sharded {name}: {launches['prim_chain']} prim_chain / {launches['push_rows']} push_rows "
-                f"launches for {out['replays']} rank-steps issued ({out['steps_run']} expanded)")
+                f"launches for {out['replays']} batched steps issued + {out['warm_steps']} warm-up "
+                f"({out['iterations']} iterations, {out['steps_run']} rank-steps expanded)")
         print(f"phase 16 eil51 {' '.join(argv[1:])} ({'device' if loop else 'host'} loop, fused push, "
               f"prim_chain): proved {out['cost']} (LB {out['lower_bound']}) in {out['nodes_expanded']} nodes "
               f"== the JAX package's, per rank {out['nodes_per_rank']}; {out['iterations']} iterations, "
-              f"{out['steps_run']} rank-steps, balance {bal['actions']} moving {bal['moved_rows_total']} rows; "
-              f"{launches['prim_chain']} prim_chain + {launches['push_rows']} push_rows launches; largest "
-              f"rank count {outs[name][2]}")
+              f"{out['steps_run']} rank-steps in {out['replays']} batched steps issued over {out['dispatches']} "
+              f"dispatches, balance {bal['actions']} moving {bal['moved_rows_total']} rows; "
+              f"{launches['prim_chain']} prim_chain + {launches['push_rows']} push_rows launches "
+              f"({out['warm_steps']} warm-up steps, capture {out['capture_s']} s); largest rank count "
+              f"{outs[name][2]}")
         print(f"phase 16 seconds ({name}): setup {out['setup_s']} (ascent {out['setup_ascent_s']}, ILS "
               f"{out['setup_ils_s']}), search {out['wall_s']}, time to proof {out['time_to_proof_s']}; "
               f"{out['nodes_per_sec']} nodes/s")
     main_out, main_launches, _ = outs["pair"]
     SHARED["pair_batched"] = main_out
 
-    # --- both kernels on run 1's recorded inputs, launch by launch
+    # --- both kernels on run 1's recorded inputs (its eager steps: the same
+    # batched steps, R*k lanes a launch), launch by launch
     argv = SHARD_CLI["pair"][0] + ["--backend=cuda"]
     chains, pushes, out = kt.record_bnb_calls(argv)
-    require(out["nodes_expanded"] == main_out["nodes_expanded"] and len(chains) == main_launches["prim_chain"]
-            and len(pushes) == main_launches["push_rows"],
+    require(out["nodes_expanded"] == main_out["nodes_expanded"] and out["replays"] == main_out["replays"]
+            and len(chains) == 3 * out["replays"] and len(pushes) == out["replays"]
+            and chains[0][1].shape[0] == 8 * 128 and pushes[0][0][0] == 8 * (16_384 + 128 * 51),
             f"recorded run: {out['nodes_expanded']} nodes, {len(chains)} prim_chain / {len(pushes)} push_rows "
-            f"launches, want {main_launches}")
+            f"launches, want 3 x / 1 x {main_out['replays']} batched steps of 1024 lanes")
     try:
         lanes = kt.prim_check(chains)
         kt.push_check(pushes, 51)
@@ -2383,7 +2412,7 @@ def phase_sharded(smi, errs):
     push = kt.time_push(pushes[:1000], 51, "sharded", reps=3)
     print(f"phase 16 kernels on run 1's recorded inputs: all {len(chains)} prim_chain launches ({lanes} lanes) "
           f"and all {len(pushes)} push_rows launches == plain bit for bit; on the first {len(sample)} / "
-          f"{min(len(pushes), 1000)} (k=128, n=51): prim_chain {prim_row['device_ms']:.4f} ms/launch device "
+          f"{min(len(pushes), 1000)} (8 ranks x k=128 lanes, n=51): prim_chain {prim_row['device_ms']:.4f} ms/launch device "
           f"(graph replay), {prim_row['ms']:.4f} eager, bound {prim_row['bound_ms']:.6f} ms, plain "
           f"{prim_row['plain_ms']:.4f}; push_rows {push['device_ms']:.4f} ms/launch device, {push['ms']:.4f} "
           f"eager, bound {push['bound_ms']:.6f} ms, plain {push['plain_ms']:.4f}, mean n_push "
@@ -2667,15 +2696,20 @@ def phase_procs(smi):
         r = len(pinned["nodes_per_rank"])
         cli = argv + ["--backend=cuda", "--transport=procs"]
         t0 = time.perf_counter()
-        if name == "pair":  # rank 0's launches recorded and held bit for bit
-            (out, info), rec = mesh.spawn_ranks(procs_bnb_rank, r, args=(cli,), timeout_s=PROCS_DEADLINE_S)
+        if name == "pair":  # rank 0's launches recorded and held bit for bit: every rank takes the
+            # eager steps (a replay calls no wrapper), the steps a replay issues
+            with compile_cache_setting("off"):
+                (out, info), rec = mesh.spawn_ranks(procs_bnb_rank, r, args=(cli,), timeout_s=PROCS_DEADLINE_S)
         else:
             (out, info), rec = run_bnb_cli_procs(cli), None
         wall = time.perf_counter() - t0
         bal = out["obs"]["balance"]
         pinned_fields(shard_fields(out, bal), {**SHARD_CLI_COMMON, **pinned}, f"procs {' '.join(argv)}")
         per_rank = info["launches_per_rank"]
-        want_prim, want_push = (5721, 1907) if name == "pair" else (3090, 1030)
+        # each rank process replays its own step graph, one rank a step:
+        # 3 prim_chain and 1 push_rows a step it issued, summed over the R
+        want_push = r * (out["replays"] + out["warm_steps"])
+        want_prim = 3 * want_push
         require(info["transport"] == "procs" and info["backend"] == "gloo" and out["ranks"] == r
                 and out["prim_chain_launches"] == sum(x["prim_chain"] for x in per_rank) == want_prim
                 and out["push_rows_launches"] == sum(x["push_rows"] for x in per_rank) == want_push
@@ -3201,6 +3235,12 @@ def phase_lint(smi):
             f"phase 19 pipeline launched relax_dense {launches['relax_dense']} times")
     require(math.isfinite(res.cost) and res.num_cities == n * nb, f"phase 19 pipeline: {res.cost}, {res.num_cities}")
     argv = ["eil51", "--backend=cuda", "--k=1024", "--capacity=262144"]
+    # every B&B configuration below once before it is watched: its graphs
+    # captured and its kernels' first-launch cost records taken (a record
+    # reads the device once a shape), as the earlier phases do in a full run
+    for warm in (argv, argv + ["--device-loop=off"], SHARD_CLI["pair"][0] + ["--backend=cuda"],
+                 SHARD_CLI["device"][0] + ["--backend=cuda"]):
+        run_bnb_cli(warm)
     marks = ("dispatch", "_pop_stage", "_search_step", "solve")
     dev_out, dev_sites, dev_marked, dev_attr = capture_syncs(lambda: run_bnb_cli(argv), marks=marks)
     host_out, host_sites, host_marked, host_attr = capture_syncs(
@@ -3237,14 +3277,42 @@ def phase_lint(smi):
                 f"phase 19 eil51 {what}: {marked['_pop_stage']} syncs in _pop_stage, {marked['_search_step']} "
                 f"in the step, {search} in the step loop for {out['replays']} steps issued in "
                 f"{out['dispatches']} dispatches")
-    attributed = fold_attr[0] + dev_attr[0] + host_attr[0] + eager_attr[0]
-    same = fold_attr[1] + dev_attr[1] + host_attr[1] + eager_attr[1]
+    # --- the sharded loop's host reads: eil51 R = 8 pair (the host loop: one
+    # read a round) replayed and eager, and the R = 4 device loop replayed
+    # (one read a run of rounds); no sync inside a round
+    shard_marks = ("dispatch", "_round", "_rank_tail", "_receive", "_search_step", "_pop_stage", "solve_sharded")
+    shard_sites, shard_attr = {}, [0, 0]
+    for tag, what, argv_s, cache in (("R8-host", "R = 8 pair, host loop, replayed", SHARD_CLI["pair"][0], None),
+                                     ("R8-eager", "R = 8 pair, host loop, eager (TSP_COMPILE_CACHE=off)",
+                                      SHARD_CLI["pair"][0], "off"),
+                                     ("R4-device", "R = 4 pair, device loop, replayed", SHARD_CLI["device"][0],
+                                      None)):
+        with compile_cache_setting(cache):
+            out, sites, marked, attr = capture_syncs(lambda: run_bnb_cli(argv_s + ["--backend=cuda"]),
+                                                     marks=shard_marks)
+        shard_sites[tag] = sites
+        shard_attr = [shard_attr[0] + attr[0], shard_attr[1] + attr[1]]
+        rounds = out["iterations"] // 32
+        reads = marked["dispatch"]
+        inside = {m: marked[m] for m in ("_round", "_rank_tail", "_receive", "_search_step", "_pop_stage")}
+        print(f"phase 19 eil51 {what}: {out['nodes_expanded']} nodes, {rounds} rounds in {out['dispatches']} "
+              f"dispatch(es), {out['replays']} batched steps issued; {sum(sites.values())} syncs, "
+              f"{marked['solve_sharded']} in solve_sharded, {reads} in the round program's dispatches "
+              f"({reads / max(rounds, 1):.3f} a round), inside a round {inside}; search {out['wall_s']} s")
+        loop = out["device_loop"]
+        require(out["proven_optimal"] and out["nodes_expanded"] == SHARD_CLI["pair" if not loop else "device"][2][
+                    "nodes_expanded"] and not any(inside.values())
+                and (out["dispatches"] <= reads <= out["replays"] // 32 if loop else reads == out["dispatches"]),
+                f"phase 19 eil51 {what}: {reads} reads for {out['dispatches']} dispatches of {out['replays']} "
+                f"steps, syncs inside a round {inside}")
+    attributed = fold_attr[0] + dev_attr[0] + host_attr[0] + eager_attr[0] + shard_attr[0]
+    same = fold_attr[1] + dev_attr[1] + host_attr[1] + eager_attr[1] + shard_attr[1]
     print(f"phase 19 attribution: {same} of {attributed} port-attributed warnings carried the port line "
           "itself as their filename/lineno (the rest: a torch frame above it)")
 
     all_sites = {}
     for tag, sites in (("fold", fold_sites), ("eil51-device", dev_sites), ("eil51-host", host_sites),
-                       ("eil51-eager", eager_sites)):
+                       ("eil51-eager", eager_sites), *shard_sites.items()):
         for site, c in sites.items():
             all_sites.setdefault(site, {})[tag] = c
     misses, cold = [], []
@@ -3697,6 +3765,80 @@ def phase_step_graph(smi):
     print(f"phase 22 card: {smi}")
 
 
+# -- phase 23: the sharded round's graphs ---------------------------------------
+
+
+def phase_rank_graph(smi):
+    """Phase 23: the sharded round program in the graph store. On a cold
+    store, a short adaptive eil51 R = 8 solve captures the batched step
+    and the round's tail with every action it can pick (skip, pair,
+    steal) at setup: captures per action, their seconds, the graphs'
+    bytes. Then phase 16's eil51 R = 8 pair proof through the CLI,
+    replayed and under ``TSP_COMPILE_CACHE=off`` in ABBA order, with the
+    kernels' counts reset just before each run and read just after: the
+    same proof, its search seconds, and the replayed runs' launches (one
+    ``prim_chain`` chain of 3 and one ``push_rows`` a batched step
+    issued), the second with 0 captures under ``RecompilationGuard``."""
+    from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import expand_kernels as ek
+    from tsp_mpi_reduction_tpu_torch.ops import prim_kernels
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    argv, _, pinned = SHARD_CLI["pair"]
+    d = tsplib.embedded(argv[0]).distance_matrix()
+    compile_cache.clear()  # a cold store: every capture below is this phase's
+    steps0, tails0 = bb.STEP._cache_size(), bb.RANK_TAIL._cache_size()
+    res, setup_wall = wall_s(lambda: bb.solve_sharded(d, 8, capacity_per_rank=(1 << 17) // 8, k=128,
+                                                      balance="adaptive", max_iters=64, device="cuda"))
+    graphs = {g.name: g for g in compile_cache._STORE._graphs.values()}
+    step, tail = graphs.get("bnb_step"), graphs.get("bnb_rank_tail")
+    require(step is not None and tail is not None and bb.STEP._cache_size() == steps0 + 1
+            and bb.RANK_TAIL._cache_size() == tails0 + 1 and len(tail.graphs) == 3 and res.warm_steps == 1,
+            f"phase 23: captures step {bb.STEP._cache_size() - steps0} tail {bb.RANK_TAIL._cache_size() - tails0}, "
+            f"stored {sorted(graphs)}")
+    actions = ("skip", "pair", "steal")
+    per_action = ", ".join(f"{a} {t:.4f} s" for a, t in zip(actions, tail.variant_s))
+    print(f"phase 23 captures at setup (eil51, 8 ranks x k=128, 16,384 rows a rank, adaptive, a 64-step "
+          f"solve in {setup_wall:.3f} s): the batched step 1 variant in {step.capture_s:.4f} s (warm-up step "
+          f"and capture), {step.nbytes} bytes ({step.pool_bytes} of them its memory pool, the rest the adopted "
+          f"state); the round tail, one variant an action: {per_action} ({tail.capture_s:.4f} s in all), "
+          f"{tail.nbytes} bytes ({tail.pool_bytes} pool; it borrows the step's buffers); solve's "
+          f"capture_seconds {res.capture_seconds:.4f}")
+
+    # --- the pair proof, replayed and eager, ABBA
+    cli = argv + ["--backend=cuda"]
+    runs = []
+    for i, cache in enumerate((None, "off", "off", None)):
+        prim_kernels.reset_launches()
+        ek.reset_launches()
+        guard = RecompilationGuard({"bnb_step": bb.STEP, "bnb_rank_tail": bb.RANK_TAIL}, limit=0)
+        with compile_cache_setting(cache), (guard if i == 3 else contextlib.nullcontext()):
+            out = run_bnb_cli(cli)
+        launches = {**prim_kernels.LAUNCHES, **ek.LAUNCHES}
+        pinned_fields(shard_fields(out, out["obs"]["balance"]), {**SHARD_CLI_COMMON, **pinned},
+                      f"phase 23 {'eager' if cache else 'replayed'}")
+        issued = out["replays"] + out["warm_steps"]
+        require(out["step_graph"] == (cache is None) and launches["prim_chain"] == 3 * issued > 0
+                and launches["push_rows"] == issued,
+                f"phase 23 run {i}: step_graph {out['step_graph']}, launches {launches} for {issued} steps")
+        runs.append((cache, out))
+    require(runs[3][1]["warm_steps"] == 0 and runs[3][1]["capture_s"] == 0.0,
+            f"phase 23: the last replayed run captured ({runs[3][1]['warm_steps']} warm-up steps)")
+    replayed = [o["wall_s"] for c, o in runs if c is None]
+    eager = [o["wall_s"] for c, o in runs if c == "off"]
+    print(f"phase 23 eil51 --ranks=8 --k=128 pair, ABBA (replayed, eager, eager, replayed): search "
+          f"{replayed[0]} / {eager[0]} / {eager[1]} / {replayed[1]} s; {runs[0][1]['replays']} batched steps "
+          f"issued in {runs[0][1]['dispatches']} dispatches, {runs[0][1]['nodes_expanded']} nodes (== phase 16, "
+          f"the JAX package's) every run; setup {runs[0][1]['setup_s']} / {runs[1][1]['setup_s']} / "
+          f"{runs[2][1]['setup_s']} / {runs[3][1]['setup_s']} s; the second replayed run 0 captures under "
+          f"RecompilationGuard(limit=0)")
+    print(f"phase 23 store: {json.dumps({k: v for k, v in compile_cache.stats_dict()['entries'].items() if k in ('bnb_step', 'bnb_rank_tail')})}, "
+          f"{json.dumps(compile_cache.store_info())}")
+    print(f"phase 23 card: {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3707,7 +3849,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--phases", default=None, metavar="LIST",
-                    help="comma-separated phases (2-22) to run after phase 1 (default: all); a "
+                    help="comma-separated phases (2-23) to run after phase 1 (default: all); a "
                     "partial run prints no result line")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",") if x.strip()}
@@ -3793,6 +3935,8 @@ def main(argv=None) -> int:
             timed(21, phase_store, smi)
         if want(22):
             timed(22, phase_step_graph, smi)
+        if want(23):
+            timed(23, phase_rank_graph, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -123,6 +123,80 @@ def guarded_steps_many(cases):
     return out
 
 
+def rank_loops_many(cases):
+    """``[(rows, count, overflow, inc_cost, inc_tour, d, kw), ...]`` -> for
+    each, one rank's loop of the JAX package from that packed frontier and
+    incumbent: ``kw["loop"]`` "guarded" is the device loop
+    (``_solve_device``: ``_guarded_expand_steps`` with ``max_steps``, the
+    re-sort period and start step), "host" the host loop's
+    ``_expand_loop_ref`` (``max_steps`` as ``inner_steps``); ``kw``'s
+    bound, k, MST screen and node ascent, the plain Prim chain and the
+    reference push -> ``{nodes, count, overflow, inc_cost, inc_tour,
+    popped, steps, best_step}`` as numpy (``steps`` and ``best_step`` None
+    for the host loop)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tsp_mpi_reduction_tpu.models import branch_bound as bb
+
+    out = []
+    for rows, count, overflow, inc_cost, inc_tour, d, kw in cases:
+        n = d.shape[0]
+        bd = bb._bound_setup(d, kw["bound"], node_ascent=kw["node_ascent"])
+        fr = bb.Frontier(jnp.asarray(rows), jnp.asarray(count, jnp.int32), jnp.asarray(bool(overflow)))
+        args = (jnp.asarray(inc_cost, jnp.float32), jnp.asarray(inc_tour, jnp.int32), jnp.asarray(d, jnp.float32),
+                bd.min_out, bd.bound_adj, bd.dbar, bd.pi, bd.slack, bd.ascent_step, bd.lam_budget)
+        steps = best = None
+        if kw["loop"] == "guarded":
+            fr, ic, itour, popped, steps, best = bb._solve_device(
+                fr, *args, jnp.asarray(kw["max_steps"], jnp.int32), jnp.asarray(kw["step0"], jnp.int32),
+                k=kw["k"], n=n, integral=bd.integral, use_mst=kw["use_mst"], node_ascent=kw["node_ascent"],
+                reorder_every=kw["reorder_every"], mst_kernel="prim", push_order="best-first", push_block=0,
+                step_kernel="reference")
+            steps, best = int(steps), int(best)
+        else:
+            fr, ic, itour, popped = bb._expand_loop_ref(
+                fr, *args, kw["k"], n, kw["max_steps"], bd.integral, kw["use_mst"], kw["node_ascent"], "prim",
+                "best-first", 0, "reference")
+        out.append({"nodes": np.asarray(fr.nodes), "count": int(fr.count), "overflow": bool(fr.overflow),
+                    "inc_cost": float(ic), "inc_tour": np.asarray(itour), "popped": int(popped),
+                    "steps": steps, "best_step": best})
+    return out
+
+
+def balance_steps_many(cases):
+    """``[(action, nodes [R, F, C], counts [R], round_i, t_slots, capacity,
+    phys_rows), ...]`` -> for each, the JAX package's balance step under
+    ``shard_map`` on R virtual devices, as the sharded solve's rank bodies
+    call it -> ``(nodes, counts, m_out)`` as numpy."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from tsp_mpi_reduction_tpu.parallel import balance as jbal
+    from tsp_mpi_reduction_tpu.parallel.mesh import RANK_AXIS, make_rank_mesh
+    from tsp_mpi_reduction_tpu.utils.backend import shard_map
+
+    out = []
+    for action, nodes, counts, round_i, t_slots, capacity, phys_rows in cases:
+        r = nodes.shape[0]
+        perm_fwd = [(i, (i + 1) % r) for i in range(r)]
+        perm_back = [((i + 1) % r, i) for i in range(r)]
+
+        def body(nd, c, ri, action=action, r=r, t_slots=t_slots, capacity=capacity, phys_rows=phys_rows,
+                 perm_fwd=perm_fwd, perm_back=perm_back):
+            nd2, c2, m = jbal.apply(action, nd[0], c[0], ri, num_ranks=r, t_slots=t_slots, capacity=capacity,
+                                    phys_rows=phys_rows, perm_fwd=perm_fwd, perm_back=perm_back)
+            return nd2[None], c2[None], m[None]
+
+        fn = jax.jit(shard_map(body, mesh=make_rank_mesh(r), in_specs=(P(RANK_AXIS), P(RANK_AXIS), P()),
+                               out_specs=(P(RANK_AXIS), P(RANK_AXIS), P(RANK_AXIS))))
+        got = fn(jnp.asarray(nodes), jnp.asarray(counts, jnp.int32), jnp.asarray(round_i, jnp.int32))
+        out.append(tuple(np.asarray(x) for x in got))
+    return out
+
+
 def fold_blocks_many(configs):
     """``[(n, blocks, gx, gy), ...]`` -> for each, the JAX package's blocked
     instance folded by its ``fold_tours`` in float64: the block solve eager

@@ -456,6 +456,60 @@ def test_restart_backoff_is_bounded():
     assert delays["torch"] == delays["jax"]
 
 
+def test_scrape_lifetime_keeps_a_killed_generations_counts():
+    """The port's own bookkeeping (JAX keeps the live process's totals
+    only): a restarted replica's process counts from zero, so the slot's
+    lifetime totals add its dead predecessor's last scrape to the live
+    one's, and a scrape of the same generation replaces, never adds."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    payload = {}
+
+    class Metrics(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps(payload).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    def serve(hits, publishes):
+        payload.clear()
+        payload["fleet_shared_cache_ops_total"] = {"series": [
+            {"labels": {"op": "get", "outcome": "hit"}, "value": hits},
+            {"labels": {"op": "put", "outcome": "published"}, "value": publishes}]}
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Metrics)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    rep = treplica.Replica(0, treplica.ReplicaSpec(argv=[sys.executable, STUB], env=dict(os.environ)),
+                           on_response=lambda *a: None)
+    try:
+        rep.spawn()
+        rep.metrics_port = server.server_port
+        serve(2, 3)
+        assert rep.scrape()["shared_cache_hits"] == 2
+        serve(5, 3)
+        rep.scrape()
+        assert rep.scrape_lifetime()["shared_cache_hits"] == 5
+        rep.kill()
+        rep.spawn()
+        # the successor is not scraped yet: its predecessor's totals stand once
+        assert rep.scrape_lifetime()["shared_cache_hits"] == 5
+        rep.metrics_port = server.server_port
+        serve(1, 0)
+        rep.scrape()
+        assert rep.snapshot()["scrape"]["shared_cache_hits"] == 1 and rep.snapshot()["generation"] == 2
+        life = rep.scrape_lifetime()
+        assert (life["shared_cache_hits"], life["shared_cache_publishes"]) == (6, 3)
+    finally:
+        rep.kill()
+        server.shutdown()
+        server.server_close()
+
+
 def test_front_stats_fleet_block_and_obs_report(tmp_path, capsys):
     """The port's stats line carries the JAX fleet block's keys, and the
     JAX ``tools/obs_report.py --fleet`` renders it."""

@@ -14,7 +14,8 @@ registry kills or wedges a replica mid-flight. What must hold:
   orphan; the JAX package's ``tools/obs_report.py --trace`` reads it;
 - a cache hit served across the replica boundary (the shared disk tier);
 - a fresh replica traces its first requests even when several threads
-  meet the lazily opened ``TSP_TRACE`` sink at once.
+  meet the lazily opened ``TSP_TRACE`` sink at once;
+- a replica killed while a nested span is still open orphans nothing.
 
 The margins are generous (a 15 s startup grace, 30 s hops, 60 s
 deadlines); the cases assert outcomes, never latencies.
@@ -220,6 +221,37 @@ def test_cache_hits_cross_the_replica_boundary(tmp_path):
     for r in responses:
         assert abs(r["cost"] - first["cost"]) < 1e-6 and r["tier"] == first["tier"]
     assert stats["errors"] == 0 and stats["fleet"]["restarts_total"] >= 1
+
+
+def test_a_kill_inside_a_nested_span_orphans_nothing(tmp_path):
+    """A replica's request root is announced at open, and so is every span
+    under it: read while the rung and its queue wait are still open (the
+    kill's moment, after the worker emitted its flush), every record's
+    parent is in the sink. Only the root's parent, the front's hop, which
+    another process writes, is missing here."""
+    path = tmp_path / "trace.jsonl"
+    tracing.configure(str(path))
+    hop = ("a" * 32, "b" * 16)
+    with tracing.span("serve.request", parent=hop, announce=True):
+        with tracing.span("cache.lookup"):
+            pass
+        with tracing.span("ladder.rung", tier="exact"):
+            with tracing.span("sched.wait", blocks=1) as wait:
+                flush = tracing.emit_span("sched.flush", wait.context, time.time(), 0.002)
+                tracing.emit_span("device.dispatch", flush, time.time(), 0.001)
+                spans = tracing.read_trace(str(path))
+    assert [s["name"] for s in tracing.orphan_spans(spans)] == ["serve.request"]
+    assert [s["name"] for s in spans if s["attrs"].get("partial")] == [
+        "serve.request", "cache.lookup", "ladder.rung", "sched.wait"]
+    # an unannounced root (a serve request with no fleet parent) writes
+    # each span once, at its close
+    tracing.configure(str(tmp_path / "plain.jsonl"))
+    with tracing.span("serve.request"):
+        with tracing.span("ladder.rung"):
+            pass
+    plain = tracing.read_trace(str(tmp_path / "plain.jsonl"))
+    assert [s["name"] for s in plain] == ["ladder.rung", "serve.request"]
+    assert not any(s["attrs"].get("partial") for s in plain)
 
 
 def test_lazy_trace_sink_is_open_before_a_second_thread_reads_it(tmp_path, monkeypatch):

@@ -345,14 +345,15 @@ def test_r14_stays_quiet_on_device_indices_and_host_indices():
 
 
 def test_r14_finds_nothing_in_the_repaired_pop_stage_and_prim():
-    """The pop stage and the device ascent's Prim gather by 1-element
-    index tensors; no 0-d-indexed read is left in the port."""
+    """The pop stage (each rank's best completion by its ``[L, 1]`` index)
+    and the device ascent's Prim gather by index tensors; no 0-d-indexed
+    read is left in the port."""
     for rel in ("tsp_mpi_reduction_tpu_torch/models/branch_bound.py",
                 "tsp_mpi_reduction_tpu_torch/ops/one_tree.py"):
         vs, waived = lint_port_file(rel, rules={"R14"})
         assert vs == [] and waived == []
     src = (ROOT / "tsp_mpi_reduction_tpu_torch/models/branch_bound.py").read_text()
-    assert "best_total = comp_total.gather(0, best_flat)[0]" in src
+    assert "best_total = comp_total.gather(1, best_flat)[:, 0]" in src
     assert "_pop_stage" in graftlint.DEFAULT_HOT_PATHS and "_search_step" in graftlint.DEFAULT_HOT_PATHS
 
 

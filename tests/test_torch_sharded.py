@@ -133,6 +133,25 @@ def test_spilling_sharded_solve_equals_jax(balance, kw, inst):
     assert got.proven_optimal and got.spill_rounds > 0 and got.spill_events > 0
 
 
+@pytest.mark.parametrize("read_steps", [1, 32, 256], ids=["every-round", "default", "long"])
+def test_device_loop_reads_once_a_run_of_rounds_and_equals_jax(monkeypatch, read_steps):
+    """The device loop's dispatch reads its counters once a run of rounds
+    (``_SHARD_READ_STEPS`` steps, in whole rounds): every round, the
+    default run, or a long one. Rounds issued past the stop change
+    nothing: the same numbers as the JAX package's one-dispatch loop, with
+    the steps issued past the stops bounded by a run a dispatch."""
+    monkeypatch.setattr(tbb, "_SHARD_READ_STEPS", read_steps)
+    kw = dict(SPILL_KW, balance="pair")
+    got, want = _both(random_d(12, 7), step_kernel="fused", **kw)
+    assert _fields(got) == _fields(want) and got.proven_optimal and got.spill_rounds > 0
+    run = max(1, -(-read_steps // kw["inner_steps"])) * kw["inner_steps"]
+    over = got.replays - got.iterations
+    if read_steps == 1:
+        assert over == 0
+    assert 0 <= over <= (run - kw["inner_steps"]) * got.dispatches
+    assert not got.step_graph and got.warm_steps == 0
+
+
 def _bnb_spans(path):
     """The solve's ``bnb.*`` spans without ids and times."""
     return [(r["name"], r["attrs"], [(e["name"], e["attrs"]) for e in r["events"]])
@@ -313,11 +332,22 @@ def test_cli_ranks_needs_a_gpu_unless_told_cpu(capsys):
 
 @pytest.mark.parametrize("kw", [HOST_KW, DEVICE_KW], ids=["host", "device"])
 def test_time_limit_stops_after_one_round_with_a_snapshot(kw, tmp_path):
-    """A spent clock stops the solve after its first round, unproven, with
-    a resumable snapshot whose resume lands on the uninterrupted optimum."""
+    """A spent clock stops the solve after its first dispatch, with the JAX
+    package's numbers under the same limit. The host loop's dispatch is
+    one round: it stops unproven, with a resumable snapshot whose resume
+    lands on the uninterrupted optimum. The device loop sizes its dispatch
+    by the clock as ``solve`` does (no measured rate yet: the first
+    ``_FIRST_DISPATCH_STEPS`` steps' worth of rounds), which here ends at
+    the proof."""
     d = random_d(11, 2)
     ck = str(tmp_path / "cut.npz")
     cut = tbb.solve_sharded(d, 4, device="cpu", time_limit_s=1e-9, checkpoint_path=ck, **kw)
+    want = jbb.solve_sharded(d, make_rank_mesh(4), time_limit_s=1e-9, **kw)
+    assert _fields(cut) == _fields(want) and cut.dispatches == 1
+    if kw["device_loop"]:
+        assert cut.proven_optimal and not cut.checkpoint_save_s
+        assert kw["inner_steps"] < cut.iterations <= tbb._FIRST_DISPATCH_STEPS
+        return
     assert not cut.proven_optimal and cut.iterations == kw["inner_steps"]
     assert cut.lower_bound <= cut.cost and len(cut.checkpoint_save_s) == 1
     whole = tbb.solve_sharded(d, 4, device="cpu", **kw)

@@ -144,8 +144,17 @@ def test_steal_fault_fires_on_rank_zero_only(procs):
 
 @pytest.mark.parametrize("loop,kw", [("host", HOST_KW), ("device", DEVICE_KW)])
 def test_spent_time_limit_stops_every_rank_at_one_round(procs, loop, kw):
-    tmp, _, got = procs
+    """Every rank stops after the same first dispatch, rank 0's clock
+    deciding: the host loop's one round, unproven with a snapshot; the
+    device loop's dispatch sized by that clock, as the batched solve's."""
+    tmp, cases, got = procs
     fields, _, its = got[f"cut-{loop}"]
+    d_cut, kw_cut, _ = cases[f"cut-{loop}"]
+    want, _ = _batched(d_cut, dict(kw_cut, checkpoint_path=str(tmp / f"cut-{loop}-batched.npz")))
+    assert fields == want and its == [fields["iterations"]] * 4
+    if loop == "device":
+        assert fields["proven"] and fields["saves"] == 0
+        return
     assert not fields["proven"] and its == [kw["inner_steps"]] * 4 and fields["saves"] == 1
     d = random_d(11, 2)
     whole = tbb.solve_sharded(d, 4, device="cpu", **kw)

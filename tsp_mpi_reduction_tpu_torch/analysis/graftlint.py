@@ -132,6 +132,10 @@ DEFAULT_HOT_PATHS = frozenset(
         "_pop_stage",  # the step's pop: inside the step's graph, no host read
         "_read_counters",  # the B&B loop's one read a run of inner_steps steps
         "_search_step",  # the B&B step's captured graph: replayed every step
+        "_expand_step",  # the step over every local rank at once, inside that graph
+        "_round",  # one round of the sharded search: its steps and its tail
+        "_rank_tail",  # the sharded round's captured tail: balance, share, stop
+        "_receive",  # the balance's fixed-shape write, inside the tail's graph
         "fold_tours",
         "_fold_step",  # the fold's captured step: replayed 1023 times a fold
         "merge_tours",

@@ -21,7 +21,11 @@ touch it):
 - response-flow recency (``last_response_at``) — a wedged-but-alive
   process (SIGSTOP, a hung device call) stops producing responses
   while ``poll()`` stays None;
-- ``/metrics.json`` scrape totals + consecutive-failure count.
+- ``/metrics.json`` scrape totals + consecutive-failure count, and the
+  slot's totals over every generation (:meth:`Replica.scrape_lifetime`):
+  a killed process takes its counters with it, so a fleet-wide count
+  read from the live processes alone misses the work of every replica
+  that was restarted.
 
 The command line is injectable (:class:`ReplicaSpec`) so tests can run a
 lightweight stub replica without paying a torch import and a CUDA
@@ -119,6 +123,10 @@ class Replica:
         self.started_at: float = 0.0
         self.metrics_port: Optional[int] = None
         self.scrape_totals: Dict[str, int] = {}
+        #: the generation ``scrape_totals`` was read from, and the last
+        #: totals of every earlier generation, summed
+        self._scrape_gen = 0
+        self._scrape_carried: Dict[str, int] = {}
         self.scrape_failures = 0
         self._last_scrape_attempt = 0.0
         self.restarts = 0
@@ -350,7 +358,7 @@ class Replica:
         nothing: the supervisor's wedge veto requires a known endpoint,
         so an unannounced replica is judged by the timing rule alone."""
         with self._lock:
-            port = self.metrics_port
+            port, gen = self.metrics_port, self.generation
         if port is None:
             return None
         import urllib.request
@@ -366,9 +374,25 @@ class Replica:
                 self.scrape_failures += 1
             return None
         with self._lock:
+            if gen != self._scrape_gen:
+                # a new generation's first totals: its predecessor's
+                # last ones are all that is left of that process
+                for key, value in self.scrape_totals.items():
+                    self._scrape_carried[key] = self._scrape_carried.get(key, 0) + value
+                self._scrape_gen = gen
             self.scrape_totals = totals
             self.scrape_failures = 0
         return totals
+
+    def scrape_lifetime(self) -> Dict[str, int]:
+        """The scrape totals of every generation of this slot: each dead
+        generation's last scraped totals plus the current one's (work a
+        dead process did after its last scrape is not in it)."""
+        with self._lock:
+            out = dict(self._scrape_carried)
+            for key, value in self.scrape_totals.items():
+                out[key] = out.get(key, 0) + value
+            return out
 
     def snapshot(self) -> Dict:
         """JSON-ready state row for the front's stats ``fleet`` block."""

@@ -800,56 +800,83 @@ def _batched_mst_bound(dbar, pi, unvis, cur, p_cost, n, node_ascent=0, ascent_st
 # ---------------------------------------------------------------------------
 # The expansion step
 # ---------------------------------------------------------------------------
+#
+# Every stage below works on the LOCAL RANKS of a sharded search at once:
+# ``nodes [L, F, C]``, ``count``/``overflow``/``inc_cost [L]``, ``inc_tour
+# [L, n+1]``, each rank its own search as one JAX shard is (its own
+# incumbent, completion argmin, stop flag, compaction and re-sort). The
+# single-device solve is the same code at L = 1; a stage handed a
+# single-device frontier (``nodes [F, C]``, 0-d count) runs it as one rank
+# through views of the caller's tensors and hands back its shapes.
+
+
+def _stacked(fr: Frontier, *small):
+    """``(single, frontier, *small)`` with a leading rank dimension: a
+    single-device frontier and its small tensors (0-d cost, ``[n+1]``
+    tour, 0-d flags; None passes) as one rank, by views, so in-place
+    writes reach the caller's buffers; a stacked frontier as it is."""
+    if fr.nodes.dim() == 3:
+        return (False, fr, *small)
+    one = Frontier(fr.nodes.unsqueeze(0), fr.count.reshape(1), fr.overflow.reshape(1))
+    return (True, one, *(None if t is None else t.unsqueeze(0) for t in small))
 
 
 class _Popped(NamedTuple):
     """What the pop stage of a step hands to the push: the popped rows, the
-    children's columns and flags, and the updated incumbent."""
+    children's columns and flags (one lane a popped slot, ``L*k`` lanes
+    rank-major), and each rank's pop count and updated incumbent."""
 
-    p: torch.Tensor  # [k, P + W + 4] the popped rows, a copy
-    take: torch.Tensor  # 0-d number of popped nodes
-    ccost: torch.Tensor  # [k, n] child prefix costs
-    cbound: torch.Tensor  # [k, n] child bounds
-    child_sum: torch.Tensor  # [k, n] child carried weight sums
-    push: torch.Tensor  # [k, n] children to push
-    inc_cost: torch.Tensor
-    inc_tour: torch.Tensor
+    p: torch.Tensor  # [L*k, P + W + 4] the popped rows, a copy
+    take: torch.Tensor  # [L] number of popped nodes
+    ccost: torch.Tensor  # [L*k, n] child prefix costs
+    cbound: torch.Tensor  # [L*k, n] child bounds
+    child_sum: torch.Tensor  # [L*k, n] child carried weight sums
+    push: torch.Tensor  # [L*k, n] children to push
+    inc_cost: torch.Tensor  # [L]
+    inc_tour: torch.Tensor  # [L, n+1]
 
 
 def _pop_stage(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
                use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim",
                active: Optional[torch.Tensor] = None) -> _Popped:
-    """Pop <= k nodes, re-prune and re-bound them, evaluate all k*n children,
-    take completions into the incumbent, and flag the children to push
-    (``branch_bound.py:1108-1290``). ``active`` (0-d bool, None: true)
-    false pops nothing: no child is flagged and the incumbent stays.
+    """Pop <= k nodes a rank, re-prune and re-bound them, evaluate all k*n
+    children, take completions into each rank's incumbent, and flag the
+    children to push (``branch_bound.py:1108-1290``). ``active`` (``[L]``
+    bool, None: true) false pops nothing on that rank: no child is
+    flagged and its incumbent stays. A single-device frontier gives 0-d
+    ``take`` and ``inc_cost`` and a ``[n+1]`` tour.
 
-    It reads nothing on the host: the best completion's cost, path and
-    depth are gathered by its 1-element device index, not indexed by a
-    0-d tensor (which reads the index back)."""
+    The MST bound runs once over all L*k lanes (one ``prim_chain`` chain).
+    It reads nothing on the host: each rank's best completion is its first
+    argmin over its own k*n children, gathered by device indices, never
+    indexed by a 0-d tensor (which reads the index back)."""
+    single, fr, inc_cost, inc_tour, active = _stacked(fr, inc_cost, inc_tour, active)
     nodes = fr.nodes
+    n_ranks, f_rows, cols = nodes.shape
     dev = nodes.device
     integral = bd.integral
     w = (n + 31) // 32
     pw = _path_words(n)
     lanes = torch.arange(k, dtype=torch.int32, device=dev)
+    first_row = torch.arange(n_ranks, device=dev)[:, None] * f_rows  # [L, 1]
     take = torch.clamp(fr.count, max=k)
     if active is not None:
         take = torch.where(active, take, 0)
-    idx = torch.clamp(fr.count - 1 - lanes, min=0)
-    live = lanes < take
-    p = nodes[idx.long()]  # [k, P + W + 4]: the popped rows, a copy
+    idx = torch.clamp(fr.count[:, None] - 1 - lanes, min=0)  # [L, k]
+    live = (lanes < take[:, None]).reshape(-1)
+    p = nodes.view(n_ranks * f_rows, cols)[(first_row + idx).reshape(-1)]  # [L*k, C]: a copy
     p_pathw = p[:, :pw]
     p_mask = p[:, pw : pw + w]
     p_depth = p[:, pw + w]
     p_cost = _f32(p[:, pw + w + 1])
     p_bound = _f32(p[:, pw + w + 2])
     p_sum = _f32(p[:, pw + w + 3])
+    inc_lane = inc_cost[:, None].expand(n_ranks, k).reshape(-1)  # each lane's rank's incumbent
     # pop-side re-prune against the current incumbent
     if integral:
-        live = live & (p_bound <= inc_cost - 1.0)
+        live = live & (p_bound <= inc_lane - 1.0)
     else:
-        live = live & (p_bound < inc_cost)
+        live = live & (p_bound < inc_lane)
     cur = _path_byte_get(p_pathw, torch.clamp(p_depth - 1, min=0)).long()
 
     word_idx, bit = _mask_consts(n, str(dev))
@@ -861,9 +888,9 @@ def _pop_stage(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: in
             bd.lam_budget, mst_kernel,
         ) - bd.slack
         if integral:
-            live = live & (strong <= inc_cost - 1.0)
+            live = live & (strong <= inc_lane - 1.0)
         else:
-            live = live & (strong < inc_cost)
+            live = live & (strong < inc_lane)
 
     feasible = unvis & live[:, None]
     ccost = p_cost[:, None] + d[cur]
@@ -873,81 +900,97 @@ def _pop_stage(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: in
         cbound = torch.maximum(cbound, strong[:, None])
     cdepth = p_depth[:, None] + 1
 
-    # completions: the child is the last unvisited city -> close to 0
+    # completions: the child is the last unvisited city -> close to 0; each
+    # rank takes the first index of its least one among its own k*n children
     is_complete = (cdepth == n) & feasible
     total = ccost + d[:, 0][None, :]
-    comp_total = torch.where(is_complete, total, INF).reshape(-1)
-    best_flat = comp_total.argmin().view(1)
-    best_total = comp_total.gather(0, best_flat)[0]
-    bi, bc = best_flat // n, (best_flat % n).to(torch.int32)
+    comp_total = torch.where(is_complete, total, INF).reshape(n_ranks, k * n)
+    best_flat = comp_total.argmin(dim=1, keepdim=True)  # [L, 1]
+    best_total = comp_total.gather(1, best_flat)[:, 0]
+    best_lane = (torch.arange(n_ranks, device=dev)[:, None] * k + best_flat // n).reshape(-1)
+    bc = (best_flat % n).to(torch.int32)
     new_inc_cost = torch.minimum(inc_cost, best_total)
-    best_path = _unpack_path(p_pathw.index_select(0, bi), n)[0].clone()
-    best_path.scatter_(0, torch.clamp(p_depth.index_select(0, bi), max=n - 1).long(), bc)
-    cand_tour = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    cand_tour[:n] = best_path
-    new_inc_tour = torch.where(best_total < inc_cost, cand_tour, inc_tour)
+    best_path = _unpack_path(p_pathw.index_select(0, best_lane), n).clone()  # [L, n]
+    best_path.scatter_(1, torch.clamp(p_depth.index_select(0, best_lane), max=n - 1).long()[:, None], bc)
+    cand_tour = torch.zeros((n_ranks, n + 1), dtype=torch.int32, device=dev)
+    cand_tour[:, :n] = best_path
+    new_inc_tour = torch.where((best_total < inc_cost)[:, None], cand_tour, inc_tour)
 
     # pushable children: feasible, not complete, bound under the incumbent
+    new_lane = new_inc_cost[:, None].expand(n_ranks, k).reshape(-1, 1)
     if integral:
-        push = feasible & ~is_complete & (cbound <= new_inc_cost - 1.0)
+        push = feasible & ~is_complete & (cbound <= new_lane - 1.0)
     else:
-        push = feasible & ~is_complete & (cbound < new_inc_cost)
+        push = feasible & ~is_complete & (cbound < new_lane)
     child_sum = p_sum[:, None] - bd.min_out[None, :]
+    if single:
+        take, new_inc_cost, new_inc_tour = take[0], new_inc_cost[0], new_inc_tour[0]
     return _Popped(p, take, ccost, cbound, child_sum, push, new_inc_cost, new_inc_tour)
 
 
 def _push_rank(push: torch.Tensor, cbound: torch.Tensor, push_order: str) -> torch.Tensor:
-    """Each pushed child's slot above the stack base, flat ``[k*n]``
+    """Each pushed child's slot above its rank's stack base, flat ``[L,
+    k*n]`` for ``[L, k, n]`` flags (``[k*n]`` for ``[k, n]``)
     (``branch_bound.py:1296-1330``): "natural" keeps parent-major order;
     "best-first" orders children DESC by bound within each parent and
     parents DESC by their best child, with stable sorts as jnp's, so the
-    best child lands on top."""
-    k, n = push.shape
+    best child lands on top. Every sort and prefix sum runs within a rank,
+    never across ranks."""
+    single = push.dim() == 2
+    if single:
+        push, cbound = push[None], cbound[None]
+    n_ranks, k, n = push.shape
     dev = push.device
-    flat_push = push.reshape(-1)
+    flat_push = push.reshape(n_ranks, k * n)
     if push_order == "natural":
-        return torch.cumsum(flat_push.to(torch.int32), 0) - 1
-    keys = torch.where(push, cbound, -INF)
-    child_ord = torch.argsort(-keys, dim=1, stable=True)
-    best_child = torch.where(push, cbound, INF).amin(dim=1)
-    parent_key = torch.where(torch.isfinite(best_child), best_child, -INF)
-    parent_ord = torch.argsort(-parent_key, stable=True)
-    ar_k = torch.arange(k, dtype=torch.int64, device=dev)
-    inv_parent = torch.empty(k, dtype=torch.int64, device=dev)
-    inv_parent[parent_ord] = ar_k
-    inv_child = torch.empty((k, n), dtype=torch.int64, device=dev)
-    inv_child.scatter_(1, child_ord, torch.arange(n, device=dev).expand(k, n).contiguous())
-    prio = (inv_parent[:, None] * n + inv_child).reshape(-1)  # a permutation of [kn]
-    flags_in_order = torch.empty(k * n, dtype=torch.int64, device=dev)
-    flags_in_order[prio] = flat_push.to(torch.int64)
-    return torch.cumsum(flags_in_order, 0)[prio] - 1
+        rank = torch.cumsum(flat_push.to(torch.int32), 1) - 1
+    else:
+        keys = torch.where(push, cbound, -INF)
+        child_ord = torch.argsort(-keys, dim=2, stable=True)
+        best_child = torch.where(push, cbound, INF).amin(dim=2)
+        parent_key = torch.where(torch.isfinite(best_child), best_child, -INF)
+        parent_ord = torch.argsort(-parent_key, dim=1, stable=True)
+        inv_parent = torch.empty((n_ranks, k), dtype=torch.int64, device=dev)
+        inv_parent.scatter_(1, parent_ord, torch.arange(k, device=dev).expand(n_ranks, k).contiguous())
+        inv_child = torch.empty((n_ranks, k, n), dtype=torch.int64, device=dev)
+        inv_child.scatter_(2, child_ord, torch.arange(n, device=dev).expand(n_ranks, k, n).contiguous())
+        prio = (inv_parent[:, :, None] * n + inv_child).reshape(n_ranks, k * n)  # a permutation a rank
+        flags_in_order = torch.empty((n_ranks, k * n), dtype=torch.int64, device=dev)
+        flags_in_order.scatter_(1, prio, flat_push.to(torch.int64))
+        rank = torch.cumsum(flags_in_order, 1).gather(1, prio) - 1
+    return rank[0] if single else rank
 
 
 def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
                  use_mst: bool = True, node_ascent: int = 0, mst_kernel: str = "prim",
                  push_order: str = "best-first", push_block: int = 0,
                  step_kernel: str = "reference", active: Optional[torch.Tensor] = None):
-    """Pop <= k nodes, re-bound, expand, prune, push
+    """Pop <= k nodes a rank, re-bound, expand, prune, push
     (``branch_bound.py:1108-1411``): :func:`_pop_stage`, :func:`_push_rank`,
-    then the push.
+    then the push, for every local rank at once.
 
-    ``step_kernel``: "reference" (build the ``[k*n, C]`` candidate block,
-    compact it, write it at the stack top) or "fused" (``push_rows`` builds
-    and stores only the pushed rows; the hand kernel on a CUDA device).
-    Both share every screen, flag and destination, so the live prefix is
-    bit-identical; only dead rows past the count can differ.
+    ``step_kernel``: "reference" (build each rank's ``[k*n, C]`` candidate
+    block, compact it, write it at its stack top) or "fused" (``push_rows``
+    builds and stores only the pushed rows; the hand kernel on a CUDA
+    device, one launch for all ranks into the flattened ``[L*F, C]``
+    stack, rank j's child to row ``j*F + base_j + rank``, a pruned one
+    parked at ``L*F``). Both share every screen, flag and destination, so
+    the live prefix is bit-identical; only dead rows past the count can
+    differ.
 
     Returns ``(frontier', inc_cost', inc_tour', popped)``. The frontier's
     node buffer is updated IN PLACE (the JAX step donates it); count and
-    overflow are new 0-d tensors. Nothing here waits for the device
-    (no host scalar becomes a device tensor, no data-dependent shape),
-    except the ``n_push`` read that a ``push_block`` cap needs. ``active``
-    (0-d bool) false makes the step a no-op on the live stack: it pops
-    nothing, pushes nothing, keeps count and incumbent, and writes no row
-    (:func:`_search_step`'s stopped steps).
+    overflow are new tensors. Nothing here waits for the device (no host
+    scalar becomes a device tensor, no data-dependent shape), except the
+    read of the pushed counts that a ``push_block`` cap needs. ``active``
+    (a rank's bool) false makes the step a no-op on that rank's live
+    stack: it pops nothing, pushes nothing, keeps count and incumbent, and
+    writes no row (:func:`_search_step`'s stopped ranks).
     """
+    given = fr.nodes
+    single, fr, inc_cost, inc_tour, active = _stacked(fr, inc_cost, inc_tour, active)
     nodes = fr.nodes
-    f_phys = nodes.shape[0]
+    n_ranks, f_phys, cols = nodes.shape
     if f_phys <= k * n:
         raise ValueError(
             f"frontier buffer has {f_phys} rows but the push block needs "
@@ -965,18 +1008,21 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     f_cap = f_phys - k * n
     kn = k * n
     pop = _pop_stage(fr, inc_cost, inc_tour, d, bd, k, n, use_mst, node_ascent, mst_kernel, active)
-    rank = _push_rank(pop.push, pop.cbound, push_order)
-    flat_push = pop.push.reshape(-1)
-    n_push = flat_push.sum().to(torch.int32)
+    rank = _push_rank(pop.push.view(n_ranks, k, n), pop.cbound.view(n_ranks, k, n), push_order)
+    flat_push = pop.push.reshape(n_ranks, kn)
+    n_push = flat_push.sum(1).to(torch.int32)
     base = fr.count - pop.take
 
     if step_kernel == "fused":
         # the fused push: destination rows from the same rank as the
-        # reference push, pruned children parked at f_phys (not stored);
-        # ``p`` is the gathered copy of the popped rows, since the
-        # destinations start at count - take, the slots they came from
-        dest = torch.where(flat_push, base + rank, f_phys).to(torch.int32).reshape(k, n)
-        expand_kernels.push_rows(nodes, pop.p, dest, pop.ccost, pop.cbound, pop.child_sum, n)
+        # reference push, pruned children parked past the stacked buffer
+        # (not stored); ``p`` is the gathered copy of the popped rows, since
+        # the destinations start at count - take, the slots they came from
+        first_row = torch.arange(n_ranks, device=nodes.device)[:, None] * f_phys
+        dest = torch.where(flat_push, first_row + base[:, None] + rank, n_ranks * f_phys)
+        expand_kernels.push_rows(nodes.view(n_ranks * f_phys, cols), pop.p,
+                                 dest.to(torch.int32).view(n_ranks * k, n), pop.ccost, pop.cbound,
+                                 pop.child_sum, n)
     else:
         _reference_push(nodes, pop.p, pop.ccost, pop.cbound, pop.child_sum, flat_push, rank, base, n,
                         push_block, active)
@@ -984,34 +1030,57 @@ def _expand_step(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     new_count = base + n_push
     overflow = fr.overflow | (new_count > f_cap) | (base > f_phys - kn)
     new_count = torch.clamp(new_count, max=f_cap)
+    if single:
+        return Frontier(given, new_count[0], overflow[0]), pop.inc_cost[0], pop.inc_tour[0], pop.take[0]
     return Frontier(nodes, new_count, overflow), pop.inc_cost, pop.inc_tour, pop.take
 
 
 def _reference_push(nodes, parents, ccost, cbound, child_sum, flat_push, rank, base, n: int,
                     push_block: int = 0, active: Optional[torch.Tensor] = None) -> None:
-    """The reference push, in place: the ``[k*n, C]`` candidate block in the
-    packed layout, compacted in priority order (pushed candidate c to slot
-    ``rank[c]``, the rest to one spare slot that is cut off), written as
-    one contiguous block at row ``base`` (clamped into the buffer).
-    ``push_block`` caps the block when every pushed row fits in it (a host
-    read of the pushed count). ``active`` (0-d bool) false writes the
-    rows' own values back, so a no-op step leaves even the dead rows as
-    they were."""
-    kn = flat_push.shape[0]
+    """The reference push, in place: each rank's ``[k*n, C]`` candidate
+    block in the packed layout, compacted in priority order (pushed
+    candidate c to slot ``rank[c]``, the rest to one spare slot that is
+    cut off), written as one contiguous block at row ``base`` of its rank
+    (clamped into the buffer). ``push_block`` caps a rank's block when
+    every row it pushed fits in it (a host read of the pushed counts; the
+    capped ranks are written one by one). ``active`` (a rank's bool) false
+    writes the rows' own values back, so a no-op step leaves even the dead
+    rows as they were. Takes the stacked ``[L, F, C]`` buffer with ``[L,
+    k*n]`` flags and ranks and ``[L]`` bases, or the single-device ``[F,
+    C]`` one with ``[k*n]`` and 0-d."""
+    if nodes.dim() == 2:
+        nodes, flat_push, rank, base = nodes[None], flat_push[None], rank[None], base.reshape(1)
+        active = None if active is None else active.reshape(1)
+    n_ranks, f_rows, cols = nodes.shape
+    kn = flat_push.shape[1]
     dev = nodes.device
+    flat_nodes = nodes.view(n_ranks * f_rows, cols)
     cand = expand_kernels.child_rows(parents, _i32(ccost), _i32(cbound), _i32(child_sum), n)
-    cand = cand.reshape(kn, -1)
-    comp_idx = torch.zeros(kn + 1, dtype=torch.int64, device=dev)
-    comp_idx.scatter_(0, torch.where(flat_push, rank, kn), torch.arange(kn, device=dev))
-    rows = kn
-    if push_block and push_block < kn and int(flat_push.sum()) <= push_block:
-        rows = push_block  # capped write; every pushed row is inside it
-    start = torch.clamp(base, max=nodes.shape[0] - rows)
-    at = start.long() + torch.arange(rows, device=dev)
-    block = cand[comp_idx[:rows]]
-    if active is not None:
-        block = torch.where(active, block, nodes[at])
-    nodes.index_copy_(0, at, block)
+    cand = cand.reshape(n_ranks, kn, cols)
+    comp_idx = torch.zeros((n_ranks, kn + 1), dtype=torch.int64, device=dev)
+    comp_idx.scatter_(1, torch.where(flat_push, rank, kn),
+                      torch.arange(kn, device=dev).expand(n_ranks, kn).contiguous())
+
+    def write(lo: int, hi: int, rows: int) -> None:
+        # ranks lo..hi-1, a block of ``rows`` rows each
+        start = torch.clamp(base[lo:hi], max=f_rows - rows)
+        at = (torch.arange(lo, hi, device=dev)[:, None] * f_rows + start[:, None].long()
+              + torch.arange(rows, device=dev)).reshape(-1)
+        block = cand[lo:hi].gather(1, comp_idx[lo:hi, :rows, None].expand(hi - lo, rows, cols))
+        block = block.reshape(-1, cols)
+        if active is not None:
+            keep = active[lo:hi, None].expand(hi - lo, rows).reshape(-1, 1)
+            block = torch.where(keep, block, flat_nodes[at])
+        flat_nodes.index_copy_(0, at, block)
+
+    if push_block and push_block < kn:
+        # the cap's host read: a rank writes push_block rows when every row
+        # it pushed lies in them  # graftlint: disable=R1
+        fits = (flat_push.sum(1) <= push_block).tolist()
+        for j, fit in enumerate(fits):  # eager steps only: push_block takes no graph  # graftlint: disable=R4
+            write(j, j + 1, push_block if fit else kn)
+    else:
+        write(0, n_ranks, kn)
 
 
 def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int,
@@ -1025,10 +1094,11 @@ def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
     else run it eagerly; the node buffer is written in place either way.
     ``read_every``: steps between reads of the counters (None: all
     ``inner_steps``, one read); 1 reads before every step and issues none
-    past the stop, as the sharded solve's eager rank steps do.
-    ``step_ann(step0 + i)`` wraps step i (a profiler range while a trace
-    is captured). Returns (frontier, inc_cost, inc_tour, popped, steps
-    run)."""
+    past the stop. A stacked frontier steps every rank at once, each as
+    its own loop, until all are stopped. ``step_ann(step0 + i)`` wraps
+    step i (a profiler range while a trace is captured). Returns
+    (frontier, inc_cost, inc_tour, popped, steps run), the last two per
+    rank for a stacked frontier."""
     every = inner_steps if read_every is None else read_every
     with _Search(fr, inc_cost, inc_tour, d, bd, k, n, guard=False, graph=graph, **step_kw) as s:
         run = s.dispatch(inner_steps, step0, every, step_ann, check_first=every == 1)
@@ -1041,8 +1111,8 @@ def _expand_loop(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: 
 # ---------------------------------------------------------------------------
 
 #: since the last :func:`reset_frontier_stats`: frontier re-sorts,
-#: on-device compactions, and the largest count a step left (the tests and
-#: ``chip_smoke.py`` read them)
+#: on-device compactions (each counted a rank), and the largest count a
+#: step left (the tests and ``chip_smoke.py`` read them)
 FRONTIER_STATS = {"reorders": 0, "compactions": 0, "peak_count": 0}
 
 
@@ -1053,63 +1123,72 @@ def reset_frontier_stats() -> None:
 
 def _reorder_frontier(fr: Frontier, rows: Optional[int] = None,
                       when: Optional[torch.Tensor] = None) -> Frontier:
-    """Re-sort the live stack so the lowest-bound node is on top (popped
-    next), in place (``branch_bound.py:1488-1516``): bound DESC from the
-    bottom, dead rows (-inf keys) past the live prefix; a stable argsort, as
-    ``jnp.argsort``. ``rows`` limits the sort to the logical slots (None:
-    the whole buffer). ``when`` (0-d bool): the predicated form of the
-    step's graph, the identity permutation where false; it counts in the
-    step's device counters instead of :data:`FRONTIER_STATS`."""
-    nodes = fr.nodes
-    rows = nodes.shape[0] if rows is None else rows
-    live = torch.arange(rows, device=nodes.device) < fr.count
-    key = torch.where(live, _f32(nodes[:rows, -2]), -INF)
-    perm = torch.argsort(-key, stable=True)
+    """Re-sort each rank's live stack so its lowest-bound node is on top
+    (popped next), in place (``branch_bound.py:1488-1516``; over the
+    stacked ranks, the JAX ``reorder_ranks``): bound DESC from the bottom,
+    dead rows (-inf keys) past the live prefix; a stable argsort within
+    each rank, as ``jnp.argsort``. ``rows`` limits the sort to the logical
+    slots (None: the whole buffer). ``when`` (a rank's bool): the
+    predicated form of the step's graph, the identity permutation where
+    false; it counts in the step's device counters instead of
+    :data:`FRONTIER_STATS`."""
+    _, st, when = _stacked(fr, when)
+    nodes = st.nodes
+    n_ranks, f_rows, cols = nodes.shape
+    rows = f_rows if rows is None else rows
+    slots = torch.arange(rows, device=nodes.device)
+    live = slots < st.count[:, None]
+    key = torch.where(live, _f32(nodes[:, :rows, -2]), -INF)
+    perm = torch.argsort(-key, dim=1, stable=True)
     if when is None:
-        FRONTIER_STATS["reorders"] += 1
+        FRONTIER_STATS["reorders"] += n_ranks
     else:
-        perm = torch.where(when, perm, torch.arange(rows, device=nodes.device))
-    nodes[:rows] = nodes[:rows][perm]
-    return Frontier(nodes, fr.count, fr.overflow)
+        perm = torch.where(when[:, None], perm, slots)
+    nodes[:, :rows] = nodes[:, :rows].gather(1, perm[:, :, None].expand(n_ranks, rows, cols))
+    return Frontier(fr.nodes, fr.count, fr.overflow)
 
 
 def _compact_frontier(fr: Frontier, inc_cost, integral: bool,
                       rows: Optional[int] = None, when: Optional[torch.Tensor] = None) -> Frontier:
-    """Drop the nodes the incumbent has closed from the device stack, in
-    place and in stable order (``branch_bound.py:1527-1552``). A gather
-    ``new[j] = old[src[j]]``: ``src`` sends slot j to the j-th alive row,
-    and slots past the alive count to themselves; the alive rows' slots
-    come from a prefix sum scattered into a spare entry for the dead ones,
-    so nothing waits for the device. ``when`` (0-d bool): the predicated
-    form of the step's graph, where false ``src`` is the identity and the
-    count stays (the gather still moves every row); it counts in the
-    step's device counters instead of :data:`FRONTIER_STATS`."""
-    nodes = fr.nodes
+    """Drop the nodes each rank's incumbent has closed from its device
+    stack, in place and in stable order (``branch_bound.py:1527-1552``). A
+    gather ``new[j] = old[src[j]]`` a rank: ``src`` sends slot j to the
+    j-th alive row, and slots past the alive count to themselves; the
+    alive rows' slots come from a prefix sum scattered into a spare entry
+    for the dead ones, so nothing waits for the device. ``when`` (a rank's
+    bool): the predicated form of the step's graph, where false ``src`` is
+    the identity and the count stays (the gather still moves every row);
+    it counts in the step's device counters instead of
+    :data:`FRONTIER_STATS`."""
+    single, st, inc_cost, when = _stacked(fr, inc_cost, when)
+    nodes = st.nodes
+    n_ranks, f_rows, cols = nodes.shape
     dev = nodes.device
-    rows = nodes.shape[0] if rows is None else rows
-    bound = _f32(nodes[:rows, -2])
-    live = torch.arange(rows, device=dev) < fr.count
+    rows = f_rows if rows is None else rows
+    bound = _f32(nodes[:, :rows, -2])
+    slots = torch.arange(rows, device=dev)
+    live = slots < st.count[:, None]
     if integral:
-        alive = live & (bound <= inc_cost - 1.0)
+        alive = live & (bound <= inc_cost[:, None] - 1.0)
     else:
-        alive = live & (bound < inc_cost)
-    slot = torch.where(alive, torch.cumsum(alive, 0) - 1, rows)
-    src = torch.arange(rows + 1, device=dev)
-    src.scatter_(0, slot, torch.arange(rows, device=dev))
-    src = src[:rows]
-    count = alive.sum().to(torch.int32)
+        alive = live & (bound < inc_cost[:, None])
+    slot = torch.where(alive, torch.cumsum(alive, 1) - 1, rows)
+    src = torch.arange(rows + 1, device=dev).repeat(n_ranks, 1)
+    src.scatter_(1, slot, slots.expand(n_ranks, rows).contiguous())
+    src = src[:, :rows]
+    count = alive.sum(1).to(torch.int32)
     if when is None:
-        FRONTIER_STATS["compactions"] += 1
+        FRONTIER_STATS["compactions"] += n_ranks
     else:
-        src = torch.where(when, src, torch.arange(rows, device=dev))
-        count = torch.where(when, count, fr.count)
-    nodes[:rows] = nodes[src]
-    return Frontier(nodes, count, fr.overflow)
+        src = torch.where(when[:, None], src, slots)
+        count = torch.where(when, count, st.count)
+    nodes[:, :rows] = nodes.gather(1, src[:, :, None].expand(n_ranks, rows, cols))
+    return Frontier(fr.nodes, count[0] if single else count, fr.overflow)
 
 
-#: the predicated step's device counters: one int64 vector that
-#: :func:`_search_step` rewrites in place each step and the host reads
-#: once a run of steps (``_Search.dispatch``)
+#: the predicated step's device counters: one int64 row a local rank that
+#: :func:`_search_step` rewrites in place each step and the host reads once
+#: a run of steps (``_Search.dispatch``)
 _CTR = ("stopped", "steps", "popped", "best_step", "expanded", "count", "overflow", "reorders",
         "compactions", "peak_count")
 (_C_STOPPED, _C_STEPS, _C_POPPED, _C_BEST, _C_EXPANDED, _C_COUNT, _C_OVERFLOW, _C_REORDERS,
@@ -1119,40 +1198,43 @@ _CTR = ("stopped", "steps", "popped", "best_step", "expanded", "count", "overflo
 _PUSH_BLOCK_REFUSED = (
     "push_block caps the reference push's write by a host read of the pushed count (a lax.cond "
     "in the JAX package); solve's step reads nothing on the host (one captured graph on CUDA), "
-    "so it takes push_block=0; _expand_step and solve_sharded's eager rank steps keep the cap")
+    "so it takes push_block=0; _expand_step and solve_sharded's eager steps keep the cap")
 
 
 def _search_step(nodes, count, overflow, inc_cost, inc_tour, ctr, d, min_out, bound_adj, dbar, pi,
                  slack, ascent_step, lam_budget, *, k: int, n: int, integral: bool, use_mst: bool,
                  node_ascent: int, mst_kernel: str, push_order: str, step_kernel: str,
                  guard: bool, push_block: int = 0, reorder: bool = False) -> torch.Tensor:
-    """One predicated iteration of the search loop, in place on its
+    """One predicated iteration of the search loop over the local ranks
+    (``nodes [L, F, C]``, ``count``/``overflow``/``inc_cost [L]``,
+    ``inc_tour [L, n+1]``, ``ctr [L, len(_CTR)]``), in place on its
     arguments, with no Python branch on device data and no host read: the
     body of the JAX device loop (``branch_bound.py:1649-1695``, ``guard``)
-    or of the JAX host loop's ``while_loop`` (``:1442-1454``).
+    or of the JAX host loop's ``while_loop`` (``:1442-1454``), every rank
+    its own loop as one JAX shard runs it.
 
-    The entry ``ctr[stopped]`` is sticky: set when a step leaves the
+    A rank's entry ``ctr[stopped]`` is sticky: set when a step leaves its
     stack empty, and under ``guard`` also on an overflow or when the
     stack stays above the pressure line ``f_cap - headroom`` after the
     compaction (that iteration counts as a step and expands nothing). A
-    step entered stopped is a no-op: ``take`` is forced to 0, the re-sort
+    rank entered stopped is a no-op: ``take`` is forced to 0, the re-sort
     and compaction are identities. ``reorder`` (a captured variant: the
-    host knows which steps re-sort) re-sorts the stack first. Under
+    host knows which steps re-sort) re-sorts the stacks first. Under
     ``guard`` the compaction runs every step, predicated on the count
     passing the pressure line, as the JAX ``lax.cond`` runs it.
 
-    ``ctr`` (int64, :data:`_CTR`) gets the JAX loop's carry: its step
-    index ``i`` (``steps``), the nodes popped, ``best_step`` (the index of
-    the last step that improved the incumbent, -1 if none), and the
-    steps that expanded, the count and overflow, the re-sorts,
+    ``ctr`` (int64, :data:`_CTR`) gets the JAX loop's carry a rank: its
+    step index ``i`` (``steps``), the nodes popped, ``best_step`` (the
+    index of the last step that improved the incumbent, -1 if none), and
+    the steps that expanded, the count and overflow, the re-sorts,
     compactions and largest count. Returns ``ctr``."""
     bd = BoundData(min_out, bound_adj, dbar, pi, slack, ascent_step, lam_budget, 0.0, integral)
     fr = Frontier(nodes, count, overflow)
-    stopped = ctr[_C_STOPPED] != 0
+    stopped = ctr[:, _C_STOPPED] != 0
     active = ~stopped
-    i0 = ctr[_C_STEPS]
+    i0 = ctr[:, _C_STEPS]
     if guard:
-        f_cap = max(nodes.shape[0] - k * n, 1)
+        f_cap = max(nodes.shape[1] - k * n, 1)
         line = f_cap - min(f_cap // 4, k * (n - 1))
         if reorder:
             fr = _reorder_frontier(fr, rows=f_cap, when=active)
@@ -1174,30 +1256,51 @@ def _search_step(nodes, count, overflow, inc_cost, inc_tour, ctr, d, min_out, bo
         halt = halt | full | overflow
     step = active.long()
     ctr.copy_(torch.stack([
-        halt.long(), i0 + step, ctr[_C_POPPED] + take, torch.where(improved, i0, ctr[_C_BEST]),
-        ctr[_C_EXPANDED] + expand.long(), count.long(), overflow.long(),
-        ctr[_C_REORDERS] + (step if reorder else 0),
-        ctr[_C_COMPACTIONS] + (pressure.long() if guard else 0),
-        torch.maximum(ctr[_C_PEAK], count.long()),
-    ]))
+        halt.long(), i0 + step, ctr[:, _C_POPPED] + take, torch.where(improved, i0, ctr[:, _C_BEST]),
+        ctr[:, _C_EXPANDED] + expand.long(), count.long(), overflow.long(),
+        ctr[:, _C_REORDERS] + (step if reorder else 0),
+        ctr[:, _C_COMPACTIONS] + (pressure.long() if guard else 0),
+        torch.maximum(ctr[:, _C_PEAK], count.long()),
+    ], dim=1))
     return ctr
 
 
 #: the search step's entry in the graph store: :func:`_search_step`
-#: captured once per key (shapes, dtypes, device, the statics, the re-sort
-#: variants, the torch/CUDA versions) and replayed, the counterpart of the
-#: JAX package's compiled ``_solve_device`` and ``_expand_loop``
+#: captured once per key (shapes, the local rank count among them, dtypes,
+#: device, the statics, the re-sort variants, the torch/CUDA versions) and
+#: replayed, the counterpart of the JAX package's compiled ``_solve_device``
+#: and ``_expand_loop`` (and of the step inside its sharded rank bodies)
 STEP = _compile_cache.GraphEntry("bnb_step", _search_step)
 
 
+def _reset_counters(ctr, count, overflow, guard: bool, done: Optional[torch.Tensor] = None) -> None:
+    """A run's start, in place on the step counters: every rank's counts
+    zeroed, ``best_step`` -1, and a rank stopped at entry when its stack is
+    empty (under ``guard`` also on an overflow; with ``done`` when the
+    sharded device loop is done). No host read: the sharded round's tail
+    runs it inside its graph."""
+    halt = count == 0
+    if guard:
+        halt = halt | overflow
+    if done is not None:
+        halt = halt | done
+    ctr.zero_()
+    ctr[:, _C_BEST].fill_(-1)
+    ctr[:, _C_STOPPED].copy_(halt)
+    ctr[:, _C_COUNT].copy_(count)
+    ctr[:, _C_OVERFLOW].copy_(overflow)
+    ctr[:, _C_PEAK].copy_(count)
+
+
 def _read_counters(ctr: torch.Tensor) -> list:
-    """The step counters (:data:`_CTR`) in one device-to-host read."""
+    """The step counters (:data:`_CTR`, a row a rank) in one device-to-host read."""
     # the one read a run of inner_steps steps, by design  # graftlint: disable=R1
     return ctr.tolist()
 
 
 class _StepRun(NamedTuple):
-    """What one dispatch of :class:`_Search` ran, from its last read."""
+    """What one dispatch of :class:`_Search` ran, from its last read; each
+    field but ``replays`` is a list a rank for a stacked search."""
 
     popped: int  # nodes popped
     steps: int  # the JAX loop's iterations (a full-stack stop counts)
@@ -1209,7 +1312,9 @@ class _StepRun(NamedTuple):
 
 
 class _Search:
-    """A search's device state and its predicated step.
+    """A search's device state and its predicated step, over one rank (the
+    single-device solve) or the local ranks of a sharded one (a stacked
+    frontier, every rank stepped at once).
 
     On a CUDA device with the graph store on (and ``graph``), the step is
     the stored graph of this key, captured on a miss with its warm-up on
@@ -1218,11 +1323,13 @@ class _Search:
     its whole life (a second search of the same key waits), copies the
     frontier, count, overflow and incumbent in once, and every dispatch
     replays on them; the host's own writes (the reservoir's, the host
-    loop's re-sort) go into the same buffers (:meth:`adopt`), and the
-    caller reads them itself. Elsewhere (the CPU, ``TSP_COMPILE_CACHE=off``,
-    ``graph`` false) the same step runs eagerly on the caller's node
-    buffer, in place, and on copies of its small tensors. A capture or
-    replay that fails raises ``GraphStoreError``.
+    loop's re-sort, the balance between a process group's replays) go
+    into the same buffers (:meth:`adopt`), and the caller reads them
+    itself. Elsewhere (the CPU, ``TSP_COMPILE_CACHE=off``, ``graph``
+    false) the same step runs eagerly on the caller's node buffer, in
+    place, and on copies of its small tensors. A capture or replay that
+    fails raises ``GraphStoreError``. The state always carries a leading
+    rank dimension; a single-device search hands its shapes back.
 
     ``guard``: the device loop's step (capacity guard and compaction,
     ``reorder_every`` re-sorts) or the host loop's. ``push_block`` takes
@@ -1232,13 +1339,14 @@ class _Search:
                  guard: bool, graph: bool, reorder_every: int = 0, use_mst: bool = True,
                  node_ascent: int = 0, mst_kernel: str = "prim", push_order: str = "best-first",
                  push_block: int = 0, step_kernel: str = "reference") -> None:
+        self.single, fr, inc_cost, inc_tour = _stacked(fr, inc_cost, inc_tour)
         self.guard = guard
         self.reorder_every = reorder_every if guard else 0
         self.statics = dict(k=k, n=n, integral=bd.integral, use_mst=use_mst, node_ascent=node_ascent,
                             mst_kernel=mst_kernel, push_order=push_order, step_kernel=step_kernel,
                             guard=guard)
         self.variants = ({"reorder": False}, {"reorder": True}) if self.reorder_every else ({"reorder": False},)
-        ctr = torch.zeros(len(_CTR), dtype=torch.int64, device=fr.nodes.device)
+        ctr = torch.zeros((fr.nodes.shape[0], len(_CTR)), dtype=torch.int64, device=fr.nodes.device)
         small = (fr.count, fr.overflow, inc_cost, inc_tour)
         args = (fr.nodes, *small, ctr, d, bd.min_out, bd.bound_adj, bd.dbar, bd.pi, bd.slack,
                 bd.ascent_step, bd.lam_budget)
@@ -1272,33 +1380,38 @@ class _Search:
             self.state = (fr.nodes, *(t.clone() for t in small), *args[5:])
         self._held = self.graph is not None
 
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """A state tensor in the caller's shape (rank 0's view when single)."""
+        return t[0] if self.single else t
+
     @property
     def frontier(self) -> Frontier:
-        return Frontier(*self.state[:3])
+        return Frontier(*(self._out(t) for t in self.state[:3]))
 
     @property
     def inc_cost(self) -> torch.Tensor:
-        return self.state[3]
+        return self._out(self.state[3])
 
     @property
     def inc_tour(self) -> torch.Tensor:
-        return self.state[4]
+        return self._out(self.state[4])
 
     @property
     def cost(self) -> torch.Tensor:
-        """The incumbent's cost (0-d float32), :attr:`inc_cost`."""
-        return self.state[3]
+        """The incumbent's cost (float32), :attr:`inc_cost`."""
+        return self.inc_cost
 
     def adopt(self, fr: Frontier) -> Frontier:
         """Take a frontier the host wrote into this search's node buffer
-        (a reservoir refill or exchange): its count and overflow go into
-        the state by device copies. Returns :attr:`frontier`."""
+        (a reservoir refill or exchange, a spill round's keeps): its count
+        and overflow go into the state by device copies. Returns
+        :attr:`frontier`."""
         nodes, count, overflow = self.state[:3]
         if fr.nodes.data_ptr() != nodes.data_ptr():
             raise ValueError("the host wrote another buffer than the search's frontier")
-        if fr.count is not count:
+        if fr.count.data_ptr() != count.data_ptr():
             count.copy_(fr.count)
-        if fr.overflow is not overflow:
+        if fr.overflow.data_ptr() != overflow.data_ptr():
             overflow.copy_(fr.overflow)
         return self.frontier
 
@@ -1315,63 +1428,72 @@ class _Search:
         out of the graph's buffers (eagerly they are the search's own)."""
         small = self.state[1:5]
         if self.graph is not None:
-            nodes.copy_(self.state[0])
+            nodes.copy_(self._out(self.state[0]))
             small = tuple(t.clone() for t in small)
-        count, overflow, inc_cost, inc_tour = small
+        count, overflow, inc_cost, inc_tour = (self._out(t) for t in small)
         return Frontier(nodes, count, overflow), inc_cost, inc_tour
+
+    def guard_entries(self) -> dict:
+        """The captures the steady loop must not add (for a guard)."""
+        if self.graph is None:
+            return {}
+        return {"bnb_step": _compile_cache.KeyCaptures(self.graph.key)}
 
     def steady(self):
         """The guard of the search's steady loop: it captures nothing."""
-        if self.graph is None:
+        entries = self.guard_entries()
+        if not entries:
             return contextlib.nullcontext()
-        return _contracts.RecompilationGuard({"bnb_step": _compile_cache.KeyCaptures(self.graph.key)},
-                                             limit=0)
+        return _contracts.RecompilationGuard(entries, limit=0)
 
-    def _reset(self) -> None:
-        _, count, overflow, _, _, ctr = self.state[:6]
-        halt = count == 0
-        if self.guard:
-            halt = halt | overflow
-        ctr.zero_()
-        ctr[_C_BEST].fill_(-1)
-        ctr[_C_STOPPED].copy_(halt)
-        ctr[_C_COUNT].copy_(count)
-        ctr[_C_OVERFLOW].copy_(overflow)
-        ctr[_C_PEAK].copy_(count)
+    def _reset(self, done: Optional[torch.Tensor] = None) -> None:
+        _reset_counters(self.state[5], self.state[1], self.state[2], self.guard, done)
+
+    def step(self, variant: int = 0) -> None:
+        """One predicated step of every rank: a replay of the graph's
+        ``variant``, or the eager step (the CPU, ``TSP_COMPILE_CACHE=off``,
+        ``push_block``), whose kernels are launched from here."""
+        if self.graph is not None:
+            self.graph.replay(1, variant)
+        else:
+            _search_step(*self.state, **self.statics, **self.variants[variant])
+
+    def variant(self, step_i: int) -> int:
+        """The variant of run-global step ``step_i``: 1 (re-sort first) when
+        ``step_i % reorder_every == reorder_every - 1``."""
+        every = self.reorder_every
+        return int(bool(every) and step_i % every == every - 1)
 
     def dispatch(self, budget: int, step0: int = 0, inner: int = 32,
                  step_ann=_obs_tracing._null_annotation, check_first: bool = False) -> _StepRun:
         """Up to ``budget`` loop iterations from run-global step ``step0``:
         predicated steps in runs of ``inner``, one stacked read of the
-        counters after each run, until the loop stopped or the budget is
-        spent. ``check_first`` reads once before the first step too, so a
-        loop stopped at entry issues no step (with ``inner`` 1: no step
-        past the stop at all). Step i re-sorts first when ``(step0 + i) %
-        reorder_every == reorder_every - 1`` (the replayed variant).
-        ``step_ann(step0 + i)`` wraps step i."""
+        counters after each run, until every rank's loop stopped or the
+        budget is spent. ``check_first`` reads once before the first step
+        too, so a loop stopped at entry issues no step (with ``inner`` 1:
+        no step past the stop at all). ``step_ann(step0 + i)`` wraps step
+        i."""
         self._reset()
-        every = self.reorder_every
         ctr = self.state[5]
         vals = _read_counters(ctr) if check_first else None
         done = 0
-        while done < budget and not (vals is not None and vals[_C_STOPPED]):
+        while done < budget and not (vals is not None and all(v[_C_STOPPED] for v in vals)):
             run = min(max(inner, 1), budget - done)
-            # on CUDA one replay a step; eagerly (the CPU, TSP_COMPILE_CACHE=off,
-            # the sharded rank steps) each step's kernels are launched from here
             for i in range(done, done + run):
-                variant = int(bool(every) and (step0 + i) % every == every - 1)
                 with step_ann(step0 + i):
-                    if self.graph is not None:
-                        self.graph.replay(1, variant)
-                    else:
-                        _search_step(*self.state, **self.statics, **self.variants[variant])
+                    self.step(self.variant(step0 + i))
             done += run
             vals = _read_counters(ctr)
-        FRONTIER_STATS["reorders"] += vals[_C_REORDERS]
-        FRONTIER_STATS["compactions"] += vals[_C_COMPACTIONS]
-        FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], vals[_C_PEAK])
-        return _StepRun(vals[_C_POPPED], vals[_C_STEPS], vals[_C_BEST], vals[_C_EXPANDED], done,
-                        vals[_C_COUNT], bool(vals[_C_OVERFLOW]))
+        FRONTIER_STATS["reorders"] += sum(v[_C_REORDERS] for v in vals)
+        FRONTIER_STATS["compactions"] += sum(v[_C_COMPACTIONS] for v in vals)
+        FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], *(v[_C_PEAK] for v in vals))
+        cols = [[v[c] for v in vals] for c in (_C_POPPED, _C_STEPS, _C_BEST, _C_EXPANDED, _C_COUNT,
+                                                _C_OVERFLOW)]
+        if self.single:
+            cols = [c[0] for c in cols]
+        popped, steps, best, expanded, height, overflow = cols
+        overflow = bool(overflow) if self.single else [bool(o) for o in overflow]
+        return _StepRun(popped, steps, best, expanded, done, height, overflow)
 
     def close(self) -> None:
         if self._held:
@@ -1399,13 +1521,15 @@ def _guarded_expand_steps(fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k:
     One dispatch of :class:`_Search`: predicated steps in runs of
     ``read_every``, one read after each run (1: also before the first
     step, so none is issued past the stop). ``graph``: replay the step's
-    graph from the store on a CUDA device, else run it eagerly (the sharded
-    solve's rank steps, by this keyword); the node buffer is written in
-    place either way. Returns ``(frontier, inc_cost, inc_tour, popped,
-    steps, best_step, expanded)``: ``best_step`` is the in-dispatch index
-    of the last step that improved the incumbent (-1 if none), which the
-    caller turns into a time from the dispatch's rate; ``expanded`` counts
-    the steps that expanded (all but a final stop on a full stack).
+    graph from the store on a CUDA device, else run it eagerly; the node
+    buffer is written in place either way. A stacked frontier steps every
+    rank at once, each its own guarded loop. Returns ``(frontier,
+    inc_cost, inc_tour, popped, steps, best_step, expanded)``, the last
+    four per rank for a stacked frontier: ``best_step`` is the
+    in-dispatch index of the last step that improved the incumbent (-1 if
+    none), which the caller turns into a time from the dispatch's rate;
+    ``expanded`` counts the steps that expanded (all but a final stop on a
+    full stack).
     """
     with _Search(fr, inc_cost, inc_tour, d, bd, k, n, guard=True, graph=graph,
                  reorder_every=reorder_every, **step_kw) as s:
@@ -2291,6 +2415,238 @@ BALANCES = ("pair", "ring", "steal", "adaptive")
 SEED_MODES = ("round-robin", "single-rank")
 
 
+#: the sharded round's per-rank accumulators (:class:`_RankRounds`): one
+#: int64 row a local rank, zeroed at a dispatch's start and added to by
+#: each round's tail: nodes popped, steps that expanded, rows donated by
+#: the balance, re-sorts, compactions, the largest count
+_ACC = ("popped", "expanded", "moved", "reorders", "compactions", "peak")
+_A_POPPED, _A_EXPANDED, _A_MOVED, _A_REORDERS, _A_COMPACTIONS, _A_PEAK = range(len(_ACC))
+#: the sharded round's flags: the device loop's sticky stop (zeroed at a
+#: dispatch's start), the rounds a dispatch executed, and the solve's
+#: balance events, the pair matching's tie rotation (``round_i``, JAX
+#: ``branch_bound.py:2902-2904``)
+_FLG = ("done", "rounds", "round_i")
+_F_DONE, _F_ROUNDS, _F_ROUND_I = range(len(_FLG))
+
+#: the sharded device loop reads its counters once every this many steps,
+#: in whole rounds (``solve``'s default ``inner_steps``): a dispatch issues
+#: at most that many no-op steps past its stop
+_SHARD_READ_STEPS = 32
+
+
+def _rank_tail(nodes, count, overflow, inc_cost, inc_tour, ctr, acc, flags, stats, *, action: str,
+               num_ranks: int, t_slots: int, capacity: int, phys_rows: int, guard: bool, line: int,
+               integral: bool, rank_stats: bool, ranks=None) -> torch.Tensor:
+    """The tail of one round of the sharded search, in place, after its
+    ``inner_steps`` steps: the JAX ``_make_rank_body`` /
+    ``_make_rank_body_loop`` body past ``_expand_loop`` /
+    ``_guarded_expand_steps`` (``branch_bound.py:2825-2940``).
+
+    It adds the round's step counters into ``acc``, runs the balance
+    ``action`` (``parallel/balance.py``; the pair matching's rotation is
+    ``flags[round_i]``), shares the incumbent (every rank takes the first
+    rank with the lowest cost, as ``jnp.argmin`` over the gathered costs),
+    counts the round, and under ``guard`` (the device loop) sets the
+    sticky ``done`` when every rank is drained, or a rank passed ``line``
+    (``capacity_per_rank - loop_headroom``) or overflowed. With
+    ``rank_stats`` it writes the rank sampler's ``[L, 3]`` stats row
+    (``parallel/reduce.make_rank_stats``) into ``stats``, so that a
+    window's sample reads it with the round's counters instead of a
+    read of its own. Then it resets the step counters for the next
+    round, every rank stopped once done.
+    A round entered done changes nothing: its steps were no-ops, and its
+    balance moves no row. With the stacked rank group (``ranks`` None) it
+    reads nothing on the host and uploads nothing, so the round's graph
+    holds it; a process group runs it eagerly (its collectives cross the
+    host). Returns ``flags``."""
+    from ..parallel import balance as _balance
+
+    group = _balance._group(ranks, nodes)
+    active = flags[_F_DONE] == 0
+    acc.copy_(torch.stack([
+        acc[:, _A_POPPED] + ctr[:, _C_POPPED], acc[:, _A_EXPANDED] + ctr[:, _C_EXPANDED], acc[:, _A_MOVED],
+        acc[:, _A_REORDERS] + ctr[:, _C_REORDERS], acc[:, _A_COMPACTIONS] + ctr[:, _C_COMPACTIONS],
+        torch.maximum(acc[:, _A_PEAK], ctr[:, _C_PEAK]),
+    ], dim=1))
+    if num_ranks > 1 and action != "skip":
+        _, moved_count, moved = _balance.apply(action, nodes, count, flags[_F_ROUND_I], num_ranks=num_ranks,
+                                               t_slots=t_slots, capacity=capacity, phys_rows=phys_rows,
+                                               ranks=ranks, active=active)
+        count.copy_(moved_count)
+        acc[:, _A_MOVED] += moved
+    # the incumbent share, each rank's cost bits and tour gathered as one
+    # int32 row (one collective over a process group)
+    every = group.all_gather(torch.cat([inc_cost.view(torch.int32)[:, None], inc_tour], 1))
+    costs = every[:, 0].contiguous().view(torch.float32)
+    best = torch.argmin(costs).view(1)
+    inc_cost.copy_(costs.index_select(0, best).expand_as(inc_cost))
+    inc_tour.copy_(every[:, 1:].index_select(0, best).expand_as(inc_tour))
+    flags[_F_ROUNDS] += active
+    flags[_F_ROUND_I] += active
+    done = None
+    if guard:
+        stop = group.all_reduce(((count > line) | overflow).to(torch.int32), "max") > 0
+        drained = group.all_reduce(count, "sum") == 0
+        flags[_F_DONE] |= (active & (drained | stop)).long()
+        done = flags[_F_DONE] != 0
+    if rank_stats:
+        from ..parallel.reduce import make_rank_stats
+
+        stats.copy_(make_rank_stats(nodes, count, inc_cost[0], integral))
+    _reset_counters(ctr, count, overflow, guard, done)
+    return flags
+
+
+#: the round's tail in the graph store: :func:`_rank_tail` captured on the
+#: step graph's buffers (``borrow``), one variant a balance action the run
+#: can pick, the counterpart of the JAX per-action rank bodies
+RANK_TAIL = _compile_cache.GraphEntry("bnb_rank_tail", _rank_tail)
+
+
+class _RankRounds:
+    """The sharded search's round program over the local ranks: one
+    :class:`_Search` of the stacked frontier (every local rank stepped at
+    once: one ``prim_chain`` chain over L*k lanes and one ``push_rows``
+    launch a step) and :func:`_rank_tail`.
+
+    For the stacked rank group on a CUDA device with the store on, both are
+    graphs from the store: the step with its re-sort variants (entry
+    ``bnb_step``) and the tail with one variant a balance action (entry
+    ``bnb_rank_tail``, captured at construction for every action in
+    ``actions``, on the step graph's buffers), so a round is ``inner_steps``
+    step replays and one tail replay, and no round reads the host. A
+    process group (``ProcessRanks``, one rank a process) replays the step
+    graph and runs the tail eagerly between replays, since its collectives
+    cross the host. The CPU, ``TSP_COMPILE_CACHE=off`` and ``push_block``
+    run both eagerly. Either way the same steps are issued."""
+
+    def __init__(self, fr: Frontier, inc_cost, inc_tour, d, bd: BoundData, k: int, n: int, *, ranks,
+                 guard: bool, inner_steps: int, reorder_every: int, actions, tail_kw: dict, graph: bool,
+                 **step_kw) -> None:
+        self.ranks = ranks
+        self.inner = inner_steps
+        self.actions = tuple(actions)
+        self.search = _Search(fr, inc_cost, inc_tour, d, bd, k, n, guard=guard, graph=graph,
+                              reorder_every=reorder_every, **step_kw)
+        self.tail_statics = dict(tail_kw, guard=guard)
+        dev = fr.nodes.device
+        acc = torch.zeros((fr.nodes.shape[0], len(_ACC)), dtype=torch.int64, device=dev)
+        flags = torch.zeros(len(_FLG), dtype=torch.int64, device=dev)
+        stats = torch.zeros((fr.nodes.shape[0], 3), dtype=torch.float32, device=dev)
+        self.tail = None
+        self.tail_capture_s = 0.0
+        self._held = False
+        if self.search.graph is not None and ranks.transport == "batched":
+            captured = []
+            try:
+                self.tail = RANK_TAIL.graph(*self.search.state[:6], acc, flags, stats, borrow=6,
+                                            variants=tuple({"action": a} for a in self.actions),
+                                            on_capture=lambda: captured.append(True), **self.tail_statics)
+                self.tail.acquire()
+            except BaseException:
+                self.search.close()
+                raise
+            self._held = True
+            self.tail_capture_s = self.tail.capture_s if captured else 0.0
+            acc, flags, stats = self.tail.inputs[6:]
+            acc.zero_()
+            flags.zero_()
+        self.acc, self.flags, self.stats = acc, flags, stats
+
+    def steady(self):
+        """The guard of the steady loop: neither graph is captured again."""
+        entries = self.search.guard_entries()
+        if self.tail is not None:
+            entries["bnb_rank_tail"] = _compile_cache.KeyCaptures(self.tail.key)
+        if not entries:
+            return contextlib.nullcontext()
+        return _contracts.RecompilationGuard(entries, limit=0)
+
+    def _round(self, action: str, step0: int, step_ann) -> None:
+        """One round from run-global step ``step0``: the steps (a re-sort
+        variant where the cadence says), then the tail."""
+        for i in range(self.inner):
+            with step_ann(step0 + i):
+                self.search.step(self.search.variant(step0 + i))
+        if self.tail is not None:
+            self.tail.replay(1, self.actions.index(action))
+        else:
+            _rank_tail(*self.search.state[:6], self.acc, self.flags, self.stats, action=action,
+                       ranks=None if self.ranks.transport == "batched" else self.ranks,
+                       **self.tail_statics)
+
+    def _read(self) -> np.ndarray:
+        """Every rank's accumulators, count, incumbent bits, stats row bits
+        and the flags, ``[R, len(_ACC) + 5 + len(_FLG)]``: one
+        device-to-host read (gathered over a process group)."""
+        count, inc_cost = self.search.state[1], self.search.state[3]
+        row = torch.cat([self.acc, count[:, None].long(), inc_cost.view(torch.int32)[:, None].long(),
+                         self.stats.view(torch.int32).long(),
+                         self.flags[None, :].expand(count.shape[0], -1)], 1)
+        # the one read a run of rounds  # graftlint: disable=R1
+        return self.ranks.all_gather(row.cpu()).numpy()
+
+    def dispatch(self, action: str, budget: int, step0: int, per_read: int,
+                 step_ann=_obs_tracing._null_annotation) -> Tuple["_RankRun", int]:
+        """Up to ``budget`` rounds of ``action`` from run-global step
+        ``step0``, in runs of ``per_read`` rounds with one read after each,
+        until the loop is done (the device loop's flag; the host loop is one
+        round a dispatch) or the budget is spent. Rounds issued past done
+        change nothing. Returns the last read and the rounds issued."""
+        self.acc.zero_()
+        self.flags[_F_DONE].zero_()
+        self.flags[_F_ROUNDS].zero_()
+        self.search._reset()
+        issued = 0
+        while True:
+            run = min(max(per_read, 1), budget - issued)
+            for r in range(issued, issued + run):
+                self._round(action, step0 + r * self.inner, step_ann)
+            issued += run
+            rows = _RankRun(self._read())
+            if issued >= budget or rows.done:
+                return rows, issued
+
+    def close(self) -> None:
+        if self._held:
+            self._held = False
+            self.tail.release()
+        self.search.close()
+
+
+class _RankRun:
+    """One read of :class:`_RankRounds`, a row a rank of the group."""
+
+    def __init__(self, rows: np.ndarray) -> None:
+        acc = len(_ACC)
+        self.popped = rows[:, _A_POPPED]
+        self.expanded = rows[:, _A_EXPANDED]
+        self.moved = rows[:, _A_MOVED]
+        self.reorders = rows[:, _A_REORDERS]
+        self.compactions = rows[:, _A_COMPACTIONS]
+        self.peak = rows[:, _A_PEAK]
+        self.counts = rows[:, acc]
+        self.best = float(np.asarray(rows[0, acc + 1]).astype(np.int32).view(np.float32))
+        #: the rank sampler's stats row as the last round left it (when the tail makes it)
+        self.stats = rows[:, acc + 2 : acc + 5].astype(np.int32).view(np.float32)
+        flags = rows[0, acc + 5:]
+        self.done = bool(flags[_F_DONE])
+        self.rounds = int(flags[_F_ROUNDS])
+
+
+def _host_rank_stats(rows: Optional[np.ndarray], inc: float, integral: bool) -> np.ndarray:
+    """``parallel/reduce.make_rank_stats``'s row for one rank whose stack is
+    ``rows`` (packed, on the host; None: empty): its count, its rows the
+    incumbent has not closed, and their least bound (+inf when none), in
+    float32 with the same comparison."""
+    if rows is None:
+        return np.asarray([0, 0, np.inf], np.float32)
+    b = _np_bound_col(rows)
+    inc32 = np.float32(inc)
+    alive = b <= inc32 - np.float32(1.0) if integral else b < inc32
+    return np.asarray([rows.shape[0], alive.sum(), b[alive].min() if alive.any() else np.inf], np.float32)
+
+
 def _rank_counts(count: torch.Tensor, ranks) -> np.ndarray:
     """Host copy of every rank's int32 count, ``[R]``: the one per-round
     readback of the sharded loop (``branch_bound.py:2568``), gathered
@@ -2377,14 +2733,15 @@ def _seed_rank_frontiers(d_np: np.ndarray, bd: BoundData, num_ranks: int, capaci
     sum_min0 = float(min_out[1:].sum())
     nodes = torch.zeros((len(ids), capacity + k * n, _path_words(n) + w + 4), dtype=torch.int32,
                         device=device)
-    counts = []
-    for j, r in enumerate(ids):
-        if seed_mode == "round-robin":
-            mine = np.asarray([c for c in range(1, n) if (c - 1) % num_ranks == r], np.int64)
-        else:
-            mine = np.arange(1, n) if r == 0 else np.zeros(0, np.int64)
+    if seed_mode == "round-robin":
+        dealt = [np.asarray([c for c in range(1, n) if (c - 1) % num_ranks == r], np.int64) for r in ids]
+    else:
+        dealt = [np.arange(1, n) if r == 0 else np.zeros(0, np.int64) for r in ids]
+    counts = [mine.size for mine in dealt]
+    # every rank's seeded rows built on the host, then one upload
+    seeded = np.zeros((len(ids), max(counts), nodes.shape[-1]), np.int32)
+    for j, mine in enumerate(dealt):
         m = mine.size
-        counts.append(m)
         if not m:
             continue
         path = np.zeros((m, n), np.int32)
@@ -2392,9 +2749,9 @@ def _seed_rank_frontiers(d_np: np.ndarray, bd: BoundData, num_ranks: int, capaci
         mask = np.zeros((m, w), np.uint32)
         mask[:, 0] = 1  # city 0
         mask[np.arange(m), mine // 32] |= np.uint32(1) << (mine % 32).astype(np.uint32)
-        rows = _pack_rows_np(path, mask, np.full(m, 2, np.int32), d_np[0, mine],
-                             d_np[0, mine] + sum_min0 + adj[mine], sum_min0 - min_out[mine])
-        nodes[j, :m] = torch.from_numpy(rows).to(device)
+        seeded[j, :m] = _pack_rows_np(path, mask, np.full(m, 2, np.int32), d_np[0, mine],
+                                      d_np[0, mine] + sum_min0 + adj[mine], sum_min0 - min_out[mine])
+    nodes[:, : seeded.shape[1]] = torch.from_numpy(seeded).to(device)
     return Frontier(nodes, torch.as_tensor(counts, dtype=torch.int32, device=device),
                     torch.zeros(len(ids), dtype=torch.bool, device=device))
 
@@ -2436,30 +2793,34 @@ def solve_sharded(
     ``torch.distributed`` group (``ProcessRanks``), whose ``device`` is then
     the rank's. Either way the frontier is one tensor ``nodes [L,
     capacity_per_rank + k*n, C]`` with ``count [L]`` and ``overflow [L]``
-    over the group's L local ranks; local rank j's stack is the view
-    ``nodes[j]``, on which the single-device step, guard, compaction,
-    re-sort and ``push_rows`` work in place. A round runs every local rank
-    in turn for ``inner_steps`` steps with its own incumbent, then the
-    balance step over the ranks (``parallel/balance.py``: ``pair``,
-    ``ring``, ``steal``, or ``adaptive``, whose controller picks
-    skip/pair/steal per dispatch), then the incumbent share (the first
-    rank with the lowest cost, as ``jnp.argmin`` over the all-gathered
-    costs).
+    over the group's L local ranks, and every step, guard, compaction,
+    re-sort and push works on all L at once (:func:`_search_step`), each
+    rank its own search with its own incumbent. A round (the JAX
+    ``_make_rank_body``) is ``inner_steps`` steps, the balance step over
+    the ranks (``parallel/balance.py``: ``pair``, ``ring``, ``steal``, or
+    ``adaptive``, whose controller picks skip/pair/steal per dispatch),
+    then the incumbent share (the first rank with the lowest cost, as
+    ``jnp.argmin`` over the all-gathered costs): :class:`_RankRounds`, on
+    a CUDA device a replayed program (the step's and the tail's graphs,
+    every action's captured at setup; a process group replays the step
+    and runs its collectives between replays).
 
     The host acts where the JAX package's dispatches end, which node
     counts depend on. Host loop (``device_loop`` off): one dispatch is one
-    round of :func:`_expand_loop` per rank. Device loop: one dispatch is
-    many rounds of :func:`_guarded_expand_steps` per rank, stopping when
-    every rank is drained, a rank passes ``capacity_per_rank -
-    loop_headroom`` or overflowed, or the step budget runs out; one
-    balance action holds for every round of it. Between dispatches the
-    controller decides (the ``balance.steal`` fault seam degrades a
-    steal to the base action), the per-rank host reservoirs spill and
-    refill, the host loop re-sorts every ``reorder_every`` steps, and
-    snapshots are written. A run with ``time_limit_s`` also checks the
-    clock after every round, so it may stop at another step than the JAX
-    package's. Every decision that steers the ranks is taken alike on all
-    of them: the controller from gathered counts, the fault seam and the
+    round, with one stacked read of the counters after it. Device loop
+    (the JAX ``_make_rank_body_loop``): one dispatch is many rounds of
+    guarded steps, stopping when every rank is drained, a rank passes
+    ``capacity_per_rank - loop_headroom`` or overflowed, or the budget
+    (:func:`_dispatch_budget` in rounds; with ``time_limit_s``, from the
+    measured round rate, as :func:`solve` sizes its dispatches) runs out;
+    one read every run of rounds (:data:`_SHARD_READ_STEPS`), so up to a
+    run of no-op rounds is issued past the stop. One balance action holds
+    for every round of it. Between dispatches the controller decides (the
+    ``balance.steal`` fault seam degrades a steal to the base action), the
+    per-rank host reservoirs spill and refill, the host loop re-sorts every
+    ``reorder_every`` steps (one batched re-sort), and snapshots are
+    written. Every decision that steers the ranks is taken alike on all of
+    them: the controller from gathered counts, the fault seam and the
     clock on rank 0, broadcast.
 
     ``seed_mode``: "round-robin" deals the root's children over the ranks,
@@ -2541,8 +2902,6 @@ def solve_sharded(
     t_slots = min(t_slots, capacity_per_rank // 4)
     adaptive = balance == "adaptive"
     base_action = "pair" if adaptive else balance
-    bal_kw = dict(num_ranks=num_ranks, t_slots=t_slots, capacity=capacity_per_rank,
-                  phys_rows=int(fr.nodes.shape[1]), ranks=ranks)
     controller = _balance.BalanceController(num_ranks=num_ranks, k=k, t_slots=t_slots,
                                             base=base_action, adaptive=adaptive,
                                             row_bytes=int(fr.nodes.shape[-1]) * 4)
@@ -2565,27 +2924,28 @@ def solve_sharded(
     rank_spill_to_device = np.zeros(num_ranks, np.int64)
     row_bytes = int(fr.nodes.shape[-1]) * 4
 
-    def spill_refill(fr: Frontier, inc_best: float, popped: Optional[np.ndarray] = None):
+    def spill_refill(fr: Frontier, inc_best: float, mine: Optional[np.ndarray] = None):
         """Per-rank reservoir exchange and refill between dispatches
         (``branch_bound.py:3130-3231``): a rank past ``capacity -
         headroom`` fetches only its live prefix and keeps its best half
         (merging its reservoir only when that holds a better open node
         than the rank's live rows); an empty rank with spilled nodes
-        refills. Every rank sees every rank's count, reservoir rows and
-        nodes expanded in the dispatch (``popped``, local ``[L]``), so all
-        take part in the same rounds. Returns ``(frontier, total count,
-        counts [R], popped [R], reservoir rows [R])``."""
-        # one count read a spill round  # graftlint: disable=R1
-        mine = fr.count.cpu().numpy()
-        popped = np.zeros(local, np.int64) if popped is None else popped
-        flags = np.stack([mine.astype(np.int64), np.asarray([len(rv) for rv in reservoirs], np.int64),
-                          popped.astype(np.int64)], 1)
+        refills. ``mine``: the local ranks' counts the dispatch's read
+        already has (None: read them). Every rank sees every rank's count
+        and reservoir rows, so all take part in the same rounds. Returns
+        ``(frontier, total count, counts [R], reservoir rows [R], rewritten)``,
+        ``rewritten`` the rank sampler's stats row of each local rank whose
+        stack the host wrote, from the rows it wrote."""
+        if mine is None:
+            # one count read a spill round  # graftlint: disable=R1
+            mine = fr.count.cpu().numpy()
+        flags = np.stack([np.asarray(mine, np.int64), np.asarray([len(rv) for rv in reservoirs], np.int64)], 1)
         flags = ranks.all_gather(torch.from_numpy(flags)).numpy()
-        counts, res_rows, popped_all = flags[:, 0], flags[:, 1], flags[:, 2]
+        counts, res_rows = flags[:, 0], flags[:, 1]
         spilling = counts > capacity_per_rank - headroom
         refilling = (counts == 0) & (res_rows > 0)
         if not (spilling.any() or refilling.any()):
-            return fr, int(counts.sum()), counts, popped_all, res_rows
+            return fr, int(counts.sum()), counts, res_rows, {}
         with _obs_tracing.span("bnb.spill_round", ranks=num_ranks, spilling=int(spilling.sum()),
                                refilling=int(refilling.sum())) as sp:
             live_min = None
@@ -2593,8 +2953,8 @@ def solve_sharded(
                 live_min = rank_alive_min(fr.nodes, fr.count, inc32(inc_best), integral).cpu().numpy()
                 sp.event("reduce.rank_alive_min", ranks=[int(x) for x in np.flatnonzero(spilling)])
             spill_stats.rounds += 1
-            keeps = {}
-            new_counts = mine.copy()
+            keeps, rewritten = {}, {}
+            new_counts = np.array(mine, copy=True)
             # one pass over the local ranks a spill round, not a step  # graftlint: disable=R4
             for j, r in enumerate(ranks.ids):
                 if not (spilling[r] or refilling[r]):
@@ -2616,6 +2976,7 @@ def solve_sharded(
                     rv.stats.bytes_to_host += live.nbytes
                     keep = rv.exchange_rows(live, inc_best, integral, capacity_per_rank, merge=merge)
                 new_counts[j] = 0 if keep is None else keep.shape[0]
+                rewritten[j] = _host_rank_stats(keep, inc_best, integral)
                 if keep is not None:
                     keeps[j] = keep
                 sp.event("rank_spill", rank=int(r), mode=mode, merge=bool(merge),
@@ -2640,49 +3001,7 @@ def solve_sharded(
             rank_spill_to_host[spilling] += counts[spilling] * row_bytes
             rank_spill_to_device[has_keep] += width * row_bytes
             counts = kept[:, 0]
-            return fr, int(counts.sum()), counts, popped_all, kept[:, 2]
-
-    def run_round(fr: Frontier, ic, itour, action: str, round_i: int, step0: int, guarded: bool):
-        """One round: every local rank's steps on its view with its own
-        incumbent, the balance step, the incumbent share. Returns
-        ``(frontier, ic, itour, popped [L], rank-steps, moved [L], steps
-        issued)``."""
-        ics, tours = list(ic.unbind(0)), list(itour.unbind(0))
-        popped = np.zeros(local, np.int64)
-        counts, overflows = [], []
-        steps = issued = 0
-        for j in range(local):
-            view = Frontier(fr.nodes[j], fr.count[j], fr.overflow[j])
-            # the rank steps stay eager (no graph), a read before each step,
-            # until the rank loop is one program as the JAX _make_rank_body_loop is
-            if guarded:
-                view, ics[j], tours[j], popped[j], took, _, ran = _guarded_expand_steps(
-                    view, ics[j], tours[j], d32, bd, k, n, inner_steps, reorder_every, step0,
-                    step_ann=step_ann, graph=False, read_every=1, **step_kw)
-            else:
-                view, ics[j], tours[j], popped[j], ran = _expand_loop(
-                    view, ics[j], tours[j], d32, bd, k, n, inner_steps, step0, step_ann, graph=False,
-                    read_every=1, **step_kw)
-                took = ran
-            steps += ran
-            issued += took
-            counts.append(view.count)
-            overflows.append(view.overflow)
-        count = torch.stack(counts).to(torch.int32)
-        nodes = fr.nodes
-        moved = torch.zeros_like(count)
-        if num_ranks > 1 and action != "skip":
-            nodes, count, moved = _balance.apply(action, nodes, count, round_i, **bal_kw)
-        # the incumbent share: every rank takes the first rank with the
-        # lowest cost (jnp.argmin over the all-gathered costs), each rank's
-        # cost bits and tour gathered as one int32 row
-        mine = torch.cat([torch.stack(ics).view(torch.int32)[:, None], torch.stack(tours)], 1)
-        every = ranks.all_gather(mine)
-        all_c, all_t = every[:, 0].view(torch.float32), every[:, 1:]
-        b = torch.argmin(all_c)
-        ic = all_c[b].repeat(local)
-        itour = all_t[b].repeat(local, 1)
-        return Frontier(nodes, count, torch.stack(overflows)), ic, itour, popped, steps, moved, issued
+            return fr, int(counts.sum()), counts, kept[:, 2], rewritten
 
     lbf = float(max(lb_floor, bd.root_lb))  # the certified floor of every save
 
@@ -2698,175 +3017,219 @@ def solve_sharded(
     if resume_from:
         # a snapshot written with a smaller k can restore counts past this
         # run's logical capacity: shed the overhang before the first dispatch
-        fr, _, _, _, res_now = spill_refill(fr, inc_cost0)
+        fr, _, _, res_now, _ = spill_refill(fr, inc_cost0)
     counts_now = _rank_counts(fr.count, ranks)
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    setup_s = t0 - t_setup
-    deadline = None if time_limit_s is None else t0 + time_limit_s
-
-    def past_deadline() -> bool:
-        # rank 0's clock decides for every rank
-        return deadline is not None and ranks.agree(time.perf_counter() > deadline)
-
-    t_best = 0.0
-    last_inc = inc_cost0
-    it = steps_run = replays = 0
-    rank_nodes = np.zeros(num_ranks, np.int64)  # every rank's, gathered each dispatch
-    total0 = 1
-    last_ckpt = last_reorder = 0
-    unit = inner_steps
-    periodic = bool(checkpoint_every and checkpoint_path)
-    # the mesh-global series (one row a dispatch) and its stall sentinel,
-    # as in solve(); the rank sampler reads one [R, 3] device stats row a
-    # window (make_rank_stats on each process's ranks, one all_gather), the
-    # host columns from the per-rank arrays every process holds
-    sampler = _obs_series.StepSampler.maybe()
-    if sampler is not None:
-        sampler.row_bytes = row_bytes
-        sampler.frontier_layout = FRONTIER_LAYOUT_VERSION
-    sentinel = _obs_anomaly.StallSentinel.maybe()
-    if sampler is not None:
-        sampler.sentinel = sentinel
+    # every balance action this run can pick, captured now, as the JAX
+    # package precompiles its ``needed_actions`` (``branch_bound.py:3020-3045``);
+    # "skip" always, as a drained group skips in every mode
+    if num_ranks <= 1:
+        actions = ("skip",)
+    elif adaptive:
+        actions = ("skip", base_action, "steal")
+    else:
+        actions = ("skip", base_action)
+    # the rank sampler (None under TSP_OBS=off); over the stacked group the
+    # round's tail makes its stats row, so a window's sample reads it with
+    # the dispatch's counters (a process group computes it a window, its
+    # tail running eagerly)
     rank_sampler = _obs_rank.RankSampler.maybe(num_ranks)
+    tail_stats = rank_sampler is not None and ranks.transport == "batched"
+    tail_kw = dict(num_ranks=num_ranks, t_slots=t_slots, capacity=capacity_per_rank,
+                   phys_rows=int(fr.nodes.shape[1]), line=capacity_per_rank - loop_headroom,
+                   integral=integral, rank_stats=tail_stats)
+    # the round program (its graphs captured on a miss, warmed up on their own
+    # copies) adopted for the whole search: from here on fr, ic and itour are
+    # its buffers
+    rounds = _RankRounds(fr, ic, itour, d32, bd, k, n, ranks=ranks, guard=device_loop,
+                         inner_steps=inner_steps, reorder_every=reorder_every, actions=actions,
+                         tail_kw=tail_kw, graph=not push_block, **step_kw)
+    try:
+        fr, ic, itour = rounds.search.frontier, rounds.search.inc_cost, rounds.search.inc_tour
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        setup_s = t0 - t_setup
+        deadline = None if time_limit_s is None else t0 + time_limit_s
 
-    def rank_sample(step_now: int, inc_now: float) -> None:
-        # the whole window hook, shared by the loop and the tail flush, both
-        # billed to METER_NS: the stats row, its gather and the ring append
-        m = _obs_rank.RankSampler.METER_NS
-        if m is not None:
-            t_meter = time.perf_counter_ns()
-        row = ranks.all_gather(make_rank_stats(fr.nodes, fr.count, inc32(inc_now), integral).cpu()).numpy()
-        _obs_tracing.add_event("reduce.rank_stats", step=step_now, ranks=num_ranks)
-        rank_sampler.sample(step_now, row[:, 0], row[:, 1], rank_nodes, res_now, rank_spill_events,
-                            rank_spill_to_host, rank_spill_to_device, row[:, 2])
-        if m is not None:
-            m[0] += time.perf_counter_ns() - t_meter
+        def past_deadline() -> bool:
+            # rank 0's clock decides for every rank
+            return deadline is not None and ranks.agree(time.perf_counter() > deadline)
 
-    while it < max_iters:
-        t_iter = time.perf_counter()
-        sp_h0, sp_d0 = int(rank_spill_to_host.sum()), int(rank_spill_to_device.sum())
-        prev_action = controller.last_action
-        action = controller.decide(
-            counts_now,
-            alive_probe=(lambda: _rank_counts(rank_alive_counts(fr.nodes, fr.count, inc32(last_inc),
-                                                                integral), ranks))
-            if adaptive and num_ranks > 1 else None,
-        )
-        if action == "steal":
-            # the fault seam fires on rank 0 only; its verdict holds for all
-            faulted = False
-            if ranks.is_root:
-                try:
-                    _fault_registry().fire("balance.steal")
-                except _TransientFault:
-                    faulted = True
-            if ranks.agree(faulted):
-                action = controller.degrade()
-        controller.count_action(action)
-        if action != prev_action:
-            # a span per switch, not per decision, with the donor/receiver
-            # sets the new action sees
-            with _obs_tracing.span("bnb.balance", step=it, action=action, cv=controller.cv) as bsp:
-                bsp.event("rank_participation", **controller.participation(counts_now))
-        popped = np.zeros(local, np.int64)
-        moved = torch.zeros(local, dtype=torch.int32, device=device)
-        # every step, compaction, re-sort and balance writes the stacked
-        # frontier buffer in place
-        prev_ptr = _contracts.donation_ptr(fr.nodes)
-        if device_loop:
-            budget = _dispatch_budget((max_iters - it) // unit,
-                                      (2**31 - 1) // max(k * unit * num_ranks, 1),
-                                      (checkpoint_every - (it - last_ckpt)) // unit if periodic else None)
-            rounds_done = 0
-            done = False
-            while rounds_done < budget and not done:
-                fr, ic, itour, p, ran, mv, took = run_round(fr, ic, itour, action, it // unit + rounds_done,
-                                                            it + rounds_done * inner_steps, True)
-                popped += p
-                steps_run += ran
-                replays += took
-                moved += mv
-                rounds_done += 1
-                # one read a round: every rank's count and overflow  # graftlint: disable=R1
-                cnt = ranks.all_gather(torch.stack([fr.count, fr.overflow.to(torch.int32)], 1).cpu()).tolist()
-                done = (sum(c for c, _ in cnt) == 0 or max(c for c, _ in cnt) > capacity_per_rank - loop_headroom
-                        or any(o for _, o in cnt))
+        t_best = 0.0
+        last_inc = inc_cost0
+        it = steps_run = replays = dispatches = 0
+        rank_nodes = np.zeros(num_ranks, np.int64)  # every rank's, gathered each dispatch
+        total0 = 1
+        last_ckpt = last_reorder = 0
+        unit = inner_steps
+        rounds_rate = 0.0  # the last device-loop dispatch's measured rounds a second
+        # the device loop reads once a run of rounds (each read syncs a
+        # process group anyway), the host loop once a round
+        per_read = max(1, -(-_SHARD_READ_STEPS // unit)) if ranks.transport == "batched" else 1
+        periodic = bool(checkpoint_every and checkpoint_path)
+        # the mesh-global series (one row a dispatch) and its stall sentinel,
+        # as in solve(); the rank sampler takes one [R, 3] stats row a window
+        # (make_rank_stats on each process's ranks: the round's tail's, or
+        # computed here and gathered), the host columns from the per-rank
+        # arrays every process holds
+        sampler = _obs_series.StepSampler.maybe()
+        if sampler is not None:
+            sampler.row_bytes = row_bytes
+            sampler.frontier_layout = FRONTIER_LAYOUT_VERSION
+        sentinel = _obs_anomaly.StallSentinel.maybe()
+        if sampler is not None:
+            sampler.sentinel = sentinel
+
+        def rank_sample(step_now: int, inc_now: float, row: Optional[np.ndarray] = None) -> None:
+            # the whole window hook, shared by the loop and the tail flush, both
+            # billed to METER_NS: the stats row (unless the tail made it), its
+            # gather and the ring append
+            m = _obs_rank.RankSampler.METER_NS
+            if m is not None:
+                t_meter = time.perf_counter_ns()
+            if row is None:
+                row = ranks.all_gather(make_rank_stats(fr.nodes, fr.count, inc32(inc_now),
+                                                       integral).cpu()).numpy()
+            _obs_tracing.add_event("reduce.rank_stats", step=step_now, ranks=num_ranks)
+            rank_sampler.sample(step_now, row[:, 0], row[:, 1], rank_nodes, res_now, rank_spill_events,
+                                rank_spill_to_host, rank_spill_to_device, row[:, 2])
+            if m is not None:
+                m[0] += time.perf_counter_ns() - t_meter
+
+        with rounds.steady():
+            while it < max_iters:
+                t_iter = time.perf_counter()
+                sp_h0, sp_d0 = int(rank_spill_to_host.sum()), int(rank_spill_to_device.sum())
+                prev_action = controller.last_action
+                action = controller.decide(
+                    counts_now,
+                    alive_probe=(lambda: _rank_counts(rank_alive_counts(fr.nodes, fr.count, inc32(last_inc),
+                                                                        integral), ranks))
+                    if adaptive and num_ranks > 1 else None,
+                )
+                if action == "steal":
+                    # the fault seam fires on rank 0 only; its verdict holds for all
+                    faulted = False
+                    if ranks.is_root:
+                        try:
+                            _fault_registry().fire("balance.steal")
+                        except _TransientFault:
+                            faulted = True
+                    if ranks.agree(faulted):
+                        action = controller.degrade()
+                controller.count_action(action)
+                if action != prev_action:
+                    # a span per switch, not per decision, with the donor/receiver
+                    # sets the new action sees
+                    with _obs_tracing.span("bnb.balance", step=it, action=action, cv=controller.cv) as bsp:
+                        bsp.event("rank_participation", **controller.participation(counts_now))
+                # every step, compaction, re-sort and balance writes the stacked
+                # frontier buffer in place
+                prev_ptr = _contracts.donation_ptr(fr.nodes)
+                if device_loop:
+                    # the JAX dispatch budget in rounds, the clock cap from the
+                    # measured round rate as in solve(), rank 0's for every rank
+                    left_s = None if deadline is None else deadline - time.perf_counter()
+                    budget = _dispatch_budget((max_iters - it) // unit,
+                                              (2**31 - 1) // max(k * unit * num_ranks, 1),
+                                              (checkpoint_every - (it - last_ckpt)) // unit if periodic else None,
+                                              rounds_rate, left_s, max(_FIRST_DISPATCH_STEPS // unit, 1))
+                    if deadline is not None:
+                        budget = int(ranks.broadcast(torch.tensor([budget]))[0])
+                    t_disp = time.perf_counter()
+                    run, issued = rounds.dispatch(action, budget, it, per_read, step_ann)
+                    disp_s = time.perf_counter() - t_disp
+                    rounds_done = max(run.rounds, 1)
+                    if disp_s > 0:
+                        rounds_rate = rounds_done / disp_s
+                else:
+                    run, issued = rounds.dispatch(action, 1, it, 1, step_ann)
+                    rounds_done = 1
+                _contracts.check_donated(fr.nodes, prev_ptr, where="solve_sharded.dispatch")
+                dispatches += 1
+                replays += issued * unit
+                steps_run += int(run.expanded.sum())
+                rank_nodes += run.popped
+                mine = run.counts[ranks.ids]
+                FRONTIER_STATS["reorders"] += int(run.reorders[ranks.ids].sum())
+                FRONTIER_STATS["compactions"] += int(run.compactions[ranks.ids].sum())
+                FRONTIER_STATS["peak_count"] = max(FRONTIER_STATS["peak_count"], int(run.peak[ranks.ids].max()))
+                controller.record(it, action, run.moved)
+                it += rounds_done * unit
+                best = run.best
+                if best < last_inc:
+                    last_inc = best
+                    t_best = time.perf_counter() - t0
+                    for rv in reservoirs:
+                        if len(rv):
+                            rv.prune(best, integral)
+                fr, total0, counts_now, res_now, rewritten = spill_refill(fr, best, mine)
+                fr = rounds.search.adopt(fr)
+                tail_row = None
+                if tail_stats:
+                    # the tail's row, but for the stacks a spill round rewrote
+                    tail_row = run.stats.copy()
+                    for j, st in rewritten.items():
+                        tail_row[ranks.ids[j]] = st
+                if reorder_every and not device_loop and it - last_reorder >= reorder_every:
+                    with _obs_tracing.span("bnb.reorder", step=it, ranks=num_ranks) as rsp:
+                        rsp.event("rank_participation", ranks=list(range(num_ranks)))
+                        # one sharded re-sort over the stacked ranks (JAX reorder_ranks)
+                        _reorder_frontier(fr, rows=capacity_per_rank)
+                    last_reorder = it
+                if periodic and it - last_ckpt >= checkpoint_every:
+                    timed_save()
+                    last_ckpt = it
+                if sampler is not None:
+                    # positional, in the order of obs.timeseries.COLUMNS
+                    now = time.perf_counter()
+                    step_n = int(run.popped.sum())
+                    sampler.sample(it, now - t0, step_n, step_n / max(now - t_iter, 1e-9), total0,
+                                   int(rank_spill_to_host.sum()) - sp_h0, int(rank_spill_to_device.sum()) - sp_d0,
+                                   best, lbf, int(res_now.sum()))
+                if rank_sampler is not None:
+                    # one counter compare a dispatch, one stats row a window; every
+                    # process counts the same dispatches, so all enter the gather
+                    rkm = _obs_rank.RankSampler.METER_NS
+                    if rkm is not None:
+                        t_rk = time.perf_counter_ns()
+                    rk_due = rank_sampler.due()
+                    if rkm is not None:
+                        rkm[0] += time.perf_counter_ns() - t_rk
+                    if rk_due:
+                        rank_sample(it, best, tail_row)
+                if total0 == 0:
+                    break
                 if past_deadline():
                     break
-        else:
-            fr, ic, itour, popped, steps, moved, took = run_round(fr, ic, itour, action, it // unit, it, False)
-            steps_run += steps
-            replays += took
-            rounds_done = 1
-        _contracts.check_donated(fr.nodes, prev_ptr, where="solve_sharded.run_round")
-        controller.record(it, action, _rank_counts(moved, ranks))
-        it += rounds_done * inner_steps
-        # one read a round  # graftlint: disable=R1
-        best = float(ic[0])
-        if best < last_inc:
-            last_inc = best
-            t_best = time.perf_counter() - t0
-            for rv in reservoirs:
-                if len(rv):
-                    rv.prune(best, integral)
-        fr, total0, counts_now, popped_all, res_now = spill_refill(fr, best, popped)
-        rank_nodes += popped_all
-        if reorder_every and not device_loop and it - last_reorder >= reorder_every:
-            with _obs_tracing.span("bnb.reorder", step=it, ranks=num_ranks) as rsp:
-                rsp.event("rank_participation", ranks=list(range(num_ranks)))
-                for j in range(local):
-                    _reorder_frontier(Frontier(fr.nodes[j], fr.count[j], fr.overflow[j]),
-                                      rows=capacity_per_rank)
-            last_reorder = it
-        if periodic and it - last_ckpt >= checkpoint_every:
+        wall = time.perf_counter() - t0
+        overflow = bool(ranks.all_reduce(fr.overflow, "any"))
+        spilled_left = int(ranks.all_reduce(torch.as_tensor([len(rv) for rv in reservoirs]), "sum"))
+        proven = total0 == 0 and spilled_left == 0 and not overflow
+        if checkpoint_path and not proven:
             timed_save()
-            last_ckpt = it
-        if sampler is not None:
-            # positional, in the order of obs.timeseries.COLUMNS
-            now = time.perf_counter()
-            step_n = int(popped_all.sum())
-            sampler.sample(it, now - t0, step_n, step_n / max(now - t_iter, 1e-9), total0,
-                           int(rank_spill_to_host.sum()) - sp_h0, int(rank_spill_to_device.sum()) - sp_d0,
-                           best, lbf, int(res_now.sum()))
-        if rank_sampler is not None:
-            # one counter compare a dispatch, one stats row a window; every
-            # process counts the same dispatches, so all enter the gather
-            rkm = _obs_rank.RankSampler.METER_NS
-            if rkm is not None:
-                t_rk = time.perf_counter_ns()
-            rk_due = rank_sampler.due()
-            if rkm is not None:
-                rkm[0] += time.perf_counter_ns() - t_rk
-            if rk_due:
-                rank_sample(it, best)
-        if total0 == 0:
-            break
-        if past_deadline():
-            break
-    wall = time.perf_counter() - t0
-    overflow = bool(ranks.all_reduce(fr.overflow, "any"))
-    spilled_left = int(ranks.all_reduce(torch.as_tensor([len(rv) for rv in reservoirs]), "sum"))
-    proven = total0 == 0 and spilled_left == 0 and not overflow
-    if checkpoint_path and not proven:
-        timed_save()
-    cost = float(ic[0])
-    # the least bound over every rank's open rows and spilled nodes
-    mine = fr.count.cpu().numpy()
-    open_min = []
-    for j, c in enumerate(mine):
-        b = fr.bound[j, : int(c)].cpu().numpy()
-        mins = [float(b.min())] if b.size else []
-        if len(reservoirs[j]):
-            mins.append(reservoirs[j].min_bound())
-        open_min.append(min(mins) if mins else np.inf)
-    least = float(ranks.all_reduce(torch.as_tensor(open_min, dtype=torch.float64), "min"))
+        cost = float(ic[0])
+        tour = itour[0].cpu().numpy()
+        # the least bound over every rank's open rows and spilled nodes
+        mine = fr.count.cpu().numpy()
+        open_min = []
+        for j, c in enumerate(mine):
+            b = fr.bound[j, : int(c)].cpu().numpy()
+            mins = [float(b.min())] if b.size else []
+            if len(reservoirs[j]):
+                mins.append(reservoirs[j].min_bound())
+            open_min.append(min(mins) if mins else np.inf)
+        least = float(ranks.all_reduce(torch.as_tensor(open_min, dtype=torch.float64), "min"))
+        if rank_sampler is not None and rank_sampler.pending():
+            # the tail: the last window's deltas reach the series even when
+            # the loop ends between sampling windows
+            rank_sample(it, last_inc)
+    finally:
+        rounds.close()
     lb_raw = _final_lower_bound(proven, cost, bd.root_lb, [np.asarray([least])] if least < np.inf else [],
                                 overflow=overflow)
     nodes = int(rank_nodes.sum())
-    steps_run, replays = (int(x) for x in ranks.all_reduce(torch.as_tensor([[steps_run, replays]]), "sum"))
     # rounds are counted alike on every rank; the rest is each rank's own
     own = torch.as_tensor([[spill_stats.events, spill_stats.full_merges, spill_stats.bytes_to_host,
                             spill_stats.bytes_to_device]], dtype=torch.int64)
@@ -2875,10 +3238,6 @@ def solve_sharded(
     _obs_metrics.fold_bnb_solve(nodes, wall, spill_stats)
     rank_series = rank_bal = None
     if rank_sampler is not None:
-        if rank_sampler.pending():
-            # the tail: the last window's deltas reach the series even when
-            # the loop ends between sampling windows
-            rank_sample(it, last_inc)
         rank_series = rank_sampler.series()
         rank_bal = _obs_rank.rank_balance(
             rank_series, rank_nodes, spill_events=rank_spill_events,
@@ -2887,7 +3246,7 @@ def solve_sharded(
         _obs_rank.fold_rank_view(rank_bal)
     return BnBResult(
         cost=cost,
-        tour=itour[0].cpu().numpy(),
+        tour=tour,
         nodes_expanded=nodes,
         iterations=it,
         proven_optimal=proven,
@@ -2907,7 +3266,13 @@ def solve_sharded(
         spill_bytes_to_host=spill_stats.bytes_to_host,
         spill_bytes_to_device=spill_stats.bytes_to_device,
         steps_run=steps_run,
+        # the steps each process issued (all issue the same: a batched group
+        # steps its ranks at once, a process group each its own rank)
         replays=replays,
+        dispatches=dispatches,
+        step_graph=rounds.search.graph is not None,
+        warm_steps=rounds.search.warm_steps,
+        capture_seconds=rounds.search.capture_s + rounds.tail_capture_s,
         mst_kernel=mst_kernel,
         step_kernel=step_kernel,
         device_loop=device_loop,

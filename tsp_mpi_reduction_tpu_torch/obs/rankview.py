@@ -10,12 +10,15 @@ every sharded run a load-balance report:
   occupancy, alive (incumbent-open) rows, nodes expanded, host reservoir
   depth, spill events/bytes each way, and each rank's best open bound.
   The device-side columns arrive as ONE small ``[R, K]`` float32 row
-  from ``parallel.reduce.make_rank_stats`` (over a rank-process group,
-  one ``all_gather`` of each process's rows); everything else is
-  host-side arithmetic the sharded loop already owns. The gather runs
-  once per ``window`` host-loop dispatches (default 8,
-  ``TSP_RANK_WINDOW``), so the per-dispatch cost is one counter compare;
-  ``METER_NS`` prices the whole hook.
+  from ``parallel.reduce.make_rank_stats``: with the ranks stacked on one
+  device, the sharded round's tail makes it and the dispatch's one read
+  brings it (the host's own spill writes patched in from the rows it
+  wrote); over a rank-process group, each process's rows and one
+  ``all_gather`` a window. Everything else is host-side arithmetic the
+  sharded loop already owns. A sample is taken once per ``window``
+  host-loop dispatches (default 8, ``TSP_RANK_WINDOW``), so the
+  per-dispatch cost is one counter compare; ``METER_NS`` prices the
+  whole hook.
 - :class:`~.anomaly.RankStarvationSentinel` (obs.anomaly) — attached as
   ``.watch``; each completed window feeds it, and a rank whose share of
   the window's expansion work collapses fires ``rank_starvation`` once

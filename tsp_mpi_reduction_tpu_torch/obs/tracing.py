@@ -103,7 +103,7 @@ class Span:
 
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "attrs", "events",
-        "ts", "_t0",
+        "ts", "_t0", "announced",
     )
 
     def __init__(
@@ -121,6 +121,7 @@ class Span:
         self.events: List[Dict[str, Any]] = []
         self.ts = time.time()
         self._t0 = time.perf_counter()
+        self.announced = False
 
     @property
     def context(self) -> SpanContext:
@@ -338,7 +339,11 @@ def span(
     the announcement its already-closed child spans (canonicalize,
     cache.lookup, …) would orphan — the provisional parent keeps every
     stitched tree complete even when the process that owned the real
-    close dies."""
+    close dies. Every span opened under an announced one on the thread's
+    stack is announced too: a kill can land between a grandchild's close
+    and its parent's (a ``sched.flush`` the worker emitted under a
+    ``sched.wait`` still open, a ``sched.wait`` under its ``ladder.rung``),
+    and the JAX package, which announces the root only, orphans those."""
     if not TRACER.active:
         yield NULL_SPAN
         return
@@ -348,9 +353,11 @@ def span(
         cur = TRACER.current()
         if cur is not None:
             trace_id, parent_id = cur.trace_id, cur.span_id
+            announce = announce or cur.announced
         else:
             trace_id, parent_id = _new_id(16), None
     sp = Span(name, trace_id, parent_id, attrs)
+    sp.announced = announce
     if announce:
         TRACER.emit(
             {

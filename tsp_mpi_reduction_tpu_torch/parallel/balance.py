@@ -115,18 +115,34 @@ def _receive(nodes: torch.Tensor, cnt: torch.Tensor, m_out: torch.Tensor, m_in: 
     m_out)``.
 
     ``mode="drop"``: the JAX steps park dead lanes at ``phys_rows`` and
-    drop them (``balance.py:162``, ``:190``, ``:228``). Here only the live
-    lanes are selected, so no dead lane is clamped onto a real row.
+    drop them (``balance.py:162``, ``:190``, ``:228``). Here the write has a
+    fixed shape, so that it reads nothing on the host and a CUDA graph can
+    hold it (the sharded round's tail): each rank rewrites one window of
+    t rows, ``[min(base, F - t), +t)``, which holds every live lane's row
+    inside the buffer; a window row that no live lane targets is written
+    back with its own value, so no dead lane clobbers a real row, and a
+    live lane past ``phys_rows`` is dropped.
     """
-    r, t = recv.shape[:2]
+    r, t, cols = recv.shape
+    f_rows = nodes.shape[1]
     dev = nodes.device
-    lanes = torch.arange(t, dtype=torch.int32, device=dev)
     base = cnt - m_out
-    dest = base[:, None] + lanes
-    live = (lanes[None, :] < m_in[:, None]) & (dest < phys_rows)
-    ranks = torch.arange(r, device=dev)[:, None].expand(r, t)
-    nodes[ranks[live], dest[live].long()] = recv[live]
+    start = torch.clamp(base, max=f_rows - t).long()
+    rows = start[:, None] + torch.arange(t, device=dev)  # [R, t], distinct, in [0, F)
+    lane = rows - base[:, None]  # the recv lane each window row takes
+    live = (lane >= 0) & (lane < m_in[:, None]) & (rows < phys_rows)
+    flat = nodes.view(r * f_rows, cols)
+    at = (torch.arange(r, device=dev)[:, None] * f_rows + rows).reshape(-1)
+    mine = flat[at].view(r, t, cols)
+    got = recv.gather(1, lane.clamp(0, t - 1)[:, :, None].expand(r, t, cols))
+    flat.index_copy_(0, at, torch.where(live[:, :, None], got, mine).reshape(-1, cols))
     return nodes, base + m_in, m_out
+
+
+def _gate(active, moves: torch.Tensor) -> torch.Tensor:
+    """Zero a balance step's row moves where ``active`` (0-d bool, None:
+    always) is false: a sharded round past its loop's stop moves nothing."""
+    return moves if active is None else torch.where(active, moves, 0)
 
 
 def _group(ranks, nodes):
@@ -134,14 +150,15 @@ def _group(ranks, nodes):
     return ranks if ranks is not None else BatchedRanks(nodes.shape[0])
 
 
-def ring_step(nodes, cnt, round_i=0, *, t_slots: int, capacity: int, phys_rows: int, ranks=None):
+def ring_step(nodes, cnt, round_i=0, *, t_slots: int, capacity: int, phys_rows: int, ranks=None,
+              active=None):
     """Diffuse work around the ring (``balance.py:138-162``): each rank
     donates top-of-stack rows to its successor while it holds more,
     capped so the receiver cannot overflow. ``round_i`` is unused."""
     ranks = _group(ranks, nodes)
     me = ranks.rank_ids(nodes.device)
     all_c = ranks.all_gather(cnt)
-    m_all = torch.clamp((all_c - torch.roll(all_c, -1, 0)) // 2, 0, t_slots)
+    m_all = _gate(active, torch.clamp((all_c - torch.roll(all_c, -1, 0)) // 2, 0, t_slots))
     m_out = m_all[me]
     m_in = torch.roll(m_all, 1, 0)[me]  # what my predecessor donates
     slabs = _donor_slabs(nodes, cnt, m_out, t_slots, capacity)
@@ -149,13 +166,14 @@ def ring_step(nodes, cnt, round_i=0, *, t_slots: int, capacity: int, phys_rows: 
 
 
 def pair_step(nodes, cnt, round_i, *, num_ranks: int, t_slots: int, capacity: int,
-              phys_rows: int, ranks=None):
+              phys_rows: int, ranks=None, active=None):
     """Pair the richest rank with the poorest and donate half the gap
     (``balance.py:165-190``); the matching rotates its tie-break with
-    ``round_i``."""
+    ``round_i`` (an int or a 0-d device counter)."""
     ranks = _group(ranks, nodes)
     me = ranks.rank_ids(nodes.device)
     m_of, partner_of = pair_assignment(ranks.all_gather(cnt), round_i, num_ranks, t_slots)
+    m_of = _gate(active, m_of)
     m_in = m_of[partner_of][me]  # 0 unless my partner donates (to me)
     slabs = _donor_slabs(nodes, cnt, m_of[me], t_slots, capacity)
     recv = ranks.all_gather(slabs)[partner_of[me]]
@@ -163,7 +181,7 @@ def pair_step(nodes, cnt, round_i, *, num_ranks: int, t_slots: int, capacity: in
 
 
 def steal_step(nodes, cnt, round_i=0, *, num_ranks: int, t_slots: int, capacity: int,
-               phys_rows: int, ranks=None):
+               phys_rows: int, ranks=None, active=None):
     """Global repartition for starvation (``balance.py:193-231``): ranks
     above the mean donate their surplus into a pool, ranks below it take
     their deficit out of it. Receiver lane j holds pool position
@@ -173,6 +191,7 @@ def steal_step(nodes, cnt, round_i=0, *, num_ranks: int, t_slots: int, capacity:
     ranks = _group(ranks, nodes)
     me = ranks.rank_ids(nodes.device)
     m_out, m_in, pool_off, take_off = steal_assignment(ranks.all_gather(cnt), t_slots)
+    m_out, m_in = _gate(active, m_out), _gate(active, m_in)
     slabs = ranks.all_gather(_donor_slabs(nodes, cnt, m_out[me], t_slots, capacity))
     lanes = torch.arange(t_slots, dtype=torch.int32, device=nodes.device)
     pos = take_off[me][:, None] + lanes  # [local, t] global pool positions
@@ -183,22 +202,25 @@ def steal_step(nodes, cnt, round_i=0, *, num_ranks: int, t_slots: int, capacity:
 
 
 def apply(action: str, nodes, cnt, round_i, *, num_ranks: int, t_slots: int, capacity: int,
-          phys_rows: int, ranks=None):
+          phys_rows: int, ranks=None, active=None):
     """One balance step by action name (``balance.py:234-263``). ``skip``
     returns the frontier untouched with zero moved rows. ``ranks``: the
     rank group whose local rows ``nodes`` holds (default: all ranks stacked
-    in this process)."""
+    in this process). ``active`` (0-d bool, None: true) false moves no row.
+    With the stacked group a step reads nothing on the host and uploads
+    nothing, so a CUDA graph can hold it (``round_i`` may be a device
+    counter)."""
     if action == "skip":
         return nodes, cnt, torch.zeros_like(cnt)
     if action == "ring":
         return ring_step(nodes, cnt, round_i, t_slots=t_slots, capacity=capacity,
-                         phys_rows=phys_rows, ranks=ranks)
+                         phys_rows=phys_rows, ranks=ranks, active=active)
     if action == "pair":
         return pair_step(nodes, cnt, round_i, num_ranks=num_ranks, t_slots=t_slots,
-                         capacity=capacity, phys_rows=phys_rows, ranks=ranks)
+                         capacity=capacity, phys_rows=phys_rows, ranks=ranks, active=active)
     if action == "steal":
         return steal_step(nodes, cnt, round_i, num_ranks=num_ranks, t_slots=t_slots,
-                          capacity=capacity, phys_rows=phys_rows, ranks=ranks)
+                          capacity=capacity, phys_rows=phys_rows, ranks=ranks, active=active)
     raise ValueError(f"unknown balance action {action!r} (one of {ACTIONS})")
 
 

@@ -52,6 +52,15 @@ call. The capture warms up on the graph's own copy of the inputs, so a
 live state is never stepped outside the caller's loop; ``on_capture``
 tells the caller that its call captured (its warm-up launched kernels).
 
+An entry that runs on another graph's buffers (the sharded B&B round's
+tail, which balances and shares the incumbent on the step graph's
+frontier) BORROWS them: ``borrow=b`` makes the first b inputs the
+caller's own tensors, not copies (they are the owner graph's static
+inputs; the key names them by address), and its warm-up runs on copies
+of them, so the owner's state is never stepped. The rest of its inputs
+are its own static copies, as for any entry, which a caller that hits
+the stored graph takes from ``inputs``.
+
 A captured kernel launch runs at each replay, not at the capture: the
 kernel wrappers count their launches through :func:`count_launch`,
 which, while the calling thread captures, records the launch for the
@@ -277,20 +286,22 @@ class CapturedGraph:
 
     def __init__(self, name: str, key: str, graph, inputs: Tuple[torch.Tensor, ...],
                  outputs: Tuple[torch.Tensor, ...], capture_s: float, *, graphs=None,
-                 launches=None, pool_bytes: int = 0) -> None:
+                 launches=None, pool_bytes: int = 0, borrow: int = 0, variant_s=None) -> None:
         self.name = name
         self.key = key
         self.graph = graph
         #: the captured variants, in the order of the entry's ``variants``
         self.graphs = tuple(graphs) if graphs is not None else (graph,)
+        #: per variant, the seconds of its warm-up and its capture
+        self.variant_s = list(variant_s) if variant_s is not None else [capture_s]
         #: per variant, the kernel launches one replay makes
         self.launches = launches if launches is not None else [[] for _ in self.graphs]
         self.inputs = inputs
         self.outputs = outputs
         self.capture_s = capture_s
-        #: device bytes of the static buffers the graph pins, and of its
-        #: private memory pool
-        pinned = [*inputs, *(o for o in outputs if not any(o is i for i in inputs))]
+        #: device bytes of the static buffers the graph pins (not the ones it
+        #: borrows from another graph), and of its private memory pool
+        pinned = [*inputs[borrow:], *(o for o in outputs if not any(o is i for i in inputs))]
         self.pool_bytes = pool_bytes
         self.nbytes = sum(t.numel() * t.element_size() for t in pinned) + pool_bytes
         self.lock = threading.Lock()
@@ -367,30 +378,38 @@ def capture_region(graph, stream):
 
 
 def _capture(name: str, key: str, fn: Callable, args: Tuple[torch.Tensor, ...],
-             statics: Dict[str, Any], variants=None) -> CapturedGraph:
+             statics: Dict[str, Any], variants=None, borrow: int = 0) -> CapturedGraph:
     """Warm ``fn`` up once on a side stream, then capture it there; with
     ``variants`` (dicts of further statics), once per variant over the
-    same static inputs, each with its own memory pool."""
+    same static inputs, each with its own memory pool. The first
+    ``borrow`` inputs are ``args``' own tensors (the warm-up runs on
+    copies of them)."""
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: a graph is captured from CUDA tensors, got {dev}")
     variants = tuple(variants) if variants else ({},)
     t0 = time.perf_counter()
-    graphs, launches = [], []
+    graphs, launches, variant_s = [], [], []
     try:
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
-        inputs = tuple(torch.empty_like(a) for a in args)
+        inputs = tuple(args[:borrow]) + tuple(torch.empty_like(a) for a in args[borrow:])
         side.wait_stream(current)
         with torch.cuda.stream(side):
+            # the borrowed buffers hold a live state: the warm-up steps copies
+            warm = tuple(torch.empty_like(a) for a in args[:borrow]) + inputs[borrow:]
             for extra in variants:
-                for s, a in zip(inputs, args):
+                tv = time.perf_counter()
+                for s, a in zip(warm, args):
                     s.copy_(a)
-                fn(*inputs, **statics, **extra)  # the warm-up: first launches, lazy init
-            for s, a in zip(inputs, args):
+                fn(*warm, **statics, **extra)  # the warm-up: first launches, lazy init
+                variant_s.append(time.perf_counter() - tv)
+            del warm
+            for s, a in zip(inputs[borrow:], args[borrow:]):
                 s.copy_(a)  # undo what the warm-up wrote in place
         reserved = torch.cuda.memory_reserved(dev)
-        for extra in variants:
+        for i, extra in enumerate(variants):
+            tv = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             _RECORDING.launches = []
             try:
@@ -400,6 +419,7 @@ def _capture(name: str, key: str, fn: Callable, args: Tuple[torch.Tensor, ...],
                 launches.append(_RECORDING.launches)
                 _RECORDING.launches = None
             graphs.append(graph)
+            variant_s[i] += time.perf_counter() - tv
         current.wait_stream(side)
         pool_bytes = max(torch.cuda.memory_reserved(dev) - reserved, 0)
     except RuntimeError as e:
@@ -408,7 +428,8 @@ def _capture(name: str, key: str, fn: Callable, args: Tuple[torch.Tensor, ...],
     if isinstance(outputs, torch.Tensor):
         outputs = (outputs,)
     return CapturedGraph(name, key, graphs[0], inputs, tuple(outputs), time.perf_counter() - t0,
-                         graphs=graphs, launches=launches, pool_bytes=pool_bytes)
+                         graphs=graphs, launches=launches, pool_bytes=pool_bytes, borrow=borrow,
+                         variant_s=variant_s)
 
 
 class _GraphStore:
@@ -450,7 +471,7 @@ class _GraphStore:
                 self.evictions += 1
 
     def capture(self, name: str, key: str, fn, args, statics, store: bool,
-                variants=None) -> Tuple[CapturedGraph, bool]:
+                variants=None, borrow: int = 0) -> Tuple[CapturedGraph, bool]:
         """-> (graph, captured now). Serialized: a graph another thread
         captured while this one waited is returned as found."""
         with self._capture_lock:
@@ -458,7 +479,7 @@ class _GraphStore:
                 g = self.lookup(key)
                 if g is not None:
                     return g, False
-            g = _capture(name, key, fn, args, statics, variants)
+            g = _capture(name, key, fn, args, statics, variants, borrow)
             with self._lock:
                 self.captures[name] = self.captures.get(name, 0) + 1
                 self.key_captures[key] = self.key_captures.get(key, 0) + 1
@@ -494,19 +515,28 @@ def _on_cuda(args) -> bool:
 
 def aot_load_or_compile(name: str, fn: Callable, args: Tuple[torch.Tensor, ...],
                         statics: Optional[Dict[str, Any]] = None, *, variants=None,
-                        on_capture: Optional[Callable[[], None]] = None) -> Optional[CapturedGraph]:
+                        on_capture: Optional[Callable[[], None]] = None,
+                        borrow: int = 0) -> Optional[CapturedGraph]:
     """The stored graph of ``(name, key)``, captured on a miss; None when
     the store is off or the inputs are not on a CUDA device (the caller
     then runs its eager dispatch). ``variants``: dicts of further statics,
     one graph each over the same buffers. ``on_capture()`` runs when this
-    call captured."""
+    call captured. ``borrow``: the number of leading inputs that are the
+    caller's buffers themselves (the module docstring)."""
     statics = statics or {}
     if not store_enabled() or not _on_cuda(args):
         return None
-    key = entry_key(name, args, statics if variants is None else {**statics, "variants": variants})
+    key_statics = dict(statics)
+    if variants is not None:
+        key_statics["variants"] = variants
+    if borrow:
+        # a borrowed buffer is alive while a stored graph holds it, so its
+        # address names it
+        key_statics["borrow"] = tuple(a.data_ptr() for a in args[:borrow])
+    key = entry_key(name, args, key_statics)
     g = _STORE.lookup(key)
     if g is None:
-        g, fresh = _STORE.capture(name, key, fn, args, statics, store=True, variants=variants)
+        g, fresh = _STORE.capture(name, key, fn, args, statics, store=True, variants=variants, borrow=borrow)
         if fresh:
             STATS.record(name, "miss", g.capture_s)
             if on_capture is not None:
@@ -551,9 +581,9 @@ class GraphEntry:
         self.fn = fn
 
     def graph(self, *args: torch.Tensor, variants=None, on_capture: Optional[Callable[[], None]] = None,
-              **statics) -> Optional[CapturedGraph]:
+              borrow: int = 0, **statics) -> Optional[CapturedGraph]:
         return aot_load_or_compile(self.name, self.fn, args, statics, variants=variants,
-                                   on_capture=on_capture)
+                                   on_capture=on_capture, borrow=borrow)
 
     def _cache_size(self) -> int:
         with _STORE._lock:

@@ -110,7 +110,11 @@ unit, gates and ``vs_baseline``).
   context left after the mode (``nvidia-smi --query-compute-apps``). The
   start-up grace is 15 s (JAX: 3 s; a replica's cold start on the card
   is 7.4-10.3 s); the JAX ``compile_cache_dir`` has no counterpart.
-  ``launches`` is null: the replicas report no counts.
+  ``launches`` is null: the replicas report no counts. The shared tier's
+  fleet-wide hits and publishes are summed over every generation of each
+  replica slot (JAX: the live processes' last scrapes only, which lose
+  the counts of every replica the chaos restarted), each live replica
+  scraped once more at the end of the leg.
 - ``compile`` (``bench_compile``, ``bench.py:244-430``): the JAX mode's two
   legs, every run a fresh process (``TSP_BENCH=compile-child``). chunk: a
   ``TSP_BENCH_COMPILE_INSTANCE`` (eil51) checkpoint left by a 64-iteration
@@ -1749,6 +1753,12 @@ def fleet_leg(cfg, requests: List[Dict[str, Any]], warm: List[Dict[str, Any]], n
         wall = time.perf_counter() - t0
         faults.clear()
         stats = json.loads(front.stats_json())
+        # the shared tier's traffic over every replica generation, each
+        # live one scraped once more now (the supervisor scrapes at 1 Hz)
+        for rep in front.supervisor.replicas:
+            if rep.alive():
+                rep.scrape(cfg.supervisor.scrape_timeout_s)
+        lifetimes = [rep.scrape_lifetime() for rep in front.supervisor.replicas]
     finally:
         faults.clear()
         front.close()
@@ -1759,11 +1769,8 @@ def fleet_leg(cfg, requests: List[Dict[str, Any]], warm: List[Dict[str, Any]], n
     ids = [r.get("id") for r in responses]
     valid = sum(1 for r in responses if "error" not in r and r.get("tour")
                 and r["tour"][0] == r["tour"][-1] and sorted(r["tour"][:-1]) == list(range(n)))
-    shared = {"shared_cache_hits": 0, "shared_cache_publishes": 0}
-    for row in stats["fleet"]["replicas"]:
-        scrape = row.get("scrape") or {}
-        for key in shared:
-            shared[key] += int(scrape.get(key, 0))
+    shared = {key: sum(int(life.get(key, 0)) for life in lifetimes)
+              for key in ("shared_cache_hits", "shared_cache_publishes")}
     health = HEALTH.delta_since(health0)
     leg = {
         "replicas": cfg.replicas,
@@ -1781,6 +1788,11 @@ def fleet_leg(cfg, requests: List[Dict[str, Any]], warm: List[Dict[str, Any]], n
         "degraded_answers": health.get("fleet_degraded_answers", 0),
         "stats_fleet": {key: stats["fleet"][key] for key in (
             "restarts_total", "redispatches_total", "degraded_answers", "duplicates_suppressed")},
+        # each replica slot's stats row as the run ended (its live
+        # generation's last 1 Hz scrape) beside its totals over every
+        # generation, which ``shared_cache_fleetwide`` sums
+        "replica_scrapes": [{"generation": row["generation"], "scrape": row.get("scrape"), "lifetime": life}
+                            for row, life in zip(stats["fleet"]["replicas"], lifetimes)],
         "shared_cache_fleetwide": shared,
         "cache_hits": sum(1 for r in responses if r.get("cache") == "hit"),
     }
