@@ -217,7 +217,10 @@ Phases, each printing its own line; any failure exits non-zero:
     dispatches), both replaying the step's graph, and the device loop
     under ``TSP_COMPILE_CACHE=off``: no sync in ``_pop_stage`` or the
     step, and in the step loop at most one a run of 32 steps plus one a
-    dispatch (the search seconds print); then the sharded loop: phase 16's
+    dispatch (the search seconds print), and in the ILS's 31 polishes at
+    most one a replayed run of ``POLISH_READ_STEPS`` steps plus the
+    ILS loop's own upload and download of each batch (the eager run's count
+    prints beside it); then the sharded loop: phase 16's
     eil51 ``--ranks=8`` pair replayed and eager (one read a round, the
     host loop) and its ``--ranks=4`` device loop replayed (at most one a
     round): no sync inside a round (the steps, the tail, the balance's
@@ -280,14 +283,25 @@ Phases, each printing its own line; any failure exits non-zero:
     equal (``torch.equal``), the capture, replayed-fold and eager-fold
     seconds and the store's ``stats_dict()`` (the one-shot CLI with and
     without the store is ``tools/bench.py --mode=compile --blocks=1024``'s
-    ``cli`` leg).
+    ``cli`` leg); then the polish (entry ``polish``) on cold keys, each
+    case captured once, replayed with 0 captures under
+    ``RecompilationGuard`` and run eagerly, tours and sums equal: the
+    ILS's first and round batches on eil51 and berlin52 (16 x n), a 1 x
+    1024 serve polish (6 rounds) and phase 17's ring (4 x 256 open
+    segments and the 1 x 1024 float64 closed polish); each key's capture
+    seconds and bytes, steps issued, no-op steps and reads, a replayed
+    step's ms (CUDA events); eil51's whole ILS at ``POLISH_READ_STEPS``
+    2, 4, 8 and 16, there and back (one tour); and eil51's device ascent
+    (entry ``one_tree_ascent``, 400 steps) replayed against eager.
 22. the B&B step's graph (``models/branch_bound.STEP``): on a cold store,
     ``warm_compile_device_solver`` at eil51's shapes captures it once (a
     root row under an infinite incumbent; its seconds, the graph's static
     and pool bytes); a
     proof adopts it with 0 captures under ``RecompilationGuard``; two
     threads prove eil51 at once through it (one on its own stream; the
-    second waits for the graph): the same proof three times.
+    second waits for the graph): the same proof three times; then eil51
+    through the CLI with the store on, off, off, on: the ILS's seconds,
+    polish steps and reads, and the time to proof, 153,747 nodes each.
 23. the sharded round's graphs (``models/branch_bound.RANK_TAIL`` beside
     ``STEP``): on a cold store a short adaptive eil51 R = 8 solve captures
     the batched step and the tail with every action it can pick at setup
@@ -348,6 +362,9 @@ REPLACES = {
 # the B&B full-size run (BENCHMARKS.md:112): eil51 at the width users run
 BNB_FULL = ("eil51", 1024, 1 << 18)
 BNB_FULL_NODES, BNB_FULL_COST, BNB_FULL_ROOT_LB = 153_747, 426.0, 423.0
+#: the ILS's rounds from 30 cities on (``strong_incumbent``'s default): a
+#: proof's ILS polishes 1 + 30 batches
+ILS_ROUNDS = 30
 # ulysses16, min-out, no ILS, k = 32, 500 steps: the JAX host loop's count
 # (96,208 at 3000 steps, the depth before phase 20 grew)
 TRAJECTORY_STEPS, TRAJECTORY_NODES = 500, 16_336
@@ -3172,6 +3189,7 @@ def phase_lint(smi):
     from tsp_mpi_reduction_tpu_torch.analysis.__main__ import _DEFAULT_TARGETS, run_analyses
     from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
     from tsp_mpi_reduction_tpu_torch.ops import held_karp_kernels as hkk
+    from tsp_mpi_reduction_tpu_torch.ops import local_search as ls
     from tsp_mpi_reduction_tpu_torch.perf import compile_cache
 
     # --- the CLI in a fresh process, and what importing it loads
@@ -3241,12 +3259,33 @@ def phase_lint(smi):
     for warm in (argv, argv + ["--device-loop=off"], SHARD_CLI["pair"][0] + ["--backend=cuda"],
                  SHARD_CLI["device"][0] + ["--backend=cuda"]):
         run_bnb_cli(warm)
-    marks = ("dispatch", "_pop_stage", "_search_step", "solve")
-    dev_out, dev_sites, dev_marked, dev_attr = capture_syncs(lambda: run_bnb_cli(argv), marks=marks)
-    host_out, host_sites, host_marked, host_attr = capture_syncs(
-        lambda: run_bnb_cli(argv + ["--device-loop=off"]), marks=marks)
+    marks = ("dispatch", "_pop_stage", "_search_step", "solve", "_polish")
+    polish_runs = {}
+
+    def counted(tag, fn):
+        before = dict(ls.POLISH_STATS)
+        out = capture_syncs(fn, marks=marks)
+        polish_runs[tag] = {k: ls.POLISH_STATS[k] - before[k] for k in before}
+        return out
+
+    dev_out, dev_sites, dev_marked, dev_attr = counted("device", lambda: run_bnb_cli(argv))
+    host_out, host_sites, host_marked, host_attr = counted("host", lambda: run_bnb_cli(argv + ["--device-loop=off"]))
     with compile_cache_setting("off"):
-        eager_out, eager_sites, eager_marked, eager_attr = capture_syncs(lambda: run_bnb_cli(argv), marks=marks)
+        eager_out, eager_sites, eager_marked, eager_attr = counted("eager", lambda: run_bnb_cli(argv))
+    # the ILS's polishes: replayed, one read a run of POLISH_READ_STEPS steps
+    # plus the ILS loop's own upload and download of each batch; eager, a read
+    # every sweep iteration
+    for tag, out, marked in (("device", dev_out, dev_marked), ("host", host_out, host_marked),
+                             ("eager", eager_out, eager_marked)):
+        pr = polish_runs[tag]
+        polishes = 1 + ILS_ROUNDS
+        print(f"phase 19 eil51 ILS ({tag} run{', TSP_COMPILE_CACHE=off' if tag == 'eager' else ''}): "
+              f"{marked['_polish']} syncs in its {polishes} polishes; replayed polish calls {pr['calls']}, "
+              f"{pr['steps']} steps issued, {pr['lane_steps']} moved in by the slowest lanes, {pr['reads']} "
+              f"reads; ILS {out['setup_ils_s']} s, time to proof {out['time_to_proof_s']} s")
+        if tag != "eager":
+            require(pr["calls"] == polishes and marked["_polish"] <= pr["reads"] + 2 * polishes,
+                    f"phase 19 eil51 ILS ({tag}): {marked['_polish']} syncs for {pr}")
     for what, out in (("device loop", dev_out), ("host loop", host_out)):
         require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST,
                 f"phase 19 eil51 ({what}): {out.get('cost')} proven {out.get('proven_optimal')}")
@@ -3693,8 +3732,163 @@ def phase_store(smi):  # a check harness: it builds inputs and reads results onc
         del dist, costs, local, tours, first, second, eager
         compile_cache.clear()
         torch.cuda.empty_cache()
+    store_polish_ascent()
     print(f"phase 21 store: {json.dumps(compile_cache.stats_dict())}")
     print(f"phase 21 card: {smi}")
+
+
+def ils_batches(d64, rounds: int):
+    """The batches an ILS of ``rounds`` rounds polishes on the card, as
+    ``branch_bound._IlsRun`` makes them (16 starts, then the kicks)."""
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+
+    seen = []
+
+    class Run(bb._IlsRun):
+        def _polish(self, tours):
+            seen.append(tours.astype("int64"))
+            return super()._polish(tours)
+
+    run = Run(d64, starts=16, perturbations=rounds, device="cuda")
+    while not run.done:
+        run.step()
+    return seen
+
+
+def store_polish_ascent():  # a check harness: it builds inputs and reads results once a case  # graftlint: disable=R2
+    """Phase 21's second half: the local search and the device ascent
+    through the store (entries ``polish`` and ``one_tree_ascent``) on a
+    cold key each, against their eager paths (``TSP_COMPILE_CACHE=off``)
+    bit for bit: a first call that captures once, a second under
+    ``RecompilationGuard(limit=0)``, then the eager call; each key's
+    capture seconds and bytes, and the replayed calls' steps, no-op steps
+    and host reads."""
+    import numpy as np
+    import torch
+
+    from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
+    from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import local_search as ls
+    from tsp_mpi_reduction_tpu_torch.ops import one_tree as ot
+    from tsp_mpi_reduction_tpu_torch.models.pipeline import run_pipeline
+    from tsp_mpi_reduction_tpu_torch.ops.distance import distance_matrix_np
+    from tsp_mpi_reduction_tpu_torch.parallel import mesh
+    from tsp_mpi_reduction_tpu_torch.parallel.seq_improve import ring_two_opt
+    from tsp_mpi_reduction_tpu_torch.perf import compile_cache
+    from tsp_mpi_reduction_tpu_torch.utils import tsplib
+
+    dev = torch.device("cuda")
+    cases = []
+    for name in ("eil51", "berlin52"):
+        d64 = tsplib.embedded(name).distance_matrix()
+        d32 = torch.as_tensor(d64.astype(np.float32), device=dev)
+        first, kick = ils_batches(d64, rounds=1)
+        for which, tours in (("first", first), ("round", kick)):
+            t = torch.as_tensor(tours, device=dev)
+            # a round's batch has the first batch's key: it captures nothing
+            cases.append((f"{name} ILS {which} batch", int(which == "first"),
+                          lambda t=t, d=d32: ls.polish(t, d)))
+    # serve's blocked rung: one 1024-city tour, 6 rounds (a nearest-neighbour
+    # tour stands in for the fold's)
+    xy = np.random.default_rng(SERVE_SEED + 3).uniform(0, 1000, (SERVE_GROUPS["C"][1], 2))
+    dxy = distance_matrix_np(xy)
+    serve_t = torch.as_tensor(bb.nearest_neighbor_tour(dxy, 0)[:-1].astype(np.int64), device=dev)[None]
+    serve_d = torch.as_tensor(dxy, dtype=torch.float32, device=dev)
+    cases.append(("serve 1 x 1024 polish, 6 rounds", 1, lambda: ls.polish(serve_t, serve_d, max_rounds=6)))
+    # phase 17's ring: 4 open segments of 256 cities a round (8 rounds),
+    # then the closed polish of the 1024-city tour, float64
+    n_r, nb_r, grid_r = PROCS_RING
+    ring_in = run_pipeline(n_r, nb_r, grid_r, grid_r, dtype=torch.float64, device=dev)
+    ring_d = ring_in.dist
+    ring_t = torch.as_tensor(ring_in.tour_ids[:-1].astype(np.int64), device=dev)
+    cases.append(("ring 4 x 256 open segments + 1 x 1024 closed polish (float64)", 2,
+                  lambda: (ring_two_opt(ring_t, ring_d, mesh.BatchedRanks(4)),)))
+    compile_cache.clear()  # cold keys: each case's first call captures its own
+    for what, want_captures, fn in cases:
+        captures0 = ls.POLISH._cache_size()
+        first, first_s = wall_s(fn)
+        captures = ls.POLISH._cache_size() - captures0
+        before = dict(ls.POLISH_STATS)
+        with RecompilationGuard({"polish": ls.POLISH}, limit=0) as guard:
+            second, replay_s = wall_s(fn)
+        steps = {k: ls.POLISH_STATS[k] - before[k] for k in before}
+        with compile_cache_setting("off"):
+            eager, eager_s = wall_s(fn)
+        require(captures == want_captures and guard.misses() == {"polish": 0},
+                f"phase 21 {what}: {captures} captures (want {want_captures}), then {guard.misses()} "
+                f"under the guard")
+        for tag, got in (("first", first), ("second", second)):
+            require(all(torch.equal(a, b) for a, b in zip(got, eager)),
+                    f"phase 21 {what}: the {tag} replayed polish != the eager one")
+        require(steps["reads"] * ls.POLISH_READ_STEPS == steps["steps"]
+                and steps["steps"] - steps["lane_steps"] < steps["calls"] * ls.POLISH_READ_STEPS,
+                f"phase 21 {what}: polish counts {steps}")
+        graphs = [g for g in compile_cache._STORE._graphs.values() if g.name == "polish"][-captures:] \
+            if captures else []
+        sizes = "; ".join(f"{tuple(g.inputs[0].shape)} {g.inputs[3].dtype}: capture {g.capture_s:.4f} s, "
+                          f"{g.nbytes} bytes ({g.pool_bytes} pool)" for g in graphs)
+        print(f"phase 21 polish, {what}: first call {first_s:.4f} s ({captures} capture(s){': ' if sizes else ''}"
+              f"{sizes}); "
+              f"replayed {replay_s:.4f} s with 0 captures under RecompilationGuard(limit=0), "
+              f"{steps['calls']} call(s), {steps['steps']} steps issued, {steps['lane_steps']} moved in by "
+              f"the slowest lanes ({steps['steps'] - steps['lane_steps']} no-op), {steps['reads']} host reads; "
+              f"eager (TSP_COMPILE_CACHE=off) {eager_s:.4f} s; tours and sums equal (torch.equal)")
+    # the replayed step's own time: a stored polish graph replayed on its
+    # buffers (every lane done, the same kernels), by CUDA events
+    for g in [g for g in compile_cache._STORE._graphs.values() if g.name == "polish"]:
+        g.acquire()
+        try:
+            g.replay(4)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.replay(64)
+            e1.record()
+            e1.synchronize()
+        finally:
+            g.release()
+        print(f"phase 21 polish step {tuple(g.inputs[0].shape)} {g.inputs[3].dtype}: "
+              f"{e0.elapsed_time(e1) / 64:.4f} ms a replayed step (64 replays, CUDA events); "
+              f"POLISH_READ_STEPS {ls.POLISH_READ_STEPS}")
+
+    # the read cadence: eil51's whole ILS (16 starts, 30 rounds) with
+    # POLISH_READ_STEPS at 2, 4, 8 and 16, there and back
+    d51 = tsplib.embedded("eil51").distance_matrix()
+    chosen, cadence, tours = ls.POLISH_READ_STEPS, {}, []
+    try:
+        for every in (2, 4, 8, 16, 16, 8, 4, 2):
+            ls.POLISH_READ_STEPS = every
+            before = dict(ls.POLISH_STATS)
+            tour, secs = wall_s(lambda: bb.strong_incumbent(d51, starts=16, device="cuda"))
+            cadence.setdefault(every, []).append((secs, {k: ls.POLISH_STATS[k] - before[k] for k in before}))
+            tours.append(tour)
+            require(np.array_equal(tour, tours[0]), f"phase 21: the ILS's tour changed with POLISH_READ_STEPS {every}")
+    finally:
+        ls.POLISH_READ_STEPS = chosen
+    for every, runs in sorted(cadence.items()):
+        st = runs[0][1]
+        print(f"phase 21 eil51 ILS at POLISH_READ_STEPS {every}: {runs[0][0]:.4f} / {runs[1][0]:.4f} s; "
+              f"{st['steps']} steps issued, {st['steps'] - st['lane_steps']} no-op, {st['reads']} reads in "
+              f"{st['calls']} polishes{' (the setting)' if every == chosen else ''}")
+
+    # --- the device ascent (eil51, 400 float32 steps: solve(ascent="device")'s)
+    d32 = torch.as_tensor(tsplib.embedded("eil51").distance_matrix().astype(np.float32), device=dev)
+    captures0 = ot.ASCENT._cache_size()
+    first, first_s = wall_s(lambda: ot.held_karp_potentials(d32, steps=400))
+    with RecompilationGuard({"one_tree_ascent": ot.ASCENT}, limit=0) as guard:
+        second, replay_s = wall_s(lambda: ot.held_karp_potentials(d32, steps=400))
+    with compile_cache_setting("off"):
+        eager, eager_s = wall_s(lambda: ot.held_karp_potentials(d32, steps=400))
+    captures = ot.ASCENT._cache_size() - captures0
+    require(captures == 1 and guard.misses() == {"one_tree_ascent": 0}
+            and all(torch.equal(a, b) for a, b in zip(first, eager))
+            and all(torch.equal(a, b) for a, b in zip(second, eager)),
+            f"phase 21 ascent: {captures} captures, guard {guard.misses()}, replayed {second[1]} eager {eager[1]}")
+    g = [g for g in compile_cache._STORE._graphs.values() if g.name == "one_tree_ascent"][-1]
+    print(f"phase 21 device ascent (eil51, 400 float32 steps): first call {first_s:.4f} s (1 capture "
+          f"{g.capture_s:.4f} s, {g.nbytes} bytes, {g.pool_bytes} pool), replayed {replay_s:.4f} s with 0 "
+          f"captures under RecompilationGuard(limit=0), eager {eager_s:.4f} s; pi and best w equal "
+          f"(torch.equal), best w {float(second[1]):.6f}")
+    print(f"phase 21 store after the polish and the ascent: {json.dumps(compile_cache.store_info())}")
 
 
 # -- phase 22: the B&B step's graph ---------------------------------------------
@@ -3713,6 +3907,7 @@ def phase_step_graph(smi):
 
     from tsp_mpi_reduction_tpu_torch.analysis.contracts import RecompilationGuard
     from tsp_mpi_reduction_tpu_torch.models import branch_bound as bb
+    from tsp_mpi_reduction_tpu_torch.ops import local_search as ls
     from tsp_mpi_reduction_tpu_torch.perf import compile_cache
     from tsp_mpi_reduction_tpu_torch.utils import tsplib
 
@@ -3762,6 +3957,25 @@ def phase_step_graph(smi):
           f"(the graph is held for a whole search, so the second waits)")
     print(f"phase 22 store: {json.dumps(compile_cache.stats_dict()['entries'].get('bnb_step'))}, "
           f"{json.dumps(compile_cache.store_info())}")
+
+    # --- eil51's ILS and time to proof through the CLI, the polish replayed
+    # and under TSP_COMPILE_CACHE=off (the nested lane loops), ABBA
+    runs = []
+    for cache in (None, "off", "off", None):
+        before = dict(ls.POLISH_STATS)
+        with compile_cache_setting(cache):
+            out = run_bnb_cli([name, "--backend=cuda", f"--k={k}", f"--capacity={cap}"])
+        pr = {key: ls.POLISH_STATS[key] - before[key] for key in before}
+        require(out["proven_optimal"] and out["cost"] == BNB_FULL_COST and out["nodes_expanded"] == BNB_FULL_NODES
+                and pr["calls"] == (1 + ILS_ROUNDS if cache is None else 0),
+                f"phase 22 eil51 ({cache or 'replayed'}): {out.get('cost')} in {out.get('nodes_expanded')} "
+                f"nodes, polish counts {pr}")
+        runs.append((cache, out, pr))
+    cells = " / ".join(f"ILS {o['setup_ils_s']} s, time to proof {o['time_to_proof_s']} s"
+                       + (f" ({p['steps']} polish steps issued, {p['reads']} reads)" if c is None else "")
+                       for c, o, p in runs)
+    print(f"phase 22 eil51 through the CLI, the ILS replayed / eager / eager / replayed: {cells}; 153,747 "
+          f"nodes every run")
     print(f"phase 22 card: {smi}")
 
 

@@ -105,3 +105,29 @@ def test_serve_store_leg_runs_abba_and_holds_the_answers(records, ok):
     leg = bench._serve_store_leg(child, "/nowhere")
     assert [s for _, s in calls] == ["store", "off", "off", "store"] and {m for m, _ in calls} == {"serve_mix"}
     assert leg["order"] == "ABBA" and leg["ok"] is ok and len(leg["runs"]["store"]) == 2
+
+
+def _wide_record(costs, captures, polish_captures, evictions):
+    reqs = [{"cost": c, "round": r, "captures": captures[r], "polish_captures": polish_captures[r]}
+            for r in (0, 1) for c in costs]
+    return {"mix": {"requests": reqs, "tiers": ["pipeline"]}, "captures": sum(captures),
+            "store_info": {"evictions": evictions}}
+
+
+def test_serve_wide_leg_counts_evictions_and_second_pass_captures():
+    """The wide stream's leg: ABBA on its own child mode; each store run's
+    evictions and the captures its second pass made again."""
+    records = {"store": [_wide_record([1.0, 2.0], (2, 1), (2, 1), 3), _wide_record([1.0, 2.0], (2, 0), (2, 0), 0)],
+               "off": [_wide_record([1.0, 2.0], (0, 0), (0, 0), 0)] * 2}
+    calls = []
+
+    def child(mode, cache):
+        setting = "off" if cache == "off" else "store"
+        calls.append((mode, setting))
+        return records[setting][sum(1 for _, s in calls if s == setting) - 1]
+
+    leg = bench._serve_wide_leg(child, "/nowhere")
+    assert calls == [("serve_mix_wide", s) for s in ("store", "off", "off", "store")]
+    assert leg["ok"] and leg["sizes"] == list(bench.STORE_WIDE_SIZES) and len(leg["sizes"]) == 24
+    assert leg["second_pass_captures"] == [4, 0] and leg["evictions"] == [3, 0]
+    assert set(bench.STORE_MIX_SIZES) < set(bench.STORE_WIDE_SIZES)

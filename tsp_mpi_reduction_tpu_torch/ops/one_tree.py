@@ -14,6 +14,13 @@ inside its loop. For node potentials pi the reduced costs
 ``held_karp_potentials_np`` maximises ``w`` by subgradient ascent; the
 branch-and-bound setup (``models/branch_bound._bound_setup``) quantises
 the potentials and re-evaluates the root bound with ``one_tree_value_np``.
+
+The JAX ascent is one ``fori_loop`` program (``one_tree.py:81-117``). On
+CUDA with the graph store on, :func:`held_karp_potentials` captures one
+iteration (:func:`_ascent_step`, store entry ``one_tree_ascent``) and
+replays it ``steps`` times with no host read; on the CPU and under
+``TSP_COMPILE_CACHE=off`` its iterations run eagerly. Both give the same
+bits.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..perf import compile_cache
 
 INF = float("inf")
 
@@ -72,23 +81,77 @@ def held_karp_potentials(d: torch.Tensor, steps: int = 100) -> Tuple[torch.Tenso
     ``t0 * decay^i`` with ``t0 = max(w0, 1) / (2n)`` and a decay that
     shrinks the step by 1e-3 over the horizon; the best (pi, w) seen is
     kept. Every step stays on the device: no host read in the loop."""
-    n = d.shape[0]
-    if n < 3:
-        raise ValueError(f"1-tree bound needs n >= 3 cities, got {n}")
-    d = torch.where(torch.eye(n, dtype=torch.bool, device=d.device), INF, d)
-    pi = torch.zeros(n, dtype=d.dtype, device=d.device)
+    d, pi, best_w, t0, decay = _ascent_start(d, steps)
+    if steps > 0 and d.device.type == "cuda" and compile_cache.store_enabled():
+        return _ascent_steps(d, pi, best_w, t0, decay, steps)
     best_pi = pi
-    best_w = torch.tensor(-INF, dtype=d.dtype, device=d.device)
-    w0, _ = one_tree_cost_degrees(d)
-    t0 = torch.clamp(w0, min=1.0) / (2.0 * n)
-    decay = torch.tensor(1e-3, dtype=d.dtype, device=d.device) ** (1.0 / max(steps, 1))
-    for i in range(steps):
+    for i in range(steps):  # eager on the CPU or by request; on CUDA the step replays
         w, deg = one_tree_cost_degrees(d + (pi[:, None] + pi[None, :]))
         w = w - 2.0 * pi.sum()
         best_pi = torch.where(w > best_w, pi, best_pi)
         best_w = torch.maximum(best_w, w)
         pi = pi + (t0 * decay**i) * (deg - 2).to(d.dtype)
     return best_pi, best_w
+
+
+def _ascent_start(d: torch.Tensor, steps: int):
+    """The ascent's start -> (``d`` with an inf diagonal, pi = 0, best w =
+    -inf, ``t0``, ``decay``), as :func:`held_karp_potentials`'s loop takes
+    them."""
+    n = d.shape[0]
+    if n < 3:
+        raise ValueError(f"1-tree bound needs n >= 3 cities, got {n}")
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=d.device), INF, d)
+    pi = torch.zeros(n, dtype=d.dtype, device=d.device)
+    best_w = torch.tensor(-INF, dtype=d.dtype, device=d.device)
+    w0, _ = one_tree_cost_degrees(d)
+    t0 = torch.clamp(w0, min=1.0) / (2.0 * n)
+    decay = torch.tensor(1e-3, dtype=d.dtype, device=d.device) ** (1.0 / max(steps, 1))
+    return d, pi, best_w, t0, decay
+
+
+def _step_table(t0: torch.Tensor, decay: torch.Tensor, steps: int) -> torch.Tensor:
+    """The ``[steps]`` step sizes, each by the eager loop's own expression
+    ``t0 * decay**i`` (a device ``pow`` of a tensor ``i`` need not give the
+    same bits)."""
+    return torch.stack([t0 * decay**i for i in range(steps)])
+
+
+def _ascent_step(pi: torch.Tensor, best_pi: torch.Tensor, best_w: torch.Tensor, d: torch.Tensor,
+                 table: torch.Tensor, i: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:  # graftlint: hot
+    """One ascent iteration in place, with no host read: the 1-tree of the
+    reduced costs, the best (pi, w) update and the pi step by ``table``'s
+    entry at the 0-d int64 step index ``i``, which advances by one. The
+    body of :func:`held_karp_potentials`'s loop (the JAX ``fori_loop``
+    body, ``one_tree.py:97-112``). Returns (best pi, best w)."""
+    w, deg = one_tree_cost_degrees(d + (pi[:, None] + pi[None, :]))
+    w = w - 2.0 * pi.sum()
+    best_pi.copy_(torch.where(w > best_w, pi, best_pi))
+    best_w.copy_(torch.maximum(best_w, w))
+    pi.copy_(pi + table.index_select(0, i.view(1)) * (deg - 2).to(d.dtype))
+    i.add_(1)
+    return best_pi, best_w
+
+
+#: the device ascent's entry in the graph store: :func:`_ascent_step`
+#: captured once per key (n, dtype, the step count as the table's shape,
+#: device) and replayed ``steps`` times an ascent
+ASCENT = compile_cache.GraphEntry("one_tree_ascent", _ascent_step)
+
+
+def _ascent_steps(d: torch.Tensor, pi: torch.Tensor, best_w: torch.Tensor, t0: torch.Tensor,
+                  decay: torch.Tensor, steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ascent by :func:`_ascent_step` from its table: ``steps`` replays
+    of the stored graph on CUDA with the store on, else the same step
+    eagerly (a check on the CPU) -> (best pi, best w)."""
+    args = (pi.clone(), pi.clone(), best_w.clone(), d, _step_table(t0, decay, steps),
+            torch.zeros((), dtype=torch.int64, device=d.device))
+    g = ASCENT.graph(*args)
+    if g is not None:
+        return g(*args, replays=steps)
+    for _ in range(steps):  # the table-driven step eagerly: a check off the card
+        out = _ascent_step(*args)
+    return out
 
 
 def one_tree_np(d64, pi64):

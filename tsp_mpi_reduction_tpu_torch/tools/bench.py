@@ -138,8 +138,11 @@ unit, gates and ``vs_baseline``).
   sizes twice, one request at a time: ``STORE_MIX_*``) in fresh processes
   with the store and without it, ABBA: latency p50/p99 a group, the
   fold's seconds, captures and the store's size; the sized stream's
-  costs equal in every run. The B&B step's graph: each chunk child's
-  captures (``{cold,warm}_step_captures``: 1 a process with the store,
+  costs equal in every run; then the same with the 24 sizes of
+  ``STORE_WIDE_SIZES``, whose fold and polish graphs overrun the store
+  (``wide``: its evictions and second-pass captures). The B&B step's
+  graph: each chunk child's captures
+  (``{cold,warm}_step_captures``: 1 a process with the store,
   0 off) and, on the card, ``step``: ``warm_compile_device_solver`` at
   ``bnb``'s eil51 shapes in this process, a capture and then the same
   call again, 0 captures. ``--quick`` skips the populating runs, the
@@ -1952,8 +1955,9 @@ def compile_child() -> int:
     the CUDA context and the kernels, :func:`_ready_process`); ``serve``
     (optionally ``precompile``-ing the shape) submits one batch and reports
     the first flush and its tours; ``serve_mix`` runs
-    :func:`serve_mix_child`. Cold or warm is the parent's
-    ``TSP_COMPILE_CACHE`` alone: ``off``, or a shared directory."""
+    :func:`serve_mix_child` (``serve_mix_wide`` on ``STORE_WIDE_SIZES``).
+    Cold or warm is the parent's ``TSP_COMPILE_CACHE`` alone: ``off``, or
+    a shared directory."""
     mode = os.environ.get("TSP_BENCH_COMPILE_MODE", "chunk")
     from ..perf import compile_cache
     from ..utils.backend import resolve_device
@@ -1964,6 +1968,9 @@ def compile_child() -> int:
     compile_cache.enable()
     if mode == "serve_mix":
         print(json.dumps(serve_mix_child(device)))
+        return 0
+    if mode == "serve_mix_wide":
+        print(json.dumps(serve_mix_child(device, sizes=STORE_WIDE_SIZES)))
         return 0
     if mode == "serve":
         import numpy as np
@@ -2018,6 +2025,10 @@ def compile_child() -> int:
 STORE_MIX_GROUPS = (("A", 64, 16, 5000.0), ("C", 4, 1024, 20_000.0))
 STORE_MIX_SIZES = (72, 80, 96, 120, 128, 160, 192, 240, 256, 320, 384, 448, 512, 640, 768, 1024)
 STORE_MIX_DEADLINE_MS = 20_000.0
+#: the ``serve_store`` leg's wide stream: 24 sizes, the 16 and 8 between
+#: them. Each size is a key of the fold and of the polish, so its 48
+#: graphs overrun the store's 32 (``compile_cache.MAX_ENTRIES``)
+STORE_WIDE_SIZES = tuple(sorted(STORE_MIX_SIZES + (88, 112, 144, 176, 224, 288, 576, 896)))
 
 
 def serve_mix_child(device, groups=STORE_MIX_GROUPS, sizes=STORE_MIX_SIZES) -> Dict[str, Any]:
@@ -2029,7 +2040,7 @@ def serve_mix_child(device, groups=STORE_MIX_GROUPS, sizes=STORE_MIX_SIZES) -> D
     each request's ``serve.fold`` seconds are its own."""
     import numpy as np
 
-    from ..ops import merge
+    from ..ops import local_search, merge
     from ..perf import compile_cache
     from ..serve.service import ServiceConfig, SolveService, run_jsonl
 
@@ -2065,16 +2076,20 @@ def serve_mix_child(device, groups=STORE_MIX_GROUPS, sizes=STORE_MIX_SIZES) -> D
         for rnd in range(2):
             for n in sizes:
                 fold0, caps = svc.timer.snapshot().get("serve.fold", 0.0), merge.FOLD._cache_size()
+                pcaps, ev = local_search.POLISH._cache_size(), compile_cache.store_info()["evictions"]
                 r = svc.handle({"id": f"M{rnd}-{n}", "xy": rng.uniform(0, 1000, (n, 2)).tolist(),
                                 "deadline_ms": STORE_MIX_DEADLINE_MS})
                 mix.append({"round": rnd, "n": n, "tier": r["tier"], "latency_ms": r["latency_ms"],
                             "cost": r["cost"], "fold_s": svc.timer.snapshot().get("serve.fold", 0.0) - fold0,
-                            "captures": merge.FOLD._cache_size() - caps})
+                            "captures": merge.FOLD._cache_size() - caps,
+                            "polish_captures": local_search.POLISH._cache_size() - pcaps,
+                            "evictions": compile_cache.store_info()["evictions"] - ev})
     stats = compile_cache.stats_dict()
     return {"mode": "serve_mix", "store": compile_cache.store_enabled(), "abc": abc,
             "mix": {**lat(mix), "fold_s": sum(m["fold_s"] for m in mix), "requests": mix},
-            "captures": merge.FOLD._cache_size(), "capture_s": stats["compile_seconds_paid"],
-            "hits": stats["aot_hits"], "store_info": compile_cache.store_info()}
+            "captures": merge.FOLD._cache_size(), "polish_captures": local_search.POLISH._cache_size(),
+            "capture_s": stats["compile_seconds_paid"], "hits": stats["aot_hits"],
+            "store_info": compile_cache.store_info()}
 
 
 def _fold_leg(run: Run) -> Dict[str, Any]:
@@ -2156,24 +2171,50 @@ def _cli_leg(run: Run) -> Optional[Dict[str, Any]]:
     return {"n": run.n, "blocks": run.blocks, "order": "ABBA", "runs": runs, "costs_equal": len(costs) == 1}
 
 
-def _serve_store_leg(child: Callable, cache_dir: str) -> Optional[Dict[str, Any]]:
-    """:func:`serve_mix_child` in fresh processes with the store and under
-    ``TSP_COMPILE_CACHE=off``, ABBA -> each run's record, and whether the
-    sized stream was answered on the pipeline tier with the same costs in
-    every run (the fold's graph and its eager loop agree bit for bit)."""
+def _mix_abba(child: Callable, mode: str, cache_dir: str):
+    """``mode``'s :func:`serve_mix_child` in fresh processes with the store
+    and under ``TSP_COMPILE_CACHE=off``, ABBA -> (runs, costs equal, tiers,
+    ok), or None where the budget ran out. ``ok``: the sized stream was
+    answered on the pipeline tier with the same costs in every run (the
+    graphs and the eager loops agree bit for bit), nothing captured off."""
     runs: Dict[str, List[Dict[str, Any]]] = {"store": [], "off": []}
     for setting in ("store", "off", "off", "store"):
-        got = child("serve_mix", cache_dir if setting == "store" else "off")
+        got = child(mode, cache_dir if setting == "store" else "off")
         if got is None:
             return None
         runs[setting].append(got)
     every = runs["store"] + runs["off"]
     costs = {tuple(m["cost"] for m in r["mix"]["requests"]) for r in every}
     tiers = {t for r in every for t in r["mix"]["tiers"]}
+    ok = len(costs) == 1 and tiers == {"pipeline"} and all(r["captures"] == 0 for r in runs["off"])
+    return runs, len(costs) == 1, sorted(tiers), ok
+
+
+def _serve_store_leg(child: Callable, cache_dir: str) -> Optional[Dict[str, Any]]:
+    """:func:`serve_mix_child` on the 16 sizes that fill the store, by
+    :func:`_mix_abba` -> each run's record and the answers' agreement."""
+    got = _mix_abba(child, "serve_mix", cache_dir)
+    if got is None:
+        return None
+    runs, equal, tiers, ok = got
     return {"order": "ABBA", "groups": [list(g) for g in STORE_MIX_GROUPS], "sizes": list(STORE_MIX_SIZES),
-            "runs": runs, "mix_costs_equal": len(costs) == 1, "mix_tiers": sorted(tiers),
-            "ok": len(costs) == 1 and tiers == {"pipeline"}
-            and all(r["captures"] == 0 for r in runs["off"])}
+            "runs": runs, "mix_costs_equal": equal, "mix_tiers": tiers, "ok": ok}
+
+
+def _serve_wide_leg(child: Callable, cache_dir: str) -> Optional[Dict[str, Any]]:
+    """The same on the 24 sizes of ``STORE_WIDE_SIZES``, whose fold and
+    polish graphs overrun the store -> each run's record, and each store
+    run's evictions and captures in the stream's second pass (0 where the
+    store held every key)."""
+    got = _mix_abba(child, "serve_mix_wide", cache_dir)
+    if got is None:
+        return None
+    runs, equal, tiers, ok = got
+    second = [sum(m["captures"] + m["polish_captures"] for m in r["mix"]["requests"] if m["round"] == 1)
+              for r in runs["store"]]
+    return {"order": "ABBA", "sizes": list(STORE_WIDE_SIZES), "runs": runs, "mix_costs_equal": equal,
+            "mix_tiers": tiers, "second_pass_captures": second,
+            "evictions": [r["store_info"]["evictions"] for r in runs["store"]], "ok": ok}
 
 
 def _step_misses(child_out: Dict[str, Any]) -> int:
@@ -2272,6 +2313,10 @@ def _compile_legs(run: Run, workdir: str) -> Outcome:
         serve_store = _serve_store_leg(child, cache_dir)
         if serve_store is None:
             skipped.append("serve_store")
+        else:
+            serve_store["wide"] = _serve_wide_leg(child, cache_dir)
+            if serve_store["wide"] is None:
+                skipped.append("serve_store:wide")
     step = _step_leg(run) if run.budget.fits() else None
     if step is None and backend == "cuda":
         skipped.append("step")
@@ -2333,7 +2378,8 @@ def _compile_legs(run: Run, workdir: str) -> Outcome:
                           and artifact["serve"] is not None and artifact["serve"]["tours_match"]
                           and fold is not None and fold["equal"] and fold["captures_in_fold"] == 0
                           and (run.quick or (cli is not None and cli["costs_equal"]))
-                          and (serve_store is None or serve_store["ok"]))
+                          and (serve_store is None or (serve_store["ok"] and (serve_store["wide"] is None
+                                                                               or serve_store["wide"]["ok"]))))
     print(f"bench: compile: chunk cold {cold_s:.3f} s / warm {warm_s:.3f} s ({speedup}x); fold {fold}",
           file=sys.stderr)
     return Outcome(artifact, {"instance": instance, "backend": backend, "quick": run.quick})
