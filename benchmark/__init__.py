@@ -1,0 +1,6 @@
+"""The benchmark of the PyTorch and CUDA port (``tsp_mpi_reduction_tpu_torch``).
+
+``python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once. It imports
+neither JAX nor the JAX package.
+"""
